@@ -1,0 +1,51 @@
+// Shared definitions for the port's kernels.
+//
+// The device functions are also valid host C++ (MC_HD expands to nothing
+// outside nvcc), so their arithmetic can be compiled and checked by a host
+// compiler against the plain PyTorch versions.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define MC_HD __host__ __device__ __forceinline__
+#else
+#define MC_HD inline
+#endif
+
+MC_HD int mc_popc(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// Position of the highest set bit; -1 for x == 0.
+MC_HD int mc_msb(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return 31 - __clz(x);
+#else
+  return x ? 31 - __builtin_clz(x) : -1;
+#endif
+}
+
+MC_HD int mc_min(int a, int b) { return a < b ? a : b; }
+MC_HD int mc_max(int a, int b) { return a > b ? a : b; }
+
+// int32 arithmetic that wraps like jnp/torch int32 (signed overflow is
+// undefined in C++, so go through uint32).
+MC_HD int mc_add(int a, int b) { return (int)((uint32_t)a + (uint32_t)b); }
+MC_HD int mc_sub(int a, int b) { return (int)((uint32_t)a - (uint32_t)b); }
+MC_HD int mc_mul(int a, int b) { return (int)((uint32_t)a * (uint32_t)b); }
+
+// Floor division and floor modulo (Python / jnp / torch semantics; C's
+// `/` and `%` truncate toward zero). b > 0.
+MC_HD int mc_floordiv(int a, int b) {
+  int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+MC_HD int mc_floormod(int a, int b) {
+  int r = a % b;
+  return r < 0 ? r + b : r;
+}

@@ -1,0 +1,316 @@
+// One table of the whole-step betting engine, reference rules, as scalar
+// code for one thread (ops/cuda_engine.py).
+//
+// A transcription of the vectorized device functions of
+// montecarlo_tpu/ops/pallas_engine.py (_head_info :192, _street_update
+// :206, _street_merge :230, _settle_payout :291, _step_nosettle :326,
+// _settle_pass :499, _policy_prng :700) for one table: where the JAX form
+// selects over a leading seat or layer axis, this form loops over it. Every
+// `%` and `//` of the JAX form is a floor operation (mc_floormod,
+// mc_floordiv); int32 products wrap as they do in jnp.
+#pragma once
+
+#include "evaluator.cuh"
+#include "philox.cuh"
+
+// Street layer capacity under reference rules (pallas_engine.py:104).
+#define MC_L 6
+#define MC_MAX_RAISE 20
+#define MC_MAX_RAISES_PER_STREET 2
+
+// The packed per-table state: field order and sizes of
+// pallas_engine._field_layout(P, "reference"), one int per row.
+template <int P>
+struct MCTable {
+  int stage, cursor, street_raises, last_raiser, folded, in_hand, to_act,
+      order, wait, hand_ct, overflow, button;
+  int stacks[P], contrib[P], hole0[P], hole1[P], hand_start[P], delta_sum[P],
+      seat_delta[P];
+  int board[5], lvl[MC_L], ln[MC_L];
+  int pot_amt[4 * MC_L], pot_set[4 * MC_L], pot_n[4 * MC_L];
+};
+
+template <int P>
+MC_HD constexpr int mc_fields() {
+  return 12 + 7 * P + 5 + 2 * MC_L + 12 * MC_L;
+}
+static_assert(sizeof(MCTable<6>) == 4 * mc_fields<6>(), "layout");
+static_assert(mc_fields<6>() == 143, "F for P=6 under reference rules");
+
+// First unmasked play-order position scanning from cursor (_head_info).
+template <int P>
+MC_HD int mc_head(const MCTable<P>& s) {
+  int best = P;
+  for (int p = 0; p < P; ++p)
+    if ((s.order >> p) & 1) best = mc_min(best, mc_floormod(p - s.cursor, P));
+  return mc_floormod(s.cursor + best, P);
+}
+
+MC_HD int mc_street_total(const int* lvl) {
+  int t = lvl[0];
+  for (int j = 1; j < MC_L; ++j) t = mc_max(t, lvl[j]);
+  return t;
+}
+
+// Levels-form update-bets (_street_update) with do == true: +1 the n of
+// covered levels, sorted-insert a new boundary. Returns the overflow
+// latch: an insert into full levels drops the top row, as the JAX form's
+// shift does.
+MC_HD bool mc_street_update(int* lvl, int* ln, int a) {
+  int cnt = 0, pos = 0, n_inc[MC_L];
+  bool exists = false;
+  for (int j = 0; j < MC_L; ++j) {
+    bool v = lvl[j] > 0;
+    cnt += v;
+    n_inc[j] = ln[j] + (v && lvl[j] <= a);
+    exists |= v && lvl[j] == a;
+    pos += v && lvl[j] < a;
+  }
+  if (exists) {
+    for (int j = 0; j < MC_L; ++j) ln[j] = n_inc[j];
+    return false;
+  }
+  int new_n = pos == cnt ? 1 : (pos < MC_L ? ln[pos] : 0) + 1;
+  int nl[MC_L], nn[MC_L];
+  for (int j = 0; j < MC_L; ++j) {
+    if (j < pos) {
+      nl[j] = lvl[j];
+      nn[j] = n_inc[j];
+    } else if (j == pos) {
+      nl[j] = a;
+      nn[j] = new_n;
+    } else {
+      nl[j] = lvl[j - 1];
+      nn[j] = n_inc[j - 1];
+    }
+  }
+  for (int j = 0; j < MC_L; ++j) {
+    lvl[j] = nl[j];
+    ln[j] = nn[j];
+  }
+  return cnt >= MC_L;
+}
+
+// Levels-form merge-bets (_street_merge) with do == true: drop boundaries
+// no contribution matches and compact both columns.
+template <int P>
+MC_HD void mc_street_merge(int* lvl, int* ln, const int* contrib) {
+  int ol[MC_L], on[MC_L], k = 0;
+  for (int j = 0; j < MC_L; ++j) ol[j] = on[j] = 0;
+  for (int j = 0; j < MC_L; ++j) {
+    bool matched = false;
+    for (int p = 0; p < P; ++p) matched |= contrib[p] == lvl[j];
+    if (matched && lvl[j] > 0) {
+      ol[k] = lvl[j];
+      on[k] = ln[j];
+      ++k;
+    }
+  }
+  for (int j = 0; j < MC_L; ++j) {
+    lvl[j] = ol[j];
+    ln[j] = on[j];
+  }
+}
+
+// The betting half of step_table (_step_nosettle, reference rules). A
+// table whose hand ends latches `wait` and empties its play order.
+template <int P>
+MC_HD void mc_step_nosettle(MCTable<P>& s, int raw) {
+  if (s.order == 0) return;  // no head: the whole step is a no-op
+  const int head = mc_head(s);
+  const int cursor_after = (head + 1) % P;
+  const int head_bit = 1 << head;
+  const int stage0 = s.stage;
+
+  const int total = mc_street_total(s.lvl);
+  const int delta = mc_sub(total, s.contrib[head]);
+  const int stack_head = s.stacks[head];
+  const int cap = mc_sub(stack_head, delta);
+  const int clamped = mc_max(0, mc_min(raw, cap));
+  const int action = raw > 0 ? clamped : raw;
+  const bool is_fold = action < 0, is_raise = action > 0,
+             is_call = action == 0;
+  const int r = mc_max(action, 0);
+  const bool is_check = is_call && total == 0;
+  const bool threads = (is_call && total > 0) || is_raise;
+  const int amount = is_raise ? mc_add(r, total) : total;
+  const int paid = threads ? (is_raise ? mc_add(delta, r) : delta) : 0;
+
+  bool ovf = false;
+  if (threads)
+    ovf = mc_street_update(s.lvl, s.ln, amount);
+  else if (is_fold || is_check)
+    mc_street_merge<P>(s.lvl, s.ln, s.contrib);
+  if (threads) s.contrib[head] = mc_max(s.contrib[head], amount);
+  s.stacks[head] = mc_sub(s.stacks[head], paid);
+
+  // exact-equality all-ins leave :players (board.clj:53-89)
+  const bool went_all_in = threads && paid == stack_head;
+  if (is_fold || went_all_in) s.in_hand &= ~head_bit;
+  s.to_act = is_raise ? (s.in_hand & ~head_bit) : (s.to_act & ~head_bit);
+  if (is_fold) {
+    s.order &= ~head_bit;
+    s.folded |= head_bit;
+  } else {
+    s.cursor = cursor_after;
+  }
+  const int n_in = mc_popc((uint32_t)s.in_hand & ((1u << P) - 1u));
+
+  // flush the street into the pot slot of the current stage
+  if (s.to_act == 0 || n_in <= 1) {
+    for (int j = 0; j < MC_L; ++j) {
+      if (s.lvl[j] <= 0 || stage0 < 0 || stage0 > 3) continue;
+      int set = 0;
+      for (int p = 0; p < P; ++p)
+        if (s.contrib[p] >= s.lvl[j] && !((s.folded >> p) & 1)) set |= 1 << p;
+      int row = stage0 * MC_L + j;
+      s.pot_amt[row] = mc_sub(s.lvl[j], j ? s.lvl[j - 1] : 0);
+      s.pot_set[row] = set;
+      s.pot_n[row] = s.ln[j];
+    }
+    for (int j = 0; j < MC_L; ++j) s.lvl[j] = s.ln[j] = 0;
+    for (int p = 0; p < P; ++p) s.contrib[p] = 0;
+  }
+
+  // street transition (at most one under reference rules)
+  const bool stage_done = s.to_act == 0;
+  const bool gend = n_in <= 1 || (stage_done && s.stage == 3);
+  if (stage_done && !gend) {
+    s.stage += 1;
+    s.to_act = s.order = s.in_hand;
+    s.cursor = 0;
+  }
+  const bool ended = n_in <= 1 || (s.to_act == 0 && s.stage == 3);
+  if (ended) {
+    s.to_act = s.order = 0;
+    s.wait = 1;
+  }
+  const bool reset = s.stage != stage0 || ended;
+  s.street_raises = reset ? 0 : s.street_raises + is_raise;
+  if (is_raise) s.last_raiser = head;
+  if (reset) s.last_raiser = P;
+  s.overflow |= (int)ovf;
+}
+
+// Settlement and next hand for a waiting table (_settle_pass, reference
+// rules): showdown payout per pot row, delta meters, players-list
+// rotation by one, blinds, and the deal `cards` [2P + 5].
+template <int P>
+MC_HD void mc_settle_pass(MCTable<P>& s, const int* cards, int sb, int bb) {
+  if (!s.wait) return;
+  uint32_t bm[4] = {0u, 0u, 0u, 0u};
+  for (int i = 0; i < 5; ++i) mc_add_card(bm, s.board[i]);
+  int values[P], pay[P];
+  for (int p = 0; p < P; ++p) {
+    uint32_t m[4] = {bm[0], bm[1], bm[2], bm[3]};
+    mc_add_card(m, s.hole0[p]);
+    mc_add_card(m, s.hole1[p]);
+    values[p] = mc_eval_cmp(m[0], m[1], m[2], m[3]);
+    pay[p] = 0;
+  }
+  for (int row = 0; row < 4 * MC_L; ++row) {
+    int elig = s.pot_set[row] & s.in_hand, vmax = 0, cnt = 0;
+    for (int p = 0; p < P; ++p)
+      if ((elig >> p) & 1) vmax = mc_max(vmax, values[p]);
+    for (int p = 0; p < P; ++p) cnt += ((elig >> p) & 1) && values[p] == vmax;
+    if (cnt == 0) continue;
+    // amt * inflated n, integer split, remainders vanish
+    int share = mc_floordiv(mc_mul(s.pot_amt[row], s.pot_n[row]), cnt);
+    for (int p = 0; p < P; ++p)
+      if (((elig >> p) & 1) && values[p] == vmax) pay[p] = mc_add(pay[p], share);
+  }
+  int delta[P];
+  for (int p = 0; p < P; ++p) {
+    s.stacks[p] = mc_add(s.stacks[p], pay[p]);
+    delta[p] = mc_sub(s.stacks[p], s.hand_start[p]);
+    s.delta_sum[p] = mc_add(s.delta_sum[p], delta[p]);
+  }
+  s.hand_ct += 1;
+  // seat view of the positional deltas: roll by the button
+  if (s.button >= 0 && s.button < P)
+    for (int i = 0; i < P; ++i)
+      s.seat_delta[i] =
+          mc_add(s.seat_delta[i], delta[mc_floormod(i - s.button, P)]);
+
+  // next hand: rotate the players list by one, post blinds, deal
+  int rot[P];
+  for (int p = 0; p < P; ++p) rot[p] = s.stacks[(p + 1) % P];
+  for (int p = 0; p < P; ++p) {
+    int blind = p == 0 ? sb : (p == 1 ? bb : 0);
+    s.hand_start[p] = rot[p];
+    s.stacks[p] = mc_sub(rot[p], blind);
+    s.contrib[p] = blind;
+    s.hole0[p] = cards[p];
+    s.hole1[p] = cards[P + p];
+  }
+  for (int j = 0; j < MC_L; ++j) s.lvl[j] = s.ln[j] = 0;
+  s.lvl[0] = mc_min(sb, bb);
+  s.ln[0] = 2;
+  if (sb != bb) {
+    s.lvl[1] = mc_max(sb, bb);
+    s.ln[1] = 1;
+  }
+  for (int i = 0; i < 5; ++i) s.board[i] = cards[2 * P + i];
+  for (int row = 0; row < 4 * MC_L; ++row)
+    s.pot_amt[row] = s.pot_set[row] = s.pot_n[row] = 0;
+  const int full = (1 << P) - 1;
+  s.to_act = s.order = s.in_hand = full;
+  s.cursor = 2 % P;
+  s.folded = 0;
+  s.stage = 0;
+  s.button = mc_floormod(s.button + 1, P);
+  s.wait = 0;
+}
+
+// random_policy on two u32 words (_policy_prng): fold 15% (a free check
+// when nothing is owed), raise 30% by 1..20 while the street has fewer
+// than 2 raises, else call.
+template <int P>
+MC_HD int mc_policy(const MCTable<P>& s, uint32_t u, uint32_t amt_bits,
+                    uint32_t fold_bits, uint32_t raise_bits) {
+  int amt = (int)(amt_bits % (uint32_t)MC_MAX_RAISE) + 1;
+  int head = mc_head(s);
+  bool owes = mc_sub(mc_street_total(s.lvl), s.contrib[head]) > 0;
+  bool can_raise = s.street_raises < MC_MAX_RAISES_PER_STREET;
+  bool is_fold = u < fold_bits;
+  bool is_raise = u < raise_bits && !is_fold && can_raise;
+  return is_fold ? (owes ? -1 : 0) : (is_raise ? amt : 0);
+}
+
+// K3's work for one table: n_steps fused steps. act[i * stride] is step
+// i's raw action; stash[(h * (2P+5) + c) * stride] is card c of hand h.
+template <int P>
+MC_HD void mc_run_det(MCTable<P>& s, const int* act, const int* stash,
+                      long long stride, int n_steps, int hmax, int sb,
+                      int bb) {
+  constexpr int NC = 2 * P + 5;
+  for (int i = 0; i < n_steps; ++i) {
+    int hand_ptr = mc_min(s.hand_ct + 1, hmax - 1);
+    mc_step_nosettle(s, act[i * stride]);
+    if (s.wait) {
+      int deal[NC];
+      for (int c = 0; c < NC; ++c)
+        deal[c] = stash[((long long)hand_ptr * NC + c) * stride];
+      mc_settle_pass(s, deal, sb, bb);
+    }
+  }
+}
+
+// K4's work for one table: per iteration, `defer` betting slots of two
+// words each (u, then amt_bits), then 2P+5 deal words and a settle pass.
+template <int P>
+MC_HD void mc_run_prng(MCTable<P>& s, MCWords& src, int n_steps, int defer,
+                       int sb, int bb, uint32_t fold_bits,
+                       uint32_t raise_bits) {
+  constexpr int NC = 2 * P + 5;
+  for (int it = 0; it < n_steps / defer; ++it) {
+    for (int k = 0; k < defer; ++k) {
+      uint32_t u = src.next();
+      uint32_t amt_bits = src.next();
+      mc_step_nosettle(s, mc_policy(s, u, amt_bits, fold_bits, raise_bits));
+    }
+    int deal[NC];
+    mc_sample_cards<NC>(src, nullptr, 0, deal);
+    mc_settle_pass(s, deal, sb, bb);
+  }
+}

@@ -1,0 +1,82 @@
+// Device form of the comparison hand key (ops/evaluator.py:
+// eval_masks_cmp_impl, itself montecarlo_tpu/ops/evaluator.py:186-265).
+//
+// Four 15-bit suit masks (bit r = rank r, 2..14) -> an int key whose order
+// and ties equal the packed reference key's. Scalar, branch-free selects
+// on registers: ~100 integer ops, no memory traffic.
+#pragma once
+
+#include "common.cuh"
+
+// Ranks of the hand-value categories (montecarlo_tpu/handval.py).
+#define MC_CAT_PAIR 1
+#define MC_CAT_TWO_PAIR 2
+#define MC_CAT_TRIPS 3
+#define MC_CAT_STRAIGHT 4
+#define MC_CAT_FLUSH 5
+#define MC_CAT_FULL_HOUSE 6
+#define MC_CAT_QUADS 7
+#define MC_CAT_STRAIGHT_FLUSH 8
+
+MC_HD uint32_t mc_bit(int pos) { return pos >= 0 ? (1u << pos) : 0u; }
+
+// Top rank of the best 5-long run of set bits, else -1 (no wheel).
+MC_HD int mc_run5_top(uint32_t m) {
+  uint32_t r = m & (m >> 1) & (m >> 2) & (m >> 3) & (m >> 4);
+  return r ? mc_msb(r) + 4 : -1;
+}
+
+// Clear lowest set bits until at most n remain (bounded like the jnp form).
+MC_HD uint32_t mc_keep_top(uint32_t m, int n, int max_clears) {
+  for (int i = 0; i < max_clears; ++i)
+    if (mc_popc(m) > n) m &= m - 1;
+  return m;
+}
+
+MC_HD int mc_eval_cmp(uint32_t m0, uint32_t m1, uint32_t m2, uint32_t m3) {
+  uint32_t present = m0 | m1 | m2 | m3;
+  uint32_t c2p = (m0 & m1) | (m0 & m2) | (m0 & m3) | (m1 & m2) | (m1 & m3) |
+                 (m2 & m3);
+  uint32_t c3p = (m0 & m1 & m2) | (m0 & m1 & m3) | (m0 & m2 & m3) |
+                 (m1 & m2 & m3);
+  uint32_t c4 = m0 & m1 & m2 & m3;
+  uint32_t trips = c3p & ~c4;
+  uint32_t pairs = c2p & ~c3p;
+
+  int straight_top = mc_run5_top(present);
+  uint32_t fmask = (mc_popc(m0) >= 5 ? m0 : 0u) | (mc_popc(m1) >= 5 ? m1 : 0u) |
+                   (mc_popc(m2) >= 5 ? m2 : 0u) | (mc_popc(m3) >= 5 ? m3 : 0u);
+  int sf_top = mc_run5_top(fmask);
+
+  int q = mc_max(mc_msb(c4), 0);
+  int qk = mc_max(mc_msb(present & ~mc_bit(q)), 0);
+  int t_fh = mc_max(mc_msb(trips), 0);
+  int p_fh = mc_max(mc_msb((trips | pairs) & ~mc_bit(t_fh)), 0);
+
+  if (sf_top >= 0) return (MC_CAT_STRAIGHT_FLUSH << 19) | sf_top;
+  if (c4) return (MC_CAT_QUADS << 19) | (q << 4) | qk;
+  if (trips && (pairs || mc_popc(trips) >= 2))
+    return (MC_CAT_FULL_HOUSE << 19) | (t_fh << 4) | p_fh;
+  if (fmask) return (MC_CAT_FLUSH << 19) | (int)mc_keep_top(fmask, 5, 2);
+  if (straight_top >= 0) return (MC_CAT_STRAIGHT << 19) | straight_top;
+  if (trips)
+    return (MC_CAT_TRIPS << 19) | (t_fh << 15) |
+           (int)mc_keep_top(present & ~mc_bit(t_fh), 2, 2);
+  if (mc_popc(pairs) >= 2) {
+    uint32_t top2 = mc_keep_top(pairs, 2, 1);
+    return (MC_CAT_TWO_PAIR << 19) | (int)(top2 << 4) |
+           mc_max(mc_msb(present & ~top2), 0);
+  }
+  if (pairs) {
+    int p1 = mc_msb(pairs);
+    return (MC_CAT_PAIR << 19) | (p1 << 15) |
+           (int)mc_keep_top(present & ~mc_bit(p1), 3, 2);
+  }
+  return (int)mc_keep_top(present, 5, 2);
+}
+
+// Four suit masks of a list of card ids: suit = id / 13, bit = 2 + id % 13.
+MC_HD void mc_add_card(uint32_t m[4], int card) {
+  int suit = (card * 5) >> 6;  // == card / 13 for 0 <= card < 64
+  m[suit] |= 1u << (card - 13 * suit + 2);
+}

@@ -1,0 +1,102 @@
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as
+// 1, 2, 3", SC'11), written out for the port's kernels.
+//
+// A stream is keyed by (seed, stream id); word i of a stream is output
+// i % 4 of the block at counter (i / 4, stream_hi, c2, 0). Counter-based,
+// so a word's value depends only on (seed, stream, index), never on the
+// launch geometry. Bounded draws take one word modulo the bound, the draw
+// rule of the TPU kernels (bias bound / 2^32, about 1e-8 at bound 52).
+#pragma once
+
+#include "common.cuh"
+
+MC_HD void mc_mulhilo(uint32_t a, uint32_t b, uint32_t* hi, uint32_t* lo) {
+  uint64_t p = (uint64_t)a * (uint64_t)b;
+  *hi = (uint32_t)(p >> 32);
+  *lo = (uint32_t)p;
+}
+
+// The Philox4x32-10 block function, in place on the counter x[4].
+MC_HD void mc_philox4x32_10(uint32_t* x, uint32_t key0, uint32_t key1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    uint32_t hi0, lo0, hi1, lo1;
+    mc_mulhilo(0xD2511F53u, x[0], &hi0, &lo0);
+    mc_mulhilo(0xCD9E8D57u, x[2], &hi1, &lo1);
+    uint32_t y0 = hi1 ^ x[1] ^ key0;
+    uint32_t y2 = hi0 ^ x[3] ^ key1;
+    x[0] = y0; x[1] = lo1; x[2] = y2; x[3] = lo0;
+    key0 += 0x9E3779B9u;
+    key1 += 0xBB67AE85u;
+  }
+}
+
+struct MCPhilox {
+  uint32_t k0, k1;    // key: seed, low word of the stream id
+  uint32_t c1, c2;    // fixed counter words: high stream word, sub-stream
+  uint32_t block;     // next counter block
+  uint32_t buf[4];
+  int used;           // words of buf already returned
+
+  MC_HD MCPhilox(uint32_t seed, uint32_t stream_lo, uint32_t stream_hi,
+                 uint32_t sub)
+      : k0(seed), k1(stream_lo), c1(stream_hi), c2(sub), block(0), used(4) {}
+
+  MC_HD void refill() {
+    buf[0] = block; buf[1] = c1; buf[2] = c2; buf[3] = 0;
+    mc_philox4x32_10(buf, k0, k1);
+    ++block;
+    used = 0;
+  }
+
+  MC_HD uint32_t next() {
+    if (used == 4) refill();
+    return buf[used++];
+  }
+};
+
+// Source of u32 words for a random kernel: injected words when `words` is
+// non-null (word i at words[i * stride + offset]), else Philox.
+struct MCWords {
+  const int* words;
+  long long stride, offset, i;
+  MCPhilox rng;
+
+  MC_HD MCWords(const int* w, long long stride_, long long offset_,
+                uint32_t seed, uint32_t stream_lo, uint32_t stream_hi,
+                uint32_t sub)
+      : words(w), stride(stride_), offset(offset_), i(0),
+        rng(seed, stream_lo, stream_hi, sub) {}
+
+  MC_HD uint32_t next() {
+    if (words) return (uint32_t)words[(i++) * stride + offset];
+    return rng.next();
+  }
+};
+
+// Draw K distinct live cards (pallas_equity.py:65-93): draw t is one word
+// mod (live - t), made distinct by bubble insertion into the ascending
+// list of earlier draws, then shifted past the n_dead ascending dead cards.
+template <int K>
+MC_HD void mc_sample_cards(MCWords& src, const int* dead, int n_dead,
+                           int* cards) {
+  int n_live = 52 - n_dead;
+  int sorted_chosen[K];
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    int x = (int)(src.next() % (uint32_t)(n_live - t));
+#pragma unroll
+    for (int j = 0; j < t; ++j) x += x >= sorted_chosen[j];
+    int carry = x;
+#pragma unroll
+    for (int j = 0; j < t; ++j) {
+      int c = sorted_chosen[j];
+      sorted_chosen[j] = mc_min(carry, c);
+      carry = mc_max(carry, c);
+    }
+    sorted_chosen[t] = carry;
+    int card = x;
+    for (int d = 0; d < n_dead; ++d) card += card >= dead[d];
+    cards[t] = card;
+  }
+}

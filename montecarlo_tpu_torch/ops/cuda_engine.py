@@ -1,0 +1,660 @@
+"""Whole-step betting engine on the card: kernels K3 and K4.
+
+The counterpart of ``montecarlo_tpu/ops/pallas_engine.py:1-983``. The
+state is the JAX engine's packed per-table array, unchanged:
+``[n_blocks, F, 8, 128]`` int32, 1024 tables per block, field offsets from
+``_field_layout``; ``state_from_numpy`` / ``state_to_numpy`` move a JAX
+state in and out as it is.
+
+- K3 (``csrc/engine.cu:mc_engine_det_kernel``, ``run_perpetual_det``): one
+  fused ``step_table`` per step on injected raw actions and a per-hand
+  deal stash — the bit-exact anchor.
+- K4 (``mc_engine_prng_kernel``, ``run_perpetual_prng``): the random
+  policy, DEFER betting slots per settle pass and an in-kernel deal, on
+  Philox words (or injected words). ``prng_words`` computes the kernel's
+  Philox words in plain PyTorch, so for a given seed the CPU wrapper and
+  the kernel return the same state.
+
+Reference rules only in this slice: every engine entry raises
+``NotImplementedError`` for "standard" and "tournament". Seat counts
+2..10 are accepted.
+
+The plain versions ``_run_det_plain`` / ``_run_prng_plain`` translate the
+JAX device functions onto ``[rows, tables]`` tensors (tables on the last
+axis). A wrapper runs them only for CPU tensors; for a CUDA tensor it
+launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from montecarlo_tpu_torch.ops import _build
+from montecarlo_tpu_torch.ops.cuda_equity import _sample_cards
+from montecarlo_tpu_torch.ops.evaluator import (
+    eval_masks_cmp_impl,
+    suit_masks_from_cards,
+)
+from montecarlo_tpu_torch.ops.philox import stream_words, words_as_i32
+
+I32 = torch.int32
+I64 = torch.int64
+
+TILE = (8, 128)
+TABLES_PER_BLOCK = TILE[0] * TILE[1]
+
+# Betting slots per settle pass in the PRNG kernel (deferred settlement):
+# a table whose hand ends waits, as a no-op, until the pass settles,
+# rotates and redeals it. Runs whose length is not a multiple fall back to
+# one settle pass per slot (the fused step), as in the JAX kernel.
+DEFER = 16
+
+# Street layer capacity (reference rules / others) and policy constants,
+# as in the JAX engine.
+L = 6
+L_STANDARD = 10
+FOLD_P_BITS = int(0.15 * 2**32)
+RAISE_P_BITS = int((0.15 + 0.30) * 2**32)
+MAX_RAISE = 20
+MAX_RAISES_PER_STREET = 2
+MAX_SEATS = 10
+
+LAUNCHES = {"engine_det": 0, "engine_prng": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _L_for(rules: str) -> int:
+    return L if rules == "reference" else L_STANDARD
+
+
+def _field_layout(P: int, rules: str = "reference"):
+    """Name -> (offset, rows) of the packed per-table state; the JAX
+    engine's layout for every rule set."""
+    fields = [
+        ("stage", 1), ("cursor", 1), ("street_raises", 1),
+        ("last_raiser", 1), ("folded", 1), ("in_hand", 1), ("to_act", 1),
+        ("order", 1), ("wait", 1), ("hand_ct", 1), ("overflow", 1),
+        ("button", 1),
+        ("stacks", P), ("contrib", P), ("hole0", P), ("hole1", P),
+        ("hand_start", P), ("delta_sum", P), ("seat_delta", P),
+        ("board", 5), ("lvl", _L_for(rules)), ("ln", _L_for(rules)),
+        ("pot_amt", 4 * _L_for(rules)), ("pot_set", 4 * _L_for(rules)),
+    ]
+    if rules == "reference":
+        fields.append(("pot_n", 4 * _L_for(rules)))
+    else:
+        fields.append(("all_in", 1))
+    if rules == "tournament":
+        fields.append(("bust_at", P))
+    layout, off = {}, 0
+    for name, rows in fields:
+        layout[name] = (off, rows)
+        off += rows
+    return layout, off
+
+
+def _check_config(P: int, rules: str) -> None:
+    if rules != "reference":
+        raise NotImplementedError(
+            f"rules={rules!r}: the port's engine runs reference rules only")
+    if not 2 <= P <= MAX_SEATS:
+        raise ValueError(f"num_seats={P}: expected 2..{MAX_SEATS}")
+
+
+# ---------------------------------------------------------------------------
+# Host-side pack / unpack
+# ---------------------------------------------------------------------------
+
+def pack_state(cfg, first_cards) -> torch.Tensor:
+    """Initial packed state for ``n_tables`` tables, first hand dealt from
+    ``first_cards`` [n_tables, 2P+5] (holes round-robin, then the board)
+    and blinds posted. Returns [n_blocks, F, 8, 128] int32 on the device
+    of ``first_cards``."""
+    P, rules = cfg.num_seats, cfg.rules
+    _check_config(P, rules)
+    layout, F = _field_layout(P, rules)
+    fc = torch.as_tensor(first_cards).to(I32)
+    n_tables = fc.shape[0]
+    if n_tables % TABLES_PER_BLOCK:
+        raise ValueError(f"{n_tables} tables: not a multiple of "
+                         f"{TABLES_PER_BLOCK}")
+    sb, bb = cfg.small_blind, cfg.big_blind
+    if sb <= 0 or bb <= 0:
+        raise ValueError("blinds must be positive")
+    rows = torch.zeros((F, n_tables), dtype=I32, device=fc.device)
+
+    def put(name, i, val):
+        off, n = layout[name]
+        assert 0 <= i < n
+        rows[off + i] = val
+
+    full = (1 << P) - 1
+    put("cursor", 0, 2 % P)
+    put("last_raiser", 0, P)
+    put("in_hand", 0, full)
+    put("to_act", 0, full)
+    put("order", 0, full)
+    for k in range(P):
+        blind = sb if k == 0 else (bb if k == 1 else 0)
+        put("stacks", k, cfg.starting_stack - blind)
+        put("hand_start", k, cfg.starting_stack)
+        put("hole0", k, fc[:, k])
+        put("hole1", k, fc[:, P + k])
+    lo, hi = min(sb, bb), max(sb, bb)
+    put("lvl", 0, lo)
+    put("ln", 0, 2)
+    if lo != hi:
+        put("lvl", 1, hi)
+        put("ln", 1, 1)
+    put("contrib", 0, sb)
+    put("contrib", 1, bb)
+    for i in range(5):
+        put("board", i, fc[:, 2 * P + i])
+    return _to_blocks(rows)
+
+
+def _to_rows(state: torch.Tensor) -> torch.Tensor:
+    """[n_blocks, F, 8, 128] -> [F, n_tables] (table = block * 1024 +
+    sublane * 128 + lane)."""
+    nb, F = state.shape[:2]
+    return state.permute(1, 0, 2, 3).reshape(F, nb * TABLES_PER_BLOCK)
+
+
+def _to_blocks(rows: torch.Tensor) -> torch.Tensor:
+    F, T = rows.shape
+    return (rows.reshape(F, T // TABLES_PER_BLOCK, *TILE)
+            .permute(1, 0, 2, 3).contiguous())
+
+
+def unpack_field(state, cfg, name, i=0) -> torch.Tensor:
+    """[n_blocks, F, 8, 128] -> flat [n_tables] view of one field row."""
+    layout, _ = _field_layout(cfg.num_seats, cfg.rules)
+    off, rows = layout[name]
+    assert 0 <= i < rows
+    return state[:, off + i].reshape(-1)
+
+
+def state_from_numpy(arr, device="cpu") -> torch.Tensor:
+    """A packed state as numpy (e.g. from the JAX engine) -> int32 tensor."""
+    return torch.tensor(np.asarray(arr, np.int32), device=device)
+
+
+def state_to_numpy(state: torch.Tensor) -> np.ndarray:
+    return state.detach().cpu().numpy().astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the JAX device functions on [rows, tables] tensors
+# ---------------------------------------------------------------------------
+
+def _unpack(rows, layout):
+    return {name: rows[off] if n == 1 else rows[off:off + n]
+            for name, (off, n) in layout.items()}
+
+
+def _pack(st, layout):
+    return torch.cat([st[name][None] if n == 1 else st[name]
+                      for name, (off, n) in layout.items()], dim=0)
+
+
+def _iota(n, device):
+    return torch.arange(n, dtype=I32, device=device).view(n, 1)
+
+
+def _pick(stacked, idx):
+    """stacked[idx] per table (one-hot sum; 0 where idx is out of range)."""
+    one_hot = _iota(stacked.shape[0], stacked.device) == idx[None]
+    return torch.where(one_hot, stacked, 0).sum(0, dtype=I32)
+
+
+def _shift_down(x):
+    return torch.cat([torch.zeros_like(x[:1]), x[:-1]], dim=0)
+
+
+def _mask_bits(bm, P):
+    return (bm[None] >> _iota(P, bm.device)) & 1
+
+
+def _head_info(st, P):
+    cursor = st["cursor"]
+    prio = (_iota(P, cursor.device) - cursor[None]) % P
+    on = _mask_bits(st["order"], P) != 0
+    best = torch.where(on, prio, P).amin(0)
+    head = (cursor + best) % P
+    return head, (head + 1) % P, st["order"] != 0
+
+
+def _street_update(lvl, ln, amount, do):
+    n_rows = lvl.shape[0]
+    valid = lvl > 0
+    cnt = valid.sum(0, dtype=I32)
+    a = amount[None]
+    n_inc = ln + (valid & (lvl <= a)).to(I32)
+    exists = (valid & (lvl == a)).any(0)
+    pos = (valid & (lvl < a)).sum(0, dtype=I32)
+    new_n = torch.where(pos == cnt, 1, _pick(ln, pos) + 1)
+    rows = _iota(n_rows, lvl.device)
+    below, at = rows < pos[None], rows == pos[None]
+    ins_lvl = torch.where(below, lvl, torch.where(at, a, _shift_down(lvl)))
+    ins_ln = torch.where(below, n_inc,
+                         torch.where(at, new_n[None], _shift_down(n_inc)))
+    do_insert = do & ~exists
+    out_lvl = torch.where(do_insert[None], ins_lvl, lvl)
+    out_ln = torch.where(do_insert[None], ins_ln,
+                         torch.where(do[None], n_inc, ln))
+    return out_lvl, out_ln, do_insert & (cnt >= n_rows)
+
+
+def _street_merge(lvl, ln, contrib, do):
+    n_rows = lvl.shape[0]
+    matched = (contrib[None] == lvl[:, None]).any(1)
+    keep = matched & (lvl > 0)
+    rank = keep.to(I32).cumsum(0, dtype=I32) - 1
+    sel = ((rank[None] == _iota(n_rows, lvl.device)[:, None])
+           & keep[None])
+    out_lvl = torch.where(sel, lvl[None], 0).sum(1, dtype=I32)
+    out_ln = torch.where(sel, ln[None], 0).sum(1, dtype=I32)
+    return (torch.where(do[None], out_lvl, lvl),
+            torch.where(do[None], out_ln, ln))
+
+
+def _hand_values(st):
+    """Comparison keys [P, T] of every seat's 7 cards."""
+    bm = suit_masks_from_cards(st["board"].T)                 # 4 x [T]
+    holes = torch.stack([st["hole0"], st["hole1"]], dim=-1)   # [P, T, 2]
+    hm = suit_masks_from_cards(holes)                         # 4 x [P, T]
+    return eval_masks_cmp_impl(*[b[None] | h for b, h in zip(bm, hm)])
+
+
+def _settle_payout(st, pots_amt, pots_set, pots_n, in_hand, P):
+    """Showdown payout per pot row (reference rules), [P, T]."""
+    values = _hand_values(st)
+    dev = values.device
+    in_hand_b = _mask_bits(in_hand, P) != 0
+    set_bits = (pots_set[:, :, None] >> _iota(P, dev).view(1, 1, P, 1)) & 1
+    elig = (set_bits != 0) & in_hand_b[None, None]
+    vmax = torch.where(elig, values[None, None], 0).amax(2)
+    winners = elig & (values[None, None] == vmax[:, :, None])
+    cnt = winners.sum(2, dtype=I32)
+    total_pot = pots_amt * pots_n  # amt * inflated n; remainders vanish
+    share = torch.where(cnt > 0, total_pot // cnt.clamp(min=1), 0)
+    pay = torch.where(winners, share[:, :, None], 0)
+    return pay.sum((0, 1), dtype=I32)
+
+
+def _step_nosettle(st, raw_action, P):
+    """The betting half of ``step_table`` under reference rules; a table
+    whose hand ends latches ``wait`` and empties its play order."""
+    n_lvl = st["lvl"].shape[0]
+    T = st["stage"].shape[0]
+    dev = st["stage"].device
+    zero = torch.zeros_like(st["stage"])
+    head, cursor_after, exists = _head_info(st, P)
+    seats = _iota(P, dev)
+    head_onehot = seats == head[None]
+    head_bit = torch.ones_like(head) << head
+
+    total = st["lvl"].amax(0)
+    delta = total - _pick(st["contrib"], head)
+    stack_head = _pick(st["stacks"], head)
+    cap = stack_head - delta
+    clamped = torch.clamp(torch.minimum(raw_action, cap), min=0)
+    action = torch.where(raw_action > 0, clamped, raw_action)
+
+    is_fold = action < 0
+    is_raise = action > 0
+    is_call = action == 0
+    r = action.clamp(min=0)
+    is_check = is_call & (total == 0)
+    threads = (is_call & (total > 0)) | is_raise
+    amount = torch.where(is_raise, r + total, total)
+    paid = torch.where(threads, torch.where(is_raise, delta + r, delta), 0)
+
+    up_lvl, up_ln, ovf = _street_update(st["lvl"], st["ln"], amount, threads)
+    do_merge = is_fold | is_check
+    mg_lvl, mg_ln = _street_merge(st["lvl"], st["ln"], st["contrib"],
+                                  do_merge)
+    lvl = torch.where(do_merge[None], mg_lvl, up_lvl)
+    ln = torch.where(do_merge[None], mg_ln, up_ln)
+    contrib = torch.where(head_onehot & threads[None],
+                          torch.maximum(st["contrib"], amount[None]),
+                          st["contrib"])
+    stacks = st["stacks"] - torch.where(head_onehot, paid[None], 0)
+
+    went_all_in = threads & (paid == stack_head)
+    in_hand = st["in_hand"] & ~torch.where(is_fold | went_all_in, head_bit, 0)
+    to_act = torch.where(is_raise, in_hand & ~head_bit,
+                         st["to_act"] & ~head_bit)
+    order = st["order"] & ~torch.where(is_fold, head_bit, 0)
+    folded = st["folded"] | torch.where(is_fold, head_bit, 0)
+    cursor = torch.where(is_fold, st["cursor"], cursor_after)
+    n_in = _mask_bits(in_hand, P).sum(0, dtype=I32)
+
+    # flush the street into the pot slot of the current stage
+    flush = (to_act == 0) | (n_in <= 1)
+    live = lvl > 0
+    row_amt = lvl - _shift_down(lvl)
+    ge = (contrib[None] >= lvl[:, None]) & live[:, None]     # [L, P, T]
+    not_folded = _mask_bits(folded, P) == 0
+    seat_bits = torch.ones_like(seats) << seats
+    layer_set = torch.where(ge & not_folded[None], seat_bits[None],
+                            0).sum(1, dtype=I32)
+    pots_amt = st["pot_amt"].reshape(4, n_lvl, T)
+    pots_set = st["pot_set"].reshape(4, n_lvl, T)
+    pots_n = st["pot_n"].reshape(4, n_lvl, T)
+    w = ((flush[None] & (_iota(4, dev) == st["stage"][None]))[:, None]
+         & live[None])
+    pots_amt = torch.where(w, row_amt[None], pots_amt)
+    pots_set = torch.where(w, layer_set[None], pots_set)
+    pots_n = torch.where(w, ln[None], pots_n)
+    lvl = torch.where(flush[None], 0, lvl)
+    ln = torch.where(flush[None], 0, ln)
+    contrib = torch.where(flush[None], 0, contrib)
+
+    # street transition (at most one under reference rules)
+    stage = st["stage"]
+    stage_done = to_act == 0
+    gend = (n_in <= 1) | (stage_done & (stage == 3))
+    trans = stage_done & ~gend
+    stage = torch.where(trans, stage + 1, stage)
+    to_act = torch.where(trans, in_hand, to_act)
+    order = torch.where(trans, in_hand, order)
+    cursor = torch.where(trans, zero, cursor)
+    ended = (n_in <= 1) | ((to_act == 0) & (stage == 3))
+    to_act = torch.where(ended, zero, to_act)
+    order = torch.where(ended, zero, order)
+    wait = st["wait"] | ended.to(I32)
+
+    applied = (action > 0) & exists
+    reset = (stage != st["stage"]) | ended
+    street_raises = torch.where(reset, zero,
+                                st["street_raises"] + applied.to(I32))
+    last_raiser = torch.where(applied, head, st["last_raiser"])
+    last_raiser = torch.where(reset, zero + P, last_raiser)
+
+    out = {
+        "stage": stage, "cursor": cursor, "street_raises": street_raises,
+        "last_raiser": last_raiser, "folded": folded, "in_hand": in_hand,
+        "to_act": to_act, "order": order, "wait": wait,
+        "overflow": st["overflow"] | ovf.to(I32),
+        "stacks": stacks, "contrib": contrib, "lvl": lvl, "ln": ln,
+        "pot_amt": pots_amt.reshape(4 * n_lvl, T),
+        "pot_set": pots_set.reshape(4 * n_lvl, T),
+        "pot_n": pots_n.reshape(4 * n_lvl, T),
+    }
+    # no-head guard: a table with an empty play order is a no-op
+    guarded = {name: torch.where(exists if v.dim() == 1 else exists[None],
+                                 v, st[name])
+               for name, v in out.items()}
+    return {**st, **guarded}
+
+
+def _settle_pass(st, new_cards, P, sb, bb):
+    """Settlement and next hand for every table whose ``wait`` flag is up
+    (reference rules); ``new_cards``: [2P+5, T]."""
+    n_lvl = st["lvl"].shape[0]
+    T = st["stage"].shape[0]
+    dev = st["stage"].device
+    zero = torch.zeros_like(st["stage"])
+    ended = st["wait"] != 0
+    pots_amt = st["pot_amt"].reshape(4, n_lvl, T)
+    pots_set = st["pot_set"].reshape(4, n_lvl, T)
+    pots_n = st["pot_n"].reshape(4, n_lvl, T)
+
+    payout = _settle_payout(st, pots_amt, pots_set, pots_n, st["in_hand"], P)
+    stacks = torch.where(ended[None], st["stacks"] + payout, st["stacks"])
+    hand_ct = st["hand_ct"] + ended.to(I32)
+    delta = stacks - st["hand_start"]
+    delta_sum = st["delta_sum"] + torch.where(ended[None], delta, 0)
+    # seat view of the positional deltas: roll by the button
+    seat_delta_inc = torch.where(st["button"][None] == 0, delta, 0)
+    for b in range(1, P):
+        seat_delta_inc = seat_delta_inc + torch.where(
+            st["button"][None] == b, torch.roll(delta, b, dims=0), 0)
+    seat_delta = st["seat_delta"] + torch.where(ended[None], seat_delta_inc,
+                                                0)
+
+    # next hand: rotate the players list by one, blinds, deal
+    rot = torch.roll(stacks, -1, dims=0)
+    seats = _iota(P, dev)
+    hand_start = torch.where(ended[None], rot, st["hand_start"])
+    blinds = torch.where(seats == 0, sb, torch.where(seats == 1, bb, 0))
+    stacks = torch.where(ended[None], rot - blinds, stacks)
+    b_lvl, b_ln = ([min(sb, bb), 0], [2, 0]) if sb == bb else \
+        ([min(sb, bb), max(sb, bb)], [2, 1])
+    rows = _iota(n_lvl, dev)
+    blind_lvl = torch.where(rows == 0, b_lvl[0],
+                            torch.where(rows == 1, b_lvl[1], 0))
+    blind_ln = torch.where(rows == 0, b_ln[0],
+                           torch.where(rows == 1, b_ln[1], 0))
+    lvl = torch.where(ended[None], blind_lvl, st["lvl"])
+    ln = torch.where(ended[None], blind_ln, st["ln"])
+    contrib = torch.where(ended[None], blinds, st["contrib"])
+    full = (1 << P) - 1
+    out = {
+        "stage": torch.where(ended, zero, st["stage"]),
+        "cursor": torch.where(ended, 2 % P, st["cursor"]),
+        "folded": torch.where(ended, zero, st["folded"]),
+        "in_hand": torch.where(ended, full, st["in_hand"]),
+        "to_act": torch.where(ended, full, st["to_act"]),
+        "order": torch.where(ended, full, st["order"]),
+        "wait": torch.where(ended, zero, st["wait"]),
+        "hand_ct": hand_ct,
+        "button": torch.where(ended, (st["button"] + 1) % P, st["button"]),
+        "stacks": stacks, "contrib": contrib,
+        "hole0": torch.where(ended[None], new_cards[:P], st["hole0"]),
+        "hole1": torch.where(ended[None], new_cards[P:2 * P], st["hole1"]),
+        "board": torch.where(ended[None], new_cards[2 * P:], st["board"]),
+        "hand_start": hand_start, "delta_sum": delta_sum,
+        "seat_delta": seat_delta, "lvl": lvl, "ln": ln,
+        "pot_amt": torch.where(ended[None, None], 0, pots_amt)
+        .reshape(4 * n_lvl, T),
+        "pot_set": torch.where(ended[None, None], 0, pots_set)
+        .reshape(4 * n_lvl, T),
+        "pot_n": torch.where(ended[None, None], 0, pots_n)
+        .reshape(4 * n_lvl, T),
+    }
+    return {**st, **out}
+
+
+def _policy(st, u, amt_bits, P):
+    """random_policy on explicit words (int64 in [0, 2^32))."""
+    amt = (amt_bits % MAX_RAISE).to(I32) + 1
+    head, _, _ = _head_info(st, P)
+    owes = (st["lvl"].amax(0) - _pick(st["contrib"], head)) > 0
+    can_raise = st["street_raises"] < MAX_RAISES_PER_STREET
+    is_fold = u < FOLD_P_BITS
+    is_raise = (u < RAISE_P_BITS) & ~is_fold & can_raise
+    return torch.where(is_fold, torch.where(owes, -1, 0).to(I32),
+                       torch.where(is_raise, amt, 0).to(I32))
+
+
+def _run_det_plain(state, actions, cards, P, n_steps, sb, bb):
+    """Plain version of K3: ``n_steps`` fused steps on injected raw
+    actions [n_blocks, n_steps, 8, 128] and deals [n_blocks, hmax, 2P+5,
+    8, 128] (hand h > 0 reads stash row min(h, hmax - 1))."""
+    layout, F = _field_layout(P)
+    st = _unpack(_to_rows(state), layout)
+    T = st["stage"].shape[0]
+    acts = actions.permute(1, 0, 2, 3).reshape(actions.shape[1], T)
+    hmax, nc = cards.shape[1], cards.shape[2]
+    stash = cards.permute(1, 2, 0, 3, 4).reshape(hmax, nc, T)
+    for i in range(n_steps):
+        hand_ptr = torch.clamp(st["hand_ct"] + 1, max=hmax - 1)
+        deal = stash.gather(0, hand_ptr.long().view(1, 1, T)
+                            .expand(1, nc, T))[0]
+        st = _step_nosettle(st, acts[i], P)
+        st = _settle_pass(st, deal, P, sb, bb)
+    return _to_blocks(_pack(st, layout))
+
+
+def _defer_for(n_steps: int) -> int:
+    return DEFER if n_steps % DEFER == 0 else 1
+
+
+def prng_words_shape(n_tables: int, P: int, n_steps: int):
+    """Shape of K4's words: [n_steps / defer, 2 * defer + 2P + 5, n_tables]
+    — per table and iteration, (u, amt_bits) per betting slot, then the
+    2P+5 deal words."""
+    defer = _defer_for(n_steps)
+    return (n_steps // defer, 2 * defer + 2 * P + 5, n_tables)
+
+
+def prng_words(seed: int, n_tables: int, P: int, n_steps: int, it: int,
+               device):
+    """K4's Philox words for iteration ``it`` of an ``n_steps`` launch:
+    int64 [2 * defer + 2P + 5, n_tables], row ``it`` of
+    ``prng_words_shape``. Table t draws from stream (seed, t, 0, 0)."""
+    W = prng_words_shape(n_tables, P, n_steps)[1]
+    t = torch.arange(n_tables, dtype=I64, device=device)
+    return stream_words(seed, t, 0, 0, it * W, W)
+
+
+def _prng_plain(state, words_of, P, n_steps, sb, bb):
+    """K4's iterations on the words ``words_of(it)`` of each iteration."""
+    layout, F = _field_layout(P)
+    st = _unpack(_to_rows(state), layout)
+    defer = _defer_for(n_steps)
+    for it in range(n_steps // defer):
+        words = words_of(it)
+        for k in range(defer):
+            raw = _policy(st, words[2 * k], words[2 * k + 1], P)
+            st = _step_nosettle(st, raw, P)
+        deal = torch.stack(_sample_cards(words[2 * defer:], []))
+        st = _settle_pass(st, deal, P, sb, bb)
+    return _to_blocks(_pack(st, layout))
+
+
+def _run_prng_plain(state, words, P, n_steps, sb, bb):
+    """Plain version of K4 on explicit words (int64 in [0, 2^32), shape
+    ``prng_words_shape``)."""
+    return _prng_plain(state, lambda it: words[it], P, n_steps, sb, bb)
+
+
+def _run_prng_plain_philox(seed, state, P, n_steps, sb, bb):
+    """Plain version of K4's Philox mode on the state's device: the state
+    the kernel returns for ``seed``."""
+    T = state.shape[0] * TABLES_PER_BLOCK
+    return _prng_plain(state, lambda it: prng_words(
+        seed, T, P, n_steps, it, state.device), P, n_steps, sb, bb)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_state(state, P):
+    _, F = _field_layout(P)
+    if state.dim() != 4 or tuple(state.shape[1:]) != (F, *TILE) \
+            or state.dtype != I32:
+        raise ValueError(f"state must be int32 [n_blocks, {F}, 8, 128], got "
+                         f"{state.dtype} {tuple(state.shape)}")
+    if state.shape[0] * TABLES_PER_BLOCK >= 1 << 31:
+        raise ValueError(f"{state.shape[0]} blocks: the kernels index "
+                         f"tables with int32")
+
+
+def run_perpetual_det(state, actions, cards, P: int, n_steps: int, sb: int,
+                      bb: int, rules: str = "reference"):
+    """K3: ``n_steps`` fused ``step_table`` steps on injected raw actions
+    [n_blocks, n_steps, 8, 128] and per-hand deals [n_blocks, hmax, 2P+5,
+    8, 128] (hand 0 already dealt into ``state``). Returns the new state."""
+    _check_config(P, rules)
+    _check_state(state, P)
+    nb = state.shape[0]
+    if tuple(actions.shape) != (nb, n_steps, *TILE) or \
+            cards.dim() != 5 or cards.shape[0] != nb or cards.shape[1] < 1 \
+            or tuple(cards.shape[2:]) != (2 * P + 5, *TILE):
+        raise ValueError("actions/cards shapes do not match the state")
+    if state.device.type == "cuda":
+        lib = _build.library()
+        out = state.clone()
+        act = actions.to(I32).contiguous()
+        crd = cards.to(I32).contiguous()
+        _build.check(lib.mc_engine_det(
+            out.data_ptr(), act.data_ptr(), crd.data_ptr(), nb, P, n_steps,
+            cards.shape[1], sb, bb, _build.stream_ptr(state.device)),
+            "mc_engine_det")
+        LAUNCHES["engine_det"] += 1
+        return out
+    if state.device.type != "cpu":
+        raise ValueError(f"unsupported device {state.device}")
+    return _run_det_plain(state, actions.to(I32), cards.to(I32), P, n_steps,
+                          sb, bb)
+
+
+def run_perpetual_prng(seed: int, state, P: int, n_steps: int, sb: int,
+                       bb: int, rules: str = "reference", words=None):
+    """K4: ``n_steps`` betting slots of random-policy play with deferred
+    settlement. Words come from Philox keyed by (``seed``, table), the
+    same on the CPU and on the card, or from ``words`` (int64 in
+    [0, 2^32), shape ``prng_words_shape``)."""
+    _check_config(P, rules)
+    _check_state(state, P)
+    nb = state.shape[0]
+    shape = prng_words_shape(nb * TABLES_PER_BLOCK, P, n_steps)
+    if words is not None and (tuple(words.shape) != shape
+                              or words.device != state.device):
+        raise ValueError(f"words must be {shape} on {state.device}")
+    if state.device.type == "cuda":
+        lib = _build.library()
+        out = state.clone()
+        w32 = None if words is None else words_as_i32(words).contiguous()
+        _build.check(lib.mc_engine_prng(
+            out.data_ptr(), int(seed), None if w32 is None else w32.data_ptr(),
+            nb, P, n_steps, _defer_for(n_steps), sb, bb, FOLD_P_BITS,
+            RAISE_P_BITS, _build.stream_ptr(state.device)), "mc_engine_prng")
+        LAUNCHES["engine_prng"] += 1
+        return out
+    if state.device.type != "cpu":
+        raise ValueError(f"unsupported device {state.device}")
+    if words is None:
+        return _run_prng_plain_philox(seed, state, P, n_steps, sb, bb)
+    return _run_prng_plain(state, words, P, n_steps, sb, bb)
+
+
+def first_deal(seed: int, n_tables: int, P: int, device="cpu"):
+    """[n_tables, 2P+5] distinct cards per table on ``device``: table t's
+    are drawn like an in-kernel deal from Philox stream (seed, t, 0, 1),
+    which no kernel draws from, so every device deals the same cards."""
+    t = torch.arange(n_tables, dtype=I64, device=device)
+    words = stream_words(seed, t, 0, 1, 0, 2 * P + 5)
+    return torch.stack(_sample_cards(words, []), dim=1)
+
+
+def selfplay_perpetual_kernel(seed: int, cfg, n_tables: int, n_steps: int,
+                              steps_per_launch: int = 512, device="cpu"):
+    """Random-policy perpetual self-play: the first hand dealt from a
+    seeded generator, every later deal and policy draw in the kernel.
+
+    Returns ``(final_packed_state, hands_completed, overflowed_tables)``.
+    """
+    _check_config(cfg.num_seats, cfg.rules)
+    state = pack_state(cfg, first_deal(seed, n_tables, cfg.num_seats,
+                                       device))
+    done = 0
+    while done < n_steps:
+        chunk = min(steps_per_launch, n_steps - done)
+        state = run_perpetual_prng((seed + done * 7919) & 0x7FFFFFFF, state,
+                                   cfg.num_seats, chunk, cfg.small_blind,
+                                   cfg.big_blind, rules=cfg.rules)
+        done += chunk
+    hands = int(unpack_field(state, cfg, "hand_ct").sum())
+    ovf = int(unpack_field(state, cfg, "overflow").sum())
+    return state, hands, ovf
+
+
+def position_deltas(state, cfg):
+    """Accumulated settled chip change per hand-order position (position
+    0 = each hand's small blind): (sums float64 [P], hands). Mean bb/hand
+    per position = sums / hands / big_blind."""
+    P = cfg.num_seats
+    sums = np.array([float(unpack_field(state, cfg, "delta_sum", k)
+                           .sum(dtype=I64)) for k in range(P)])
+    hands = int(unpack_field(state, cfg, "hand_ct").sum())
+    return sums, hands

@@ -1,0 +1,287 @@
+"""Equity rollouts on the card: kernels K1 and K2 and their plain versions.
+
+The counterpart of ``montecarlo_tpu/ops/pallas_equity.py``. Kernel K1
+(``csrc/equity.cu:mc_equity_kernel``) replaces ``_make_equity_kernel``
+(hand vs hand on a board of 0, 3 or 4 known cards); K2
+(``mc_sweep_kernel``) replaces ``_sweep_kernel`` (per hero hand vs a random
+villain). Both draw one u32 word per card and take it modulo the live-card
+count, as the TPU kernels do, so a kernel and its plain version compute the
+same function of the words.
+
+Words: the plain versions take them explicitly, as int64 tensors in
+[0, 2^32) of shape ``[n_draw, n]`` (K1) or ``[7, H, n]`` (K2). The kernels
+draw them from Philox4x32-10 (``csrc/philox.cuh``), or read injected words
+of the same shape. ``equity_words`` / ``sweep_words`` compute the kernels'
+Philox words in plain PyTorch (``ops/philox.py``), so for a given ``seed``
+the CPU wrappers and the kernels return the same counts, and
+``_equity_counts_plain_philox`` / ``_sweep_counts_plain_philox`` hold a
+kernel's Philox mode against its plain version at any size.
+
+A wrapper runs the plain version only for CPU tensors; for a CUDA tensor
+it launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from montecarlo_tpu_torch.ops import _build
+from montecarlo_tpu_torch.ops.evaluator import (
+    eval_masks_cmp_impl,
+    suit_masks_from_cards,
+)
+from montecarlo_tpu_torch.ops.philox import MASK, stream_words, words_as_i32
+
+I32 = torch.int32
+I64 = torch.int64
+
+# Rollouts per chunk of a plain version, by default (bounds the word
+# tensors).
+CPU_CHUNK = 1 << 18
+
+LAUNCHES = {"equity": 0, "sweep": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def random_words(generator: torch.Generator, shape, device="cpu"):
+    """Uniform u32 words as int64 in [0, 2^32)."""
+    return torch.randint(0, 1 << 32, shape, dtype=I64, generator=generator,
+                         device=device)
+
+
+def equity_words(seed: int, n_draw: int, start: int, m: int, device):
+    """K1's Philox words for rollouts ``start .. start + m - 1``: int64
+    [n_draw, m]. Rollout r draws from stream (seed, r mod 2^32, r >> 32,
+    0)."""
+    r = torch.arange(start, start + m, dtype=I64, device=device)
+    return stream_words(seed, r & MASK, r >> 32, 0, 0, n_draw)
+
+
+def sweep_words(seed: int, H: int, start: int, m: int, device):
+    """K2's Philox words for rollouts ``start .. start + m - 1`` of each of
+    ``H`` hands: int64 [7, H, m]. Rollout r of hand h draws from stream
+    (seed, r mod 2^32, r >> 32, h + 1)."""
+    r = torch.arange(start, start + m, dtype=I64, device=device)[None]
+    h = torch.arange(H, dtype=I64, device=device)[:, None]
+    return stream_words(seed, r & MASK, r >> 32, h + 1, 0, 7)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _sample_cards(words, dead):
+    """k distinct live cards per rollout (``pallas_equity._sample_cards``).
+
+    ``words``: int64 [k, ...]; ``dead``: the ascending dead cards, each a
+    python int or a tensor broadcasting against ``words[t]`` (per-row dead
+    cards). Returns a list of k int32 card tensors."""
+    n_live = 52 - len(dead)
+    sorted_chosen, cards = [], []
+    for t in range(words.shape[0]):
+        x = (words[t] % (n_live - t)).to(I32)
+        for c in sorted_chosen:
+            x = x + (x >= c).to(I32)
+        new_sorted, carry = [], x
+        for c in sorted_chosen:
+            new_sorted.append(torch.minimum(carry, c))
+            carry = torch.maximum(carry, c)
+        new_sorted.append(carry)
+        sorted_chosen = new_sorted
+        card = x
+        for d in dead:
+            card = card + (card >= d).to(I32)
+        cards.append(card)
+    return cards
+
+
+def _masks_of(cards):
+    """Four suit masks of a list of card tensors (same shape)."""
+    return suit_masks_from_cards(torch.stack(cards, dim=-1))
+
+
+def _equity_counts_plain(words, dead, hero_masks, villain_masks):
+    """(wins, ties) of K1 on explicit words.
+
+    ``words``: int64 [5 - (D - 4), n]; ``dead``: D ascending dead cards
+    (python ints); ``*_masks``: four ints per side, known board included.
+    Returns an int64 tensor [2] on the words' device."""
+    dead = [int(d) for d in dead]
+    bm = _masks_of(_sample_cards(words, dead))
+    vh = eval_masks_cmp_impl(*[m | int(h) for m, h in zip(bm, hero_masks)])
+    vv = eval_masks_cmp_impl(*[m | int(v) for m, v in zip(bm, villain_masks)])
+    return torch.stack([(vh > vv).sum(dtype=I64), (vh == vv).sum(dtype=I64)])
+
+
+def _sweep_counts_plain(words, dead, hero_masks):
+    """Per-hand (wins, ties) of K2 on explicit words.
+
+    ``words``: int64 [7, H, n]; ``dead``: int32 [H, 2] ascending holes;
+    ``hero_masks``: int32 [H, 4]. Returns int64 [2, H]."""
+    cards = _sample_cards(words, [dead[:, j:j + 1]
+                                  for j in range(dead.shape[1])])
+    vm = _masks_of(cards[:2])
+    bm = _masks_of(cards[2:])
+    vh = eval_masks_cmp_impl(*[b | hero_masks[:, s:s + 1]
+                               for s, b in enumerate(bm)])
+    vv = eval_masks_cmp_impl(*[b | v for b, v in zip(bm, vm)])
+    return torch.stack([(vh > vv).sum(dim=1, dtype=I64),
+                        (vh == vv).sum(dim=1, dtype=I64)])
+
+
+def _equity_counts_plain_philox(seed, dead, hero_masks, villain_masks,
+                                n_rollouts, device, chunk=CPU_CHUNK):
+    """Plain version of K1's Philox mode on ``device``: the (wins, ties)
+    the kernel returns for ``seed``, in chunks of ``chunk`` rollouts."""
+    n_draw = 9 - len(dead)
+    total = torch.zeros(2, dtype=I64, device=device)
+    for start in range(0, n_rollouts, chunk):
+        m = min(chunk, n_rollouts - start)
+        total += _equity_counts_plain(
+            equity_words(seed, n_draw, start, m, device), dead, hero_masks,
+            villain_masks)
+    return total
+
+
+def _sweep_counts_plain_philox(seed, dead, hero_masks, n_per_hand,
+                               chunk=CPU_CHUNK):
+    """Plain version of K2's Philox mode on ``dead``'s device: the per-hand
+    (wins, ties) the kernel returns for ``seed``, in chunks of about
+    ``chunk`` rollouts over all hands."""
+    H = dead.shape[0]
+    total = torch.zeros((2, H), dtype=I64, device=dead.device)
+    step = max(1, chunk // H)
+    for start in range(0, n_per_hand, step):
+        m = min(step, n_per_hand - start)
+        total += _sweep_counts_plain(
+            sweep_words(seed, H, start, m, dead.device), dead, hero_masks)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_words(words, shape, device):
+    if tuple(words.shape) != tuple(shape):
+        raise ValueError(f"words shape {tuple(words.shape)} != {shape}")
+    if words.device != device:
+        raise ValueError(f"words on {words.device}, expected {device}")
+
+
+def equity_counts(seed: int, dead: torch.Tensor, hero_masks: torch.Tensor,
+                  villain_masks: torch.Tensor, n_rollouts: int, words=None):
+    """(wins, ties) as an int64 tensor [2] on ``dead``'s device, over
+    ``n_rollouts`` rollouts drawing ``9 - D`` board cards each.
+
+    ``dead``: int32 [D] ascending dead cards, D in {4, 7, 8} (holes plus
+    known board, whose masks must already be OR-ed into ``*_masks``);
+    ``*_masks``: int32 [4]. ``words`` (optional): int64 [9 - D, n_rollouts]
+    injected words; without them the words are Philox's for ``seed``
+    (the same on the CPU and on the card)."""
+    n_dead = dead.shape[0]
+    n_draw = 9 - n_dead
+    if n_dead not in (4, 7, 8):
+        raise ValueError(f"{n_dead} dead cards: expected 4, 7 or 8")
+    dev = dead.device
+    if words is not None:
+        _check_words(words, (n_draw, n_rollouts), dev)
+    params = [int(x) for x in dead.tolist() + hero_masks.tolist()
+              + villain_masks.tolist()]
+    if dev.type == "cuda":
+        lib = _build.library()
+        out = torch.zeros(2, dtype=I64, device=dev)
+        w32 = None if words is None else words_as_i32(words).contiguous()
+        c_params = (_build.I_ * len(params))(*params)
+        _build.check(lib.mc_equity_counts(
+            int(seed), c_params, n_dead, int(n_rollouts),
+            None if w32 is None else w32.data_ptr(), out.data_ptr(),
+            _build.stream_ptr(dev)), "mc_equity_counts")
+        LAUNCHES["equity"] += 1
+        return out
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    d, hm, vm = params[:n_dead], params[n_dead:n_dead + 4], params[n_dead + 4:]
+    if words is not None:
+        return _equity_counts_plain(words, d, hm, vm)
+    return _equity_counts_plain_philox(seed, d, hm, vm, n_rollouts, dev)
+
+
+def _hand_masks(hero, villain, board, device):
+    hero = torch.as_tensor(hero, dtype=I32).reshape(-1)
+    villain = torch.as_tensor(villain, dtype=I32).reshape(-1)
+    board = torch.as_tensor(board, dtype=I32).reshape(-1)
+    dead = torch.sort(torch.cat([hero, villain, board])).values
+    bmask = (suit_masks_from_cards(board) if board.numel()
+             else [torch.zeros((), dtype=I32)] * 4)
+    hm = torch.stack([m | b for m, b in
+                      zip(suit_masks_from_cards(hero), bmask)])
+    vm = torch.stack([m | b for m, b in
+                      zip(suit_masks_from_cards(villain), bmask)])
+    return dead.to(device), hm.to(device), vm.to(device)
+
+
+def equity_vs_hand_counts(seed: int, hero, villain, n_rollouts: int,
+                          board=(), device="cpu"):
+    """Hand-vs-hand counters without a host sync: ``(counts, n)`` with
+    ``counts`` the int64 [2] (wins, ties) tensor on ``device``."""
+    dead, hm, vm = _hand_masks(hero, villain, board, torch.device(device))
+    return equity_counts(seed, dead, hm, vm, n_rollouts), n_rollouts
+
+
+def equity_vs_hand_kernel(seed: int, hero, villain, n_rollouts: int,
+                          board=(), device="cpu"):
+    """Hand-vs-hand equity on an optional known board (0, 3 or 4 cards):
+    ``(wins, ties, n)`` as ints (``equity_vs_hand_pallas``)."""
+    counts, n = equity_vs_hand_counts(seed, hero, villain, n_rollouts,
+                                      board, device)
+    w, t = counts.tolist()
+    return w, t, n
+
+
+def sweep_counts(seed: int, dead: torch.Tensor, hero_masks: torch.Tensor,
+                 n_per_hand: int, words=None):
+    """Per-hand (wins, ties) as int64 [2, H] on ``dead``'s device, over
+    ``n_per_hand`` rollouts of each hero hand vs a random villain.
+
+    ``dead``: int32 [H, 2] each hero's ascending holes; ``hero_masks``:
+    int32 [H, 4]. ``words`` (optional): int64 [7, H, n_per_hand]; without
+    them the words are Philox's for ``seed``."""
+    H = dead.shape[0]
+    dev = dead.device
+    if words is not None:
+        _check_words(words, (7, H, n_per_hand), dev)
+    if dev.type == "cuda":
+        lib = _build.library()
+        dead_c = dead.to(I32).contiguous()
+        masks_c = hero_masks.to(I32).contiguous()
+        out = torch.zeros((2, H), dtype=I64, device=dev)
+        w32 = None if words is None else words_as_i32(words).contiguous()
+        _build.check(lib.mc_sweep_counts(
+            int(seed), dead_c.data_ptr(), masks_c.data_ptr(), H,
+            int(n_per_hand), None if w32 is None else w32.data_ptr(),
+            out.data_ptr(), _build.stream_ptr(dev)), "mc_sweep_counts")
+        LAUNCHES["sweep"] += 1
+        return out
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    if words is not None:
+        return _sweep_counts_plain(words, dead, hero_masks)
+    return _sweep_counts_plain_philox(seed, dead, hero_masks, n_per_hand)
+
+
+def equity_sweep_kernel(seed: int, heroes, n_per_hand: int, device="cpu"):
+    """Equity vs a random villain for [H, 2] hero hands in one launch.
+
+    Returns (equity float64 numpy [H], rollouts per hand)."""
+    heroes = torch.as_tensor(heroes, dtype=I32).reshape(-1, 2)
+    dead = torch.sort(heroes, dim=1).values
+    hm = torch.stack(suit_masks_from_cards(heroes), dim=1)
+    counts = sweep_counts(seed, dead.to(device), hm.to(device), n_per_hand)
+    w, t = counts.cpu().numpy().astype(np.float64)
+    return (w + 0.5 * t) / n_per_hand, n_per_hand
