@@ -1,30 +1,43 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; no phase is caught):
 
 0. setup: require CUDA, print the card's name and power limit, build the
-   kernels from ``montecarlo_tpu_torch/csrc`` (nvcc, sm_90a), and hold the
-   card's Philox4x32-10 against the Random123 known-answer vectors;
-1. main path, with every launch counter reset first: equity rollouts
-   (K1, AKs vs QQ preflop and on a flop), the 169-hand sweep (K2),
-   deterministic engine steps at full width (K3) and random-policy
-   perpetual self-play (K4, 6-max, reference rules); every kernel must
-   have launched;
+   kernels from ``montecarlo_tpu_torch/csrc`` (nvcc, sm_90a: the library
+   without a seat count and the 6-seat one, every nvcc started at once),
+   and hold the card's Philox4x32-10 against the Random123 known-answer
+   vectors;
+1. main paths, each with every launch counter reset just before it and
+   read just after; every kernel of a path must have launched:
+   a. equity rollouts (K1, AKs vs QQ preflop and on a flop), the 169-hand
+      sweep (K2), deterministic engine steps at full width (K3) and
+      random-policy perpetual self-play (K4), 6-max, reference rules;
+   b. the policy-net evaluation path: K3 and K4 under standard rules, the
+      deterministic net kernel (K5, every seat a packed rule bot), and
+      net evaluation at ``bench.py``'s shape (K6: standard rules, 6-max,
+      ``data/policy_6max_es3.npz`` at seat 0, random policy elsewhere,
+      2^18 tables x 512 slots in launches of 256);
 2. results: equity within 4 sigma of exact enumeration, the sweep within
-   5 sigma of ``data/sweep169.json``, self-play with no overflow and
-   slots/hand within 2% of 33.1 (25.57 steps per hand plus (16 - 1) / 2
-   idle slots of deferred settlement);
-3. agreement, tolerance 0 (the outputs are integers): every kernel call of
-   phase 1 against its plain PyTorch version on the card, on the same
-   inputs at the same size (the plain versions compute the kernels'
-   Philox words, ``ops/philox.py``), timed once with CUDA events; then
-   K1, K2 and K4 on injected words (their ``words`` option);
-4. timing: each main-path kernel call again on the card (CUDA events).
+   5 sigma of ``data/sweep169.json``, reference self-play with no overflow
+   and slots/hand within 2% of 33.1; standard self-play with no overflow
+   and every table's chips conserved; net evaluation with no overflow and
+   every table's seat deltas summing to 0, and the validate gate (the
+   trained ``data/policy_6max_200.npz`` at seat 0 beats each of four
+   untrained nets with separated 2-sigma intervals, and 0);
+3. agreement, tolerance 0: every kernel call of phase 1 against its plain
+   PyTorch version on the card, on the same inputs at the same size (the
+   plain versions compute the kernels' Philox words, ``ops/philox.py``),
+   timed once with CUDA events; K6 launch by launch; the net's float path
+   (features, logits, Gumbel scores) bit for bit through the probe kernel;
+   then K1, K2 and K4 on injected words (their ``words`` option);
+4. timing: each main-path kernel call again on the card (CUDA events), and
+   ``net_eval_hands_per_sec`` as ``bench.py`` computes it.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+Each phase's host seconds are logged, and the run's total before the
+result lines. The second-to-last line is ``{"kernels": [...]}``; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -49,8 +63,36 @@ T_FULL = 1 << 20
 DET_STEPS = 64
 HMAX = 12
 SP_SLOTS = 512
+# The net-evaluation path (bench.py's _run_net_axis): tables, slots, slots
+# per launch; K5's tables, steps and deal-stash rows; the validate gate's
+# tables and slots (scripts/validate_tpu.py).
+T_NET = 1 << 18
+NET_SLOTS = 512
+NET_LAUNCH = 256
+NET_DET_STEPS = 64
+NET_HMAX = 16
+VAL_TABLES = 1 << 14
+VAL_SLOTS = 256
+UNTRAINED_DRAWS = 4
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
+# Lower counts of the operations a kernel's work needs, for bound_ms,
+# counted in the device code (csrc/). Integer operations: one
+# Philox4x32-10 block (10 rounds of 2 wide multiplies, 2 three-way XORs, 2
+# key additions), one 7-card hand key (evaluator.cuh: multiplicity masks,
+# two run scans, the flush mask, the chosen payload), one betting step
+# (engine.cuh:mc_step_nosettle: head scan, clamp, street algebra,
+# membership), the 24 features of a decision. Float operations: the MLP's
+# products and sums, each rounded once. Where a kernel's steps depend on
+# the data, a hand counts one betting step (every hand has at least one).
+OPS = {"philox_block": 60, "hand_key": 60, "step": 100, "features": 100,
+       "mlp_f32": 2 * (24 * 64 + 64 * 64 + 64 * 4)}
+# H100 SXM rates: HBM 3.35 TB/s; float32 67 TFLOP/s counts an FMA as two
+# operations, so one rounded multiply or add per lane and clock is 33.5
+# T/s; the INT32 lanes are half the FP32 lanes, 16.75 T/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+INT_OPS_PER_S = 16.75e12
 # Philox4x32-10 known answers: (counter x0..x3, key k0 k1) -> output, from
 # the Random123 distribution's kat_vectors (Salmon et al., SC'11).
 PHILOX_KAT = [
@@ -73,7 +115,33 @@ def log(*a):
     print(*a, flush=True)
 
 
+def bound(n_bytes, int_ops, f32_ops=0):
+    """(ms, what bounds it): the least time the card could take for this
+    work, bytes at the memory rate or operations at their peak rate."""
+    t = {"bytes": n_bytes / HBM_BYTES_PER_S,
+         "operations": max(int_ops / INT_OPS_PER_S, f32_ops / F32_OPS_PER_S)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def rule_bot():
+    """A rule bot packed as policy-net weights (the construction of the
+    JAX package's models/bots.py, ``fof_raise``): raise the pot holding a
+    pair or better (feature 14, category / 8, above 1/16), else call;
+    every other logit at -300."""
+    w = [np.zeros(s, np.float32) for s in ((24, 64), (64,), (64, 64), (64,),
+                                            (64, 4), (4,))]
+    w[0][14, 0], w[0][14, 1] = 1.0, -1.0
+    w[1][0], w[1][1] = -0.0625, 0.0625
+    w[2][0, 0] = w[2][1, 1] = 1.0
+    w[4][0, 3] = w[4][1, 1] = 200.0
+    w[5][:] = -300.0
+    w[5][3] = w[5][1] = 0.0
+    return w
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -82,9 +150,11 @@ def main() -> int:
 
     from montecarlo_tpu_torch.device import cuda_device
     from montecarlo_tpu_torch.engine.state import TableConfig
+    from montecarlo_tpu_torch.models import policy_net as tpn
     from montecarlo_tpu_torch.ops import _build
     from montecarlo_tpu_torch.ops import cuda_engine as ce
     from montecarlo_tpu_torch.ops import cuda_equity as cq
+    from montecarlo_tpu_torch.ops import cuda_net as cn
     from montecarlo_tpu_torch.ops import philox
     from montecarlo_tpu_torch.rollout import equity as teq
 
@@ -110,6 +180,21 @@ def main() -> int:
         sync()
         return float(np.median([timed(fn)[1] for _ in range(reps)]))
 
+    def reset_counts():
+        for mod in (cq, ce, cn):
+            mod.reset_launches()
+
+    def field_sum(state, cfg, name, rows):
+        return sum(ce.unpack_field(state, cfg, name, k) for k in range(rows))
+
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+
     # ---- 0. setup ------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -118,11 +203,17 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
-    lib_path, build_s = _build.build()
+    # the libraries this run uses: no seat count (K1, K2, Philox) and P = 6
+    # (K3-K6); the two builds, one nvcc per source, run at once
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(_build.build, (None, 6)))
+    log(f"build: {time.perf_counter() - t0:.1f} s (compile seconds per "
+        f"library: {[round(s, 1) for _, s in builds]})")
+    for lib_path, _ in builds:
+        log(f"{lib_path}\n" + (lib_path.parent / "build.log").read_text())
     _build.library()
-    log(f"build: {build_s:.1f} s -> {lib_path}")
-    log((lib_path.parent / "build.log").read_text()
-        if (lib_path.parent / "build.log").exists() else "")
+    _build.library(6)
 
     kat = philox.philox_blocks(torch.tensor([c for c, _ in PHILOX_KAT],
                                             dtype=torch.int64, device=dev))
@@ -134,7 +225,9 @@ def main() -> int:
     QQ = [teq.make_card(1, 12), teq.make_card(2, 12)]
     FLOP = [teq.make_card(3, 2), teq.make_card(1, 7), teq.make_card(2, 13)]
     cfg = TableConfig(num_seats=6)
-    P, SB, BB = cfg.num_seats, cfg.small_blind, cfg.big_blind
+    std = TableConfig(num_seats=6, rules="standard")
+    P, SB, BB, SS = cfg.num_seats, cfg.small_blind, cfg.big_blind, \
+        cfg.starting_stack
     heroes = torch.tensor([list(c) for _, c in teq.canonical_hands()],
                           dtype=torch.int32)
     sdead = torch.sort(heroes, dim=1).values.to(dev)
@@ -154,14 +247,23 @@ def main() -> int:
         .permute(0, 2, 3, 1).reshape(T_FULL // 1024, HMAX, 2 * P + 5, 8,
                                      128).contiguous()
     st_full = ce.pack_state(cfg, deal_full[:, 0])
+    st_full_std = ce.pack_state(std, deal_full[:, 0])
     del u, raises, deal_full
     exact_pre = teq.equity_exact(AKS, QQ, device=dev)
     exact_flop = teq.equity_exact(AKS, QQ, FLOP, device=dev)
+    # the net path's inputs: K5's deal stash and first state, K6's first
+    # state (built once, outside the evaluation, as bench.py does)
+    es3 = tpn.load_params(ROOT / "data" / "policy_6max_es3.npz")
+    w_es3 = cn.net_weights(es3, dev)
+    w_bot = cn.net_weights(tpn.params_from_numpy(rule_bot()), dev)
+    stash_net = cn.deal_stash(SEED, T_NET, P, NET_HMAX, dev)
+    st_net_det = ce.pack_state(std, ce._stash_rows(stash_net)[0].T)
+    st_net0 = cn.initial_packed_state(SEED, std, T_NET, dev)
     sync()
+    phase_done("0 setup")
 
-    # ---- 1. main path ---------------------------------------------------
-    cq.reset_launches()
-    ce.reset_launches()
+    # ---- 1a. main path: equity, sweep, engine (reference rules) --------
+    reset_counts()
     t0 = time.perf_counter()
     r_pre = teq.equity_vs_hand(SEED, AKS, QQ, N_EQUITY, device=dev)
     r_flop = teq.equity_vs_hand(SEED + 1, AKS, QQ, N_FLOP, FLOP, device=dev)
@@ -173,11 +275,35 @@ def main() -> int:
     sync()
     main_s = time.perf_counter() - t0
     launches = {"K1": cq.LAUNCHES["equity"], "K2": cq.LAUNCHES["sweep"],
-                "K3": ce.LAUNCHES["engine_det"],
-                "K4": ce.LAUNCHES["engine_prng"]}
-    log(f"main path: {main_s:.2f} s, launches {launches}")
+                "K3": ce.LAUNCHES["engine_det_reference"],
+                "K4": ce.LAUNCHES["engine_prng_reference"]}
+    log(f"main path (equity, sweep, engine): {main_s:.2f} s, launches "
+        f"{launches}")
     check(all(v > 0 for v in launches.values()),
           "every kernel of the path launched")
+
+    # ---- 1b. main path: policy-net evaluation (standard rules) ----------
+    reset_counts()
+    t0 = time.perf_counter()
+    det_std = ce.run_perpetual_det(st_full_std, acts_full, cards_full, P,
+                                   DET_STEPS, SB, BB, rules="standard")
+    sp_std, sp_std_hands, sp_std_ovf = ce.selfplay_perpetual_kernel(
+        SEED, std, T_FULL, SP_SLOTS, steps_per_launch=SP_SLOTS, device=dev)
+    k5_out = cn.run_net_det(st_net_det, stash_net, w_bot, P, NET_DET_STEPS,
+                            SB, BB, "standard")
+    net_means, net_errs, net_hands = cn.selfplay_net_eval_kernel(
+        SEED, std, es3, 1, T_NET, NET_SLOTS, NET_LAUNCH, state0=st_net0)
+    sync()
+    net_s = time.perf_counter() - t0
+    launches.update({"K3s": ce.LAUNCHES["engine_det_standard"],
+                     "K4s": ce.LAUNCHES["engine_prng_standard"],
+                     "K5": cn.LAUNCHES["net_det_standard"],
+                     "K6": cn.LAUNCHES["net_eval_standard"]})
+    log(f"main path (policy-net evaluation): {net_s:.2f} s, launches "
+        f"{ {k: launches[k] for k in ('K3s', 'K4s', 'K5', 'K6')} }")
+    check(all(launches[k] > 0 for k in ("K3s", "K4s", "K5", "K6")),
+          "every kernel of the net path launched")
+    phase_done("1 main paths")
 
     # ---- 2. results -----------------------------------------------------
     for name, r, ex in (("preflop", r_pre, exact_pre),
@@ -220,6 +346,61 @@ def main() -> int:
         log(f"  position {k}: {sums[k] / hands / BB:+.5f} bb/hand"
             f" (record {pos_rec[str(k)]['bb_per_hand']:+.5f})")
 
+    # standard rules: K3 on the injected stream; chips conserve on a table
+    # within capacity unless the stream folded free to a shorter all-in
+    # (the reference rules' dead money, PERF.md), so this is logged
+    det_std_hands = int(ce.unpack_field(det_std, std, "hand_ct").sum())
+    clean = ce.unpack_field(det_std, std, "overflow") == 0
+    chips = field_sum(det_std, std, "delta_sum", P)
+    log(f"K3 standard rules: {T_FULL} tables x {DET_STEPS} steps, "
+        f"{det_std_hands} hands, {int((~clean).sum())} overflowed tables, "
+        f"{int((clean & (chips != 0)).sum())} tables within capacity that "
+        f"lost dead money")
+    check(det_std_hands > 0, "standard det engine completed hands")
+    sp_std_sph = T_FULL * SP_SLOTS / max(sp_std_hands, 1)
+    chips = field_sum(sp_std, std, "delta_sum", P)
+    log(f"K4 standard rules: {sp_std_hands} hands, overflow {sp_std_ovf}, "
+        f"slots/hand {sp_std_sph:.4f}, tables with chips not conserved "
+        f"{int((chips != 0).sum())}")
+    check(sp_std_hands > 0 and sp_std_ovf == 0,
+          "standard self-play hands > 0, no overflow")
+    check(bool((chips == 0).all()), "standard rules conserve every "
+          "table's chips")
+
+    k5_hands = int(ce.unpack_field(k5_out, std, "hand_ct").sum())
+    log(f"K5 rule bot at every seat: {T_NET} tables x {NET_DET_STEPS} "
+        f"steps, {k5_hands} hands, overflow "
+        f"{int(ce.unpack_field(k5_out, std, 'overflow').sum())}")
+    check(k5_hands > 0, "the net det kernel completed hands")
+
+    log(f"K6 net evaluation (es3 at seat 0): {net_hands} hands, seat 0 "
+        f"{net_means[0]:+.4f} +- {net_errs[0]:.4f} bb/hand; seats "
+        f"{np.array2string(net_means, precision=4)}")
+    check(net_hands > 0 and np.all(np.isfinite(net_means)),
+          "net evaluation finite, hands > 0")
+    check(abs(float(net_means.sum())) < 1e-9, "the seat means sum to 0")
+
+    # The validate gate: the trained artifact against untrained nets at
+    # seat 0. An untrained net's own edge depends on its random draw (the
+    # TPU-era draw was positive), so each of UNTRAINED_DRAWS draws is
+    # logged and the trained net must beat every one of them.
+    trained = tpn.load_params(ROOT / "data" / "policy_6max_200.npz")
+    mt, et, _ = cn.selfplay_net_eval_kernel(11, std, trained, 1, VAL_TABLES,
+                                            VAL_SLOTS, device=dev)
+    log(f"validate gate ({VAL_TABLES} tables x {VAL_SLOTS} slots, seat 0): "
+        f"trained policy_6max_200 {mt[0]:+.3f} +- {et[0]:.3f} bb/hand "
+        f"(TPU-era record, bf16 matmul inputs, history only: +3.81 +- 0.06 "
+        f"vs untrained +1.82 +- 0.05)")
+    for draw in range(UNTRAINED_DRAWS):
+        untrained = tpn.init_params(torch.Generator().manual_seed(draw))
+        mu, eu, _ = cn.selfplay_net_eval_kernel(
+            11, std, untrained, 1, VAL_TABLES, VAL_SLOTS, device=dev)
+        log(f"  untrained draw {draw}: {mu[0]:+.3f} +- {eu[0]:.3f} bb/hand")
+        check(mt[0] - 2 * et[0] > mu[0] + 2 * eu[0],
+              f"trained - 2 sigma > untrained draw {draw} + 2 sigma")
+    check(mt[0] - 2 * et[0] > 0, "trained - 2 sigma > 0")
+    phase_done("2 results")
+
     # ---- 3. agreement: each kernel call against its plain version -------
     err, plain_ms = {}, {}
 
@@ -258,6 +439,11 @@ def main() -> int:
         st_full, acts_full, cards_full, P, DET_STEPS, SB, BB))
     agree("K3", f"main path, {T_FULL} tables x {DET_STEPS} steps",
           det_out, p)
+    p, plain_ms["K3s"] = timed(lambda: ce._run_det_plain(
+        st_full_std, acts_full, cards_full, P, DET_STEPS, SB, BB,
+        "standard"))
+    agree("K3s", f"standard rules, {T_FULL} tables x {DET_STEPS} steps",
+          det_std, p)
     del p
 
     st_sp = ce.pack_state(cfg, ce.first_deal(SEED, T_FULL, P, dev))
@@ -265,7 +451,56 @@ def main() -> int:
         SEED, st_sp, P, SP_SLOTS, SB, BB))
     agree("K4", f"main path, {T_FULL} tables x {SP_SLOTS} slots",
           sp_state, p)
+    st_sp_std = ce.pack_state(std, ce.first_deal(SEED, T_FULL, P, dev))
+    p, plain_ms["K4s"] = timed(lambda: ce._run_prng_plain_philox(
+        SEED, st_sp_std, P, SP_SLOTS, SB, BB, "standard"))
+    agree("K4s", f"standard rules, {T_FULL} tables x {SP_SLOTS} slots",
+          sp_std, p)
     del p
+
+    p, plain_ms["K5"] = timed(lambda: cn._run_net_det_plain(
+        st_net_det, stash_net, w_bot, P, NET_DET_STEPS, SB, BB, "standard"))
+    agree("K5", f"{T_NET} tables x {NET_DET_STEPS} steps", k5_out, p)
+    del p
+
+    # K6 launch by launch from the main path's first state: the kernel
+    # again (the same launches as the main path) against the plain version
+    # on the same input state
+    state, tally = st_net0, {}
+    for done in range(0, NET_SLOTS, NET_LAUNCH):
+        seed = (SEED + done * 7919) & 0x7FFFFFFF
+        k = cn.run_net_eval(seed, state, w_es3, P, NET_LAUNCH, SB, BB, SS,
+                            "standard", 1)
+        p, ms = timed(lambda: cn._run_net_eval_plain_philox(
+            seed, state, w_es3, P, NET_LAUNCH, SB, BB, SS, "standard", 1,
+            True, tally if done == 0 else None))
+        plain_ms.setdefault("K6", ms)
+        agree("K6", f"launch at slot {done}, {T_NET} tables x {NET_LAUNCH} "
+              f"slots", k, p)
+        if done == 0:
+            k6_first = k
+            k6_decisions = tally["net_decisions"]
+        state = k
+    del p
+    check(cn.seat_meters(state, std)[2] == net_hands and np.array_equal(
+        cn.seat_meters(state, std)[0], net_means),
+        "the launches replayed give the main path's meters")
+    check(int(ce.unpack_field(state, std, "overflow").sum()) == 0,
+          "net evaluation: no overflow")
+    seat = field_sum(state, std, "seat_delta", P)
+    check(bool((seat == 0).all()),
+          "net evaluation: every table's seat deltas sum to 0")
+    log(f"K6: {k6_decisions} net decisions in the first launch; overflow 0; "
+        f"seat deltas sum to 0 on all {T_NET} tables")
+    words = ce.table_words(SEED + 9, T_NET, 0, 4, dev)
+    probe = cn.net_probe(state, words, w_es3, P, BB, "standard")
+    want = cn._net_probe_plain(state, words, w_es3, P, BB, "standard")
+    check(torch.equal(probe.view(torch.int32), want.view(torch.int32)),
+          "features, logits and Gumbel scores equal the plain version's, "
+          "bit for bit")
+    log(f"K6 probe: {T_NET} tables x {cn.PROBE_ROWS} floats (features, "
+        f"masked logits, Gumbel scores) bit for bit")
+    del probe, want
 
     # the words option: injected words instead of Philox
     dead, hm, vm = pre
@@ -283,6 +518,7 @@ def main() -> int:
           ce.run_perpetual_prng(0, st_sp, P, 32, SB, BB, words=words),
           ce._run_prng_plain(st_sp, words, P, 32, SB, BB))
     del words
+    phase_done("3 agreement")
 
     # ---- 4. timing ------------------------------------------------------
     dead, hm, vm = pre
@@ -295,20 +531,76 @@ def main() -> int:
             st_full, acts_full, cards_full, P, DET_STEPS, SB, BB)),
         "K4": cuda_ms(lambda: ce.run_perpetual_prng(SEED, st_sp, P, SP_SLOTS,
                                                     SB, BB)),
+        "K3s": cuda_ms(lambda: ce.run_perpetual_det(
+            st_full_std, acts_full, cards_full, P, DET_STEPS, SB, BB,
+            rules="standard")),
+        "K4s": cuda_ms(lambda: ce.run_perpetual_prng(
+            SEED, st_sp_std, P, SP_SLOTS, SB, BB, rules="standard")),
+        "K5": cuda_ms(lambda: cn.run_net_det(
+            st_net_det, stash_net, w_bot, P, NET_DET_STEPS, SB, BB,
+            "standard")),
+        "K6": cuda_ms(lambda: cn.run_net_eval(
+            SEED, st_net0, w_es3, P, NET_LAUNCH, SB, BB, SS, "standard", 1)),
     }
     t0 = time.perf_counter()
     cq.equity_sweep_kernel(SEED + 5, heroes, N_SWEEP, dev)
     sweep_warm_s = time.perf_counter() - t0
+    # bench.py's net_eval_hands_per_sec: hands / host seconds of one
+    # 2 x 256-slot evaluation from a state built once, best of 2
+    net_runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        h = cn.selfplay_net_eval_kernel(SEED + i + 1, std, es3, 1, T_NET,
+                                        NET_SLOTS, NET_LAUNCH,
+                                        state0=st_net0)[2]
+        net_runs.append((time.perf_counter() - t0, h))
+    net_best, net_best_hands = min(net_runs)
 
-    work = {  # (work of one call, unit); the kernel and plain alike
-        "K1": (N_EQUITY, "rollouts"),
-        "K2": (169 * N_SWEEP, "rollouts"),
-        "K3": (T_FULL * DET_STEPS, "table-steps"),
-        "K4": (T_FULL * SP_SLOTS, "table-slots"),
+    k6_hands = int(ce.unpack_field(k6_first, std, "hand_ct").sum())
+    k5_state = T_NET * ce._field_layout(P, "standard")[1] * 4
+    work = {  # key: (work of one call, unit, bytes, int ops, f32 ops)
+        "K1": (N_EQUITY, "rollouts", 0,
+               N_EQUITY * (2 * OPS["philox_block"] + 2 * OPS["hand_key"]), 0),
+        "K2": (169 * N_SWEEP, "rollouts", 0,
+               169 * N_SWEEP * (2 * OPS["philox_block"]
+                                + 2 * OPS["hand_key"]), 0),
     }
-    for key, (n, unit) in work.items():
+    for key, state_in, rules, hands in (
+            ("K3", st_full, "reference", det_hands),
+            ("K3s", st_full_std, "standard", det_std_hands)):
+        work[key] = (T_FULL * DET_STEPS, "table-steps",
+                     2 * state_in.numel() * 4 + acts_full.numel() * 4
+                     + cards_full.numel() * 4,
+                     T_FULL * DET_STEPS * OPS["step"]
+                     + hands * P * OPS["hand_key"], 0)
+    blocks = -(-SP_SLOTS // ce.DEFER * ce.prng_words_shape(1, P, SP_SLOTS)[1]
+               // 4)
+    for key, state_in, hands in (("K4", st_sp, sp_hands),
+                                 ("K4s", st_sp_std, sp_std_hands)):
+        work[key] = (T_FULL * SP_SLOTS, "table-slots",
+                     2 * state_in.numel() * 4,
+                     hands * OPS["step"]
+                     + T_FULL * blocks * OPS["philox_block"]
+                     + hands * P * OPS["hand_key"], 0)
+    work["K5"] = (T_NET * NET_DET_STEPS, "table-steps",
+                  2 * k5_state + stash_net.numel() * 4 + cn.NUM_WEIGHTS * 4,
+                  T_NET * NET_DET_STEPS * (OPS["step"] + OPS["features"])
+                  + k5_hands * P * OPS["hand_key"],
+                  T_NET * NET_DET_STEPS * OPS["mlp_f32"])
+    blocks = -(-NET_LAUNCH // ce.DEFER * cn.net_words_shape(
+        1, P, NET_LAUNCH)[1] // 4)
+    work["K6"] = (T_NET * NET_LAUNCH, "table-slots",
+                  2 * k5_state + cn.NUM_WEIGHTS * 4,
+                  k6_hands * OPS["step"]
+                  + T_NET * blocks * OPS["philox_block"]
+                  + k6_hands * P * OPS["hand_key"]
+                  + k6_decisions * OPS["features"],
+                  k6_decisions * OPS["mlp_f32"])
+    bounds = {key: bound(*w[2:]) for key, w in work.items()}
+    for key, (n, unit, *_rest) in work.items():
         log(f"{key}: kernel {times[key]:.3f} ms, plain {plain_ms[key]:.3f} "
-            f"ms for {n} {unit} ({times[key] * 1e6 / n:.4f} / "
+            f"ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]}) for {n} "
+            f"{unit} ({times[key] * 1e6 / n:.4f} / "
             f"{plain_ms[key] * 1e6 / n:.4f} ns each)")
     rates = {
         "equity_rollouts_per_sec": N_EQUITY / (times["K1"] / 1e3),
@@ -317,26 +609,40 @@ def main() -> int:
         "betting_steps_per_hand": slots_per_hand,
         "betting_ns_per_table_step": times["K4"] * 1e6 / (T_FULL * SP_SLOTS),
         "det_ns_per_table_step": times["K3"] * 1e6 / (T_FULL * DET_STEPS),
+        "standard_betting_steps_per_hand": sp_std_sph,
+        "net_eval_hands_per_sec": net_best_hands / net_best,
+        "net_eval_ns_per_table_step": net_best / (T_NET * NET_SLOTS) * 1e9,
+        "net_eval_seconds": net_best,
+        "net_eval_hands": net_best_hands,
     }
     log(json.dumps({"card": smi, **rates}))
+    phase_done("4 timing")
+    log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
+        f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 
     src = "montecarlo_tpu_torch/csrc/"
+    engine = "montecarlo_tpu/ops/pallas_engine.py:"
     meta = [
-        ("K1", "equity_rollouts", src + "equity.cu",
+        ("K1", "K1 equity_rollouts", src + "equity.cu",
          "montecarlo_tpu/ops/pallas_equity.py:125"),
-        ("K2", "sweep169", src + "equity.cu",
+        ("K2", "K2 sweep169", src + "equity.cu",
          "montecarlo_tpu/ops/pallas_equity.py:182"),
-        ("K3", "engine_det", src + "engine.cu",
-         "montecarlo_tpu/ops/pallas_engine.py:716"),
-        ("K4", "engine_prng", src + "engine.cu",
-         "montecarlo_tpu/ops/pallas_engine.py:716"),
+        ("K3", "K3 engine_det reference", src + "engine.cu", engine + "716"),
+        ("K4", "K4 engine_prng reference", src + "engine.cu",
+         engine + "716"),
+        ("K3s", "K3 engine_det standard", src + "engine.cu", engine + "716"),
+        ("K4s", "K4 engine_prng standard", src + "engine.cu",
+         engine + "716"),
+        ("K5", "K5 net_det standard", src + "net.cu", engine + "1171"),
+        ("K6", "K6 net_eval standard", src + "net.cu", engine + "1171"),
     ]
     kernels = [{
-        "name": f"{key} {name}", "route": "cuda", "source": source,
+        "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[key],
         "max_abs_err": err[key], "ms": times[key],
-        "plain_ms": plain_ms[key], "work": work[key][0],
-        "unit": work[key][1],
+        "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
+        "bound_by": bounds[key][1], "library_ms": None,
+        "work": work[key][0], "unit": work[key][1],
     } for key, name, source, replaces in meta]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@
 // compiler against the plain PyTorch versions.
 #pragma once
 
+#include <math.h>
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -48,4 +49,37 @@ MC_HD int mc_floordiv(int a, int b) {
 MC_HD int mc_floormod(int a, int b) {
   int r = a % b;
   return r < 0 ? r + b : r;
+}
+
+// float32 operations rounded once each, never contracted into a fused
+// multiply-add, so a sum of products has one fixed rounding sequence that
+// PyTorch's separate elementwise operations reproduce. The host form
+// relies on the compiler not contracting (-ffp-contract=off).
+MC_HD float mc_fadd(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+MC_HD float mc_fsub(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+MC_HD float mc_fmul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+MC_HD float mc_fdiv(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fdiv_rn(a, b);
+#else
+  return a / b;
+#endif
 }

@@ -6,6 +6,9 @@
 // stash. K4 `mc_engine_prng_kernel` replaces `_make_kernel(mode="prng")`
 // via run_perpetual_prng: the random policy, `defer` betting slots per
 // settle pass and an in-kernel deal, on Philox words or injected words.
+// Both are instantiated per rule set (reference, standard) for the one seat
+// count MC_SEATS of the library being built, as the TPU kernels are
+// compiled per static configuration.
 //
 // Layout: the packed state [n_blocks, F, 8, 128] int32 of the JAX engine,
 // 1024 tables per block. One thread runs one table: it reads the table's F
@@ -21,31 +24,10 @@
 #include "engine.cuh"
 
 #define MC_ENGINE_THREADS 128
-#define MC_TABLES_PER_BLOCK 1024
-
-template <int P>
-__device__ void mc_load(MCTable<P>& s, const int* state, int t) {
-  constexpr int F = mc_fields<P>();
-  const int* src = state + (long long)(t / MC_TABLES_PER_BLOCK) * F *
-                               MC_TABLES_PER_BLOCK +
-                   t % MC_TABLES_PER_BLOCK;
-  int* dst = reinterpret_cast<int*>(&s);
-  for (int f = 0; f < F; ++f) dst[f] = src[f * MC_TABLES_PER_BLOCK];
-}
-
-template <int P>
-__device__ void mc_store(const MCTable<P>& s, int* state, int t) {
-  constexpr int F = mc_fields<P>();
-  int* dst = state + (long long)(t / MC_TABLES_PER_BLOCK) * F *
-                         MC_TABLES_PER_BLOCK +
-             t % MC_TABLES_PER_BLOCK;
-  const int* src = reinterpret_cast<const int*>(&s);
-  for (int f = 0; f < F; ++f) dst[f * MC_TABLES_PER_BLOCK] = src[f];
-}
 
 // actions: [n_blocks, n_steps, 8, 128]; cards: [n_blocks, hmax, 2P+5, 8,
 // 128]. Hand h > 0 of a table is dealt from stash row min(h, hmax - 1).
-template <int P>
+template <int P, int R>
 __global__ void __launch_bounds__(MC_ENGINE_THREADS)
     mc_engine_det_kernel(int* state, const int* actions, const int* cards,
                          int n_tables, int n_steps, int hmax, int sb,
@@ -54,7 +36,7 @@ __global__ void __launch_bounds__(MC_ENGINE_THREADS)
   if (t >= n_tables) return;
   const long long blk = t / MC_TABLES_PER_BLOCK;
   const int lane = t % MC_TABLES_PER_BLOCK;
-  MCTable<P> s;
+  MCTable<P, R> s;
   mc_load(s, state, t);
   mc_run_det(s, actions + blk * n_steps * MC_TABLES_PER_BLOCK + lane,
              cards + blk * hmax * (2 * P + 5) * MC_TABLES_PER_BLOCK + lane,
@@ -64,65 +46,55 @@ __global__ void __launch_bounds__(MC_ENGINE_THREADS)
 
 // Injected words: int32 [n_steps / defer, 2 * defer + 2P + 5, n_tables];
 // else Philox keyed by (seed, table).
-template <int P>
+template <int P, int R>
 __global__ void __launch_bounds__(MC_ENGINE_THREADS)
     mc_engine_prng_kernel(int* state, uint32_t seed, const int* words,
                           int n_tables, int n_steps, int defer, int sb,
                           int bb, uint32_t fold_bits, uint32_t raise_bits) {
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_tables) return;
-  MCTable<P> s;
+  MCTable<P, R> s;
   mc_load(s, state, t);
   MCWords src(words, n_tables, t, seed, (uint32_t)t, 0u, 0u);
   mc_run_prng(s, src, n_steps, defer, sb, bb, fold_bits, raise_bits);
   mc_store(s, state, t);
 }
 
-#define MC_FOR_SEATS(X) \
-  X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
-
-// In-place on `state`. Returns cudaError_t (cudaErrorInvalidValue for a
-// seat count outside 2..10).
+// In-place on `state`. rules: 0 reference, 1 standard. Returns
+// cudaError_t (cudaErrorInvalidValue for a seat count other than the
+// library's MC_SEATS or another rule set).
 extern "C" int mc_engine_det(int* state, const int* actions,
                              const int* cards, int n_blocks, int P,
-                             int n_steps, int hmax, int sb, int bb,
+                             int rules, int n_steps, int hmax, int sb, int bb,
                              void* stream) {
   int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
   int grid = (n_tables + MC_ENGINE_THREADS - 1) / MC_ENGINE_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (P) {
-#define MC_CASE(N)                                                        \
-  case N:                                                                 \
-    mc_engine_det_kernel<N><<<grid, MC_ENGINE_THREADS, 0, st>>>(          \
+#define MC_CASE(N, R)                                                     \
+  case R * 100 + N:                                                       \
+    mc_engine_det_kernel<N, R><<<grid, MC_ENGINE_THREADS, 0, st>>>(       \
         state, actions, cards, n_tables, n_steps, hmax, sb, bb);          \
     break;
-    MC_FOR_SEATS(MC_CASE)
+  MC_DISPATCH(MC_CASE)
 #undef MC_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int mc_engine_prng(int* state, int seed, const int* words,
-                              int n_blocks, int P, int n_steps, int defer,
-                              int sb, int bb, int fold_bits, int raise_bits,
-                              void* stream) {
+                              int n_blocks, int P, int rules, int n_steps,
+                              int defer, int sb, int bb, int fold_bits,
+                              int raise_bits, void* stream) {
   if (defer < 1 || n_steps % defer != 0) return (int)cudaErrorInvalidValue;
   int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
   int grid = (n_tables + MC_ENGINE_THREADS - 1) / MC_ENGINE_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (P) {
-#define MC_CASE(N)                                                        \
-  case N:                                                                 \
-    mc_engine_prng_kernel<N><<<grid, MC_ENGINE_THREADS, 0, st>>>(         \
+#define MC_CASE(N, R)                                                     \
+  case R * 100 + N:                                                       \
+    mc_engine_prng_kernel<N, R><<<grid, MC_ENGINE_THREADS, 0, st>>>(      \
         state, (uint32_t)seed, words, n_tables, n_steps, defer, sb, bb,   \
         (uint32_t)fold_bits, (uint32_t)raise_bits);                       \
     break;
-    MC_FOR_SEATS(MC_CASE)
+  MC_DISPATCH(MC_CASE)
 #undef MC_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }

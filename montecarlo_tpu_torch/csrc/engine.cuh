@@ -1,5 +1,5 @@
-// One table of the whole-step betting engine, reference rules, as scalar
-// code for one thread (ops/cuda_engine.py).
+// One table of the whole-step betting engine, as scalar code for one
+// thread (ops/cuda_engine.py).
 //
 // A transcription of the vectorized device functions of
 // montecarlo_tpu/ops/pallas_engine.py (_head_info :192, _street_update
@@ -8,47 +8,99 @@
 // selects over a leading seat or layer axis, this form loops over it. Every
 // `%` and `//` of the JAX form is a floor operation (mc_floormod,
 // mc_floordiv); int32 products wrap as they do in jnp.
+//
+// The rule set is a template parameter R, as it is static in the JAX
+// engine: MC_REFERENCE (the reference's accounting quirks) or MC_STANDARD
+// (stack-capped payments, showdown-live all-ins, contributor pots with odd
+// chips to the first winner, capped blinds, chained street transitions).
 #pragma once
 
 #include "evaluator.cuh"
 #include "philox.cuh"
 
-// Street layer capacity under reference rules (pallas_engine.py:104).
-#define MC_L 6
+#define MC_REFERENCE 0
+#define MC_STANDARD 1
 #define MC_MAX_RAISE 20
 #define MC_MAX_RAISES_PER_STREET 2
+#define MC_TABLES_PER_BLOCK 1024
+
+// Street layer capacity per rule set (pallas_engine.py:104-105).
+template <int R>
+MC_HD constexpr int mc_layers() {
+  return R == MC_REFERENCE ? 6 : 10;
+}
+
+// The rows only one rule set keeps, after pot_set: the reference's
+// n-inflation counter per pot row, or the standard all-in seat mask.
+template <int L, int R>
+struct MCRuleRows {
+  int pot_n[4 * L];
+};
+template <int L>
+struct MCRuleRows<L, MC_STANDARD> {
+  int all_in;
+};
 
 // The packed per-table state: field order and sizes of
-// pallas_engine._field_layout(P, "reference"), one int per row.
-template <int P>
+// pallas_engine._field_layout(P, rules), one int per row.
+template <int P, int R>
 struct MCTable {
+  static constexpr int L = mc_layers<R>();
   int stage, cursor, street_raises, last_raiser, folded, in_hand, to_act,
       order, wait, hand_ct, overflow, button;
   int stacks[P], contrib[P], hole0[P], hole1[P], hand_start[P], delta_sum[P],
       seat_delta[P];
-  int board[5], lvl[MC_L], ln[MC_L];
-  int pot_amt[4 * MC_L], pot_set[4 * MC_L], pot_n[4 * MC_L];
+  int board[5], lvl[L], ln[L];
+  int pot_amt[4 * L], pot_set[4 * L];
+  MCRuleRows<L, R> rr;
 };
 
-template <int P>
+template <int P, int R>
 MC_HD constexpr int mc_fields() {
-  return 12 + 7 * P + 5 + 2 * MC_L + 12 * MC_L;
+  return 12 + 7 * P + 5 + 10 * mc_layers<R>() +
+         (R == MC_REFERENCE ? 4 * mc_layers<R>() : 1);
 }
-static_assert(sizeof(MCTable<6>) == 4 * mc_fields<6>(), "layout");
-static_assert(mc_fields<6>() == 143, "F for P=6 under reference rules");
+static_assert(sizeof(MCTable<6, MC_REFERENCE>) ==
+                  4 * mc_fields<6, MC_REFERENCE>(), "layout");
+static_assert(sizeof(MCTable<6, MC_STANDARD>) ==
+                  4 * mc_fields<6, MC_STANDARD>(), "layout");
+static_assert(mc_fields<6, MC_REFERENCE>() == 143, "F, P=6, reference");
+static_assert(mc_fields<6, MC_STANDARD>() == 160, "F, P=6, standard");
+
+// Table t's rows of the packed state [n_blocks, F, 8, 128] into / out of
+// its struct (row f of table t at block * F * 1024 + f * 1024 + lane).
+template <int P, int R>
+MC_HD void mc_load(MCTable<P, R>& s, const int* state, long long t) {
+  constexpr int F = mc_fields<P, R>();
+  const int* src = state + (t / MC_TABLES_PER_BLOCK) * F *
+                               MC_TABLES_PER_BLOCK +
+                   t % MC_TABLES_PER_BLOCK;
+  int* dst = reinterpret_cast<int*>(&s);
+  for (int f = 0; f < F; ++f) dst[f] = src[f * MC_TABLES_PER_BLOCK];
+}
+
+template <int P, int R>
+MC_HD void mc_store(const MCTable<P, R>& s, int* state, long long t) {
+  constexpr int F = mc_fields<P, R>();
+  int* dst = state + (t / MC_TABLES_PER_BLOCK) * F * MC_TABLES_PER_BLOCK +
+             t % MC_TABLES_PER_BLOCK;
+  const int* src = reinterpret_cast<const int*>(&s);
+  for (int f = 0; f < F; ++f) dst[f * MC_TABLES_PER_BLOCK] = src[f];
+}
 
 // First unmasked play-order position scanning from cursor (_head_info).
-template <int P>
-MC_HD int mc_head(const MCTable<P>& s) {
+template <int P, int R>
+MC_HD int mc_head(const MCTable<P, R>& s) {
   int best = P;
   for (int p = 0; p < P; ++p)
     if ((s.order >> p) & 1) best = mc_min(best, mc_floormod(p - s.cursor, P));
   return mc_floormod(s.cursor + best, P);
 }
 
+template <int L>
 MC_HD int mc_street_total(const int* lvl) {
   int t = lvl[0];
-  for (int j = 1; j < MC_L; ++j) t = mc_max(t, lvl[j]);
+  for (int j = 1; j < L; ++j) t = mc_max(t, lvl[j]);
   return t;
 }
 
@@ -56,10 +108,11 @@ MC_HD int mc_street_total(const int* lvl) {
 // covered levels, sorted-insert a new boundary. Returns the overflow
 // latch: an insert into full levels drops the top row, as the JAX form's
 // shift does.
+template <int L>
 MC_HD bool mc_street_update(int* lvl, int* ln, int a) {
-  int cnt = 0, pos = 0, n_inc[MC_L];
+  int cnt = 0, pos = 0, n_inc[L];
   bool exists = false;
-  for (int j = 0; j < MC_L; ++j) {
+  for (int j = 0; j < L; ++j) {
     bool v = lvl[j] > 0;
     cnt += v;
     n_inc[j] = ln[j] + (v && lvl[j] <= a);
@@ -67,12 +120,12 @@ MC_HD bool mc_street_update(int* lvl, int* ln, int a) {
     pos += v && lvl[j] < a;
   }
   if (exists) {
-    for (int j = 0; j < MC_L; ++j) ln[j] = n_inc[j];
+    for (int j = 0; j < L; ++j) ln[j] = n_inc[j];
     return false;
   }
-  int new_n = pos == cnt ? 1 : (pos < MC_L ? ln[pos] : 0) + 1;
-  int nl[MC_L], nn[MC_L];
-  for (int j = 0; j < MC_L; ++j) {
+  int new_n = pos == cnt ? 1 : (pos < L ? ln[pos] : 0) + 1;
+  int nl[L], nn[L];
+  for (int j = 0; j < L; ++j) {
     if (j < pos) {
       nl[j] = lvl[j];
       nn[j] = n_inc[j];
@@ -84,20 +137,20 @@ MC_HD bool mc_street_update(int* lvl, int* ln, int a) {
       nn[j] = n_inc[j - 1];
     }
   }
-  for (int j = 0; j < MC_L; ++j) {
+  for (int j = 0; j < L; ++j) {
     lvl[j] = nl[j];
     ln[j] = nn[j];
   }
-  return cnt >= MC_L;
+  return cnt >= L;
 }
 
 // Levels-form merge-bets (_street_merge) with do == true: drop boundaries
 // no contribution matches and compact both columns.
-template <int P>
+template <int P, int L>
 MC_HD void mc_street_merge(int* lvl, int* ln, const int* contrib) {
-  int ol[MC_L], on[MC_L], k = 0;
-  for (int j = 0; j < MC_L; ++j) ol[j] = on[j] = 0;
-  for (int j = 0; j < MC_L; ++j) {
+  int ol[L], on[L], k = 0;
+  for (int j = 0; j < L; ++j) ol[j] = on[j] = 0;
+  for (int j = 0; j < L; ++j) {
     bool matched = false;
     for (int p = 0; p < P; ++p) matched |= contrib[p] == lvl[j];
     if (matched && lvl[j] > 0) {
@@ -106,23 +159,25 @@ MC_HD void mc_street_merge(int* lvl, int* ln, const int* contrib) {
       ++k;
     }
   }
-  for (int j = 0; j < MC_L; ++j) {
+  for (int j = 0; j < L; ++j) {
     lvl[j] = ol[j];
     ln[j] = on[j];
   }
 }
 
-// The betting half of step_table (_step_nosettle, reference rules). A
-// table whose hand ends latches `wait` and empties its play order.
-template <int P>
-MC_HD void mc_step_nosettle(MCTable<P>& s, int raw) {
+// The betting half of step_table (_step_nosettle). A table whose hand ends
+// latches `wait` and empties its play order.
+template <int P, int R>
+MC_HD void mc_step_nosettle(MCTable<P, R>& s, int raw) {
+  constexpr int L = MCTable<P, R>::L;
+  constexpr bool REF = R == MC_REFERENCE;
   if (s.order == 0) return;  // no head: the whole step is a no-op
   const int head = mc_head(s);
   const int cursor_after = (head + 1) % P;
   const int head_bit = 1 << head;
   const int stage0 = s.stage;
 
-  const int total = mc_street_total(s.lvl);
+  const int total = mc_street_total<L>(s.lvl);
   const int delta = mc_sub(total, s.contrib[head]);
   const int stack_head = s.stacks[head];
   const int cap = mc_sub(stack_head, delta);
@@ -133,52 +188,78 @@ MC_HD void mc_step_nosettle(MCTable<P>& s, int raw) {
   const int r = mc_max(action, 0);
   const bool is_check = is_call && total == 0;
   const bool threads = (is_call && total > 0) || is_raise;
-  const int amount = is_raise ? mc_add(r, total) : total;
-  const int paid = threads ? (is_raise ? mc_add(delta, r) : delta) : 0;
+  int amount, paid;
+  if constexpr (REF) {
+    // a call pays the full delta (stacks may go negative)
+    amount = is_raise ? mc_add(r, total) : total;
+    paid = threads ? (is_raise ? mc_add(delta, r) : delta) : 0;
+  } else {
+    // payments cap at the stack; an all-in for less joins what it covers
+    const int pay_call = mc_min(delta, stack_head);
+    const int pay_raise = mc_min(mc_add(delta, r), stack_head);
+    amount = is_raise ? mc_sub(mc_add(r, total),
+                               mc_sub(mc_add(delta, r), pay_raise))
+                      : mc_sub(total, mc_sub(delta, pay_call));
+    paid = threads ? (is_raise ? pay_raise : pay_call) : 0;
+  }
 
   bool ovf = false;
   if (threads)
-    ovf = mc_street_update(s.lvl, s.ln, amount);
+    ovf = mc_street_update<L>(s.lvl, s.ln, amount);
   else if (is_fold || is_check)
-    mc_street_merge<P>(s.lvl, s.ln, s.contrib);
+    mc_street_merge<P, L>(s.lvl, s.ln, s.contrib);
   if (threads) s.contrib[head] = mc_max(s.contrib[head], amount);
   s.stacks[head] = mc_sub(s.stacks[head], paid);
 
-  // exact-equality all-ins leave :players (board.clj:53-89)
   const bool went_all_in = threads && paid == stack_head;
-  if (is_fold || went_all_in) s.in_hand &= ~head_bit;
-  s.to_act = is_raise ? (s.in_hand & ~head_bit) : (s.to_act & ~head_bit);
-  if (is_fold) {
-    s.order &= ~head_bit;
-    s.folded |= head_bit;
+  int actable;
+  if constexpr (REF) {
+    // exact-equality all-ins leave :players (board.clj:53-89)
+    if (is_fold || went_all_in) s.in_hand &= ~head_bit;
+    if (is_fold) s.order &= ~head_bit;
+    actable = s.in_hand;
   } else {
-    s.cursor = cursor_after;
+    // all-in seats stop acting but stay showdown-live
+    if (is_fold) s.in_hand &= ~head_bit;
+    if (went_all_in) s.rr.all_in |= head_bit;
+    if (is_fold || went_all_in) s.order &= ~head_bit;
+    actable = s.in_hand & ~s.rr.all_in;
   }
+  s.to_act = is_raise ? (actable & ~head_bit) : (s.to_act & ~head_bit);
+  if (is_fold)
+    s.folded |= head_bit;
+  else
+    s.cursor = cursor_after;
   const int n_in = mc_popc((uint32_t)s.in_hand & ((1u << P) - 1u));
 
-  // flush the street into the pot slot of the current stage
+  // flush the street into the pot slot of the current stage: layer sets
+  // are the non-folded members (reference) or the original contributors
   if (s.to_act == 0 || n_in <= 1) {
-    for (int j = 0; j < MC_L; ++j) {
+    for (int j = 0; j < L; ++j) {
       if (s.lvl[j] <= 0 || stage0 < 0 || stage0 > 3) continue;
       int set = 0;
       for (int p = 0; p < P; ++p)
-        if (s.contrib[p] >= s.lvl[j] && !((s.folded >> p) & 1)) set |= 1 << p;
-      int row = stage0 * MC_L + j;
+        if (s.contrib[p] >= s.lvl[j] && (!REF || !((s.folded >> p) & 1)))
+          set |= 1 << p;
+      int row = stage0 * L + j;
       s.pot_amt[row] = mc_sub(s.lvl[j], j ? s.lvl[j - 1] : 0);
       s.pot_set[row] = set;
-      s.pot_n[row] = s.ln[j];
+      if constexpr (REF) s.rr.pot_n[row] = s.ln[j];
     }
-    for (int j = 0; j < MC_L; ++j) s.lvl[j] = s.ln[j] = 0;
+    for (int j = 0; j < L; ++j) s.lvl[j] = s.ln[j] = 0;
     for (int p = 0; p < P; ++p) s.contrib[p] = 0;
   }
 
-  // street transition (at most one under reference rules)
-  const bool stage_done = s.to_act == 0;
-  const bool gend = n_in <= 1 || (stage_done && s.stage == 3);
-  if (stage_done && !gend) {
-    s.stage += 1;
-    s.to_act = s.order = s.in_hand;
-    s.cursor = 0;
+  // street transitions: at most one under reference rules; standard
+  // rules chain the board out when nobody can act
+  for (int k = 0; k < (REF ? 1 : 4); ++k) {
+    const bool stage_done = s.to_act == 0;
+    const bool gend = n_in <= 1 || (stage_done && s.stage == 3);
+    if (stage_done && !gend) {
+      s.stage += 1;
+      s.to_act = s.order = actable;
+      s.cursor = 0;
+    }
   }
   const bool ended = n_in <= 1 || (s.to_act == 0 && s.stage == 3);
   if (ended) {
@@ -192,11 +273,16 @@ MC_HD void mc_step_nosettle(MCTable<P>& s, int raw) {
   s.overflow |= (int)ovf;
 }
 
-// Settlement and next hand for a waiting table (_settle_pass, reference
-// rules): showdown payout per pot row, delta meters, players-list
-// rotation by one, blinds, and the deal `cards` [2P + 5].
-template <int P>
-MC_HD void mc_settle_pass(MCTable<P>& s, const int* cards, int sb, int bb) {
+// Settlement and next hand for a waiting table (_settle_pass): showdown
+// payout per pot row, delta meters, players-list rotation by one, blinds,
+// and the deal `cards` [2P + 5]. With `reset_stacks` every hand starts
+// from `ss` chips a seat.
+template <int P, int R>
+MC_HD void mc_settle_pass(MCTable<P, R>& s, const int* cards, int sb, int bb,
+                          int ss = 0, bool reset_stacks = false) {
+  constexpr int L = MCTable<P, R>::L;
+  constexpr bool REF = R == MC_REFERENCE;
+  constexpr int full = (1 << P) - 1;
   if (!s.wait) return;
   uint32_t bm[4] = {0u, 0u, 0u, 0u};
   for (int i = 0; i < 5; ++i) mc_add_card(bm, s.board[i]);
@@ -208,16 +294,28 @@ MC_HD void mc_settle_pass(MCTable<P>& s, const int* cards, int sb, int bb) {
     values[p] = mc_eval_cmp(m[0], m[1], m[2], m[3]);
     pay[p] = 0;
   }
-  for (int row = 0; row < 4 * MC_L; ++row) {
-    int elig = s.pot_set[row] & s.in_hand, vmax = 0, cnt = 0;
+  for (int row = 0; row < 4 * L; ++row) {
+    int elig = s.pot_set[row] & s.in_hand, vmax = 0, cnt = 0, first = P;
     for (int p = 0; p < P; ++p)
       if ((elig >> p) & 1) vmax = mc_max(vmax, values[p]);
-    for (int p = 0; p < P; ++p) cnt += ((elig >> p) & 1) && values[p] == vmax;
+    for (int p = 0; p < P; ++p)
+      if (((elig >> p) & 1) && values[p] == vmax) {
+        ++cnt;
+        first = mc_min(first, p);
+      }
     if (cnt == 0) continue;
-    // amt * inflated n, integer split, remainders vanish
-    int share = mc_floordiv(mc_mul(s.pot_amt[row], s.pot_n[row]), cnt);
+    int total_pot;
+    if constexpr (REF)  // amt * inflated n, remainders vanish
+      total_pot = mc_mul(s.pot_amt[row], s.rr.pot_n[row]);
+    else  // exactly the chips contributed
+      total_pot = mc_mul(s.pot_amt[row],
+                         mc_popc((uint32_t)s.pot_set[row] & (uint32_t)full));
+    const int share = mc_floordiv(total_pot, cnt);
     for (int p = 0; p < P; ++p)
       if (((elig >> p) & 1) && values[p] == vmax) pay[p] = mc_add(pay[p], share);
+    // odd chips to the first-position winner
+    if constexpr (!REF)
+      pay[first] = mc_add(pay[first], mc_floormod(total_pot, cnt));
   }
   int delta[P];
   for (int p = 0; p < P; ++p) {
@@ -234,27 +332,50 @@ MC_HD void mc_settle_pass(MCTable<P>& s, const int* cards, int sb, int bb) {
 
   // next hand: rotate the players list by one, post blinds, deal
   int rot[P];
-  for (int p = 0; p < P; ++p) rot[p] = s.stacks[(p + 1) % P];
+  for (int p = 0; p < P; ++p) rot[p] = reset_stacks ? ss : s.stacks[(p + 1) % P];
+  for (int j = 0; j < L; ++j) s.lvl[j] = s.ln[j] = 0;
+  int to_act = full;
+  if constexpr (REF) {
+    for (int p = 0; p < P; ++p) {
+      int blind = p == 0 ? sb : (p == 1 ? bb : 0);
+      s.stacks[p] = mc_sub(rot[p], blind);
+      s.contrib[p] = blind;
+    }
+    s.lvl[0] = mc_min(sb, bb);
+    s.ln[0] = 2;
+    if (sb != bb) {
+      s.lvl[1] = mc_max(sb, bb);
+      s.ln[1] = 1;
+    }
+  } else {
+    // blinds capped at the stack, placed through the street algebra;
+    // all-in blinds and busted seats sit out, showdown-live
+    const int pay0 = mc_min(mc_max(rot[0], 0), sb);
+    const int pay1 = mc_min(mc_max(rot[1], 0), bb);
+    int all_in = 0;
+    for (int p = 0; p < P; ++p) {
+      int blind = p == 0 ? pay0 : (p == 1 ? pay1 : 0);
+      s.stacks[p] = mc_sub(rot[p], blind);
+      s.contrib[p] = blind;
+      if (s.stacks[p] <= 0) all_in |= 1 << p;
+    }
+    if (pay0 > 0) mc_street_update<L>(s.lvl, s.ln, pay0);
+    if (pay1 > 0) mc_street_update<L>(s.lvl, s.ln, pay1);
+    s.rr.all_in = all_in;
+    to_act = full & ~all_in;
+  }
   for (int p = 0; p < P; ++p) {
-    int blind = p == 0 ? sb : (p == 1 ? bb : 0);
     s.hand_start[p] = rot[p];
-    s.stacks[p] = mc_sub(rot[p], blind);
-    s.contrib[p] = blind;
     s.hole0[p] = cards[p];
     s.hole1[p] = cards[P + p];
   }
-  for (int j = 0; j < MC_L; ++j) s.lvl[j] = s.ln[j] = 0;
-  s.lvl[0] = mc_min(sb, bb);
-  s.ln[0] = 2;
-  if (sb != bb) {
-    s.lvl[1] = mc_max(sb, bb);
-    s.ln[1] = 1;
-  }
   for (int i = 0; i < 5; ++i) s.board[i] = cards[2 * P + i];
-  for (int row = 0; row < 4 * MC_L; ++row)
-    s.pot_amt[row] = s.pot_set[row] = s.pot_n[row] = 0;
-  const int full = (1 << P) - 1;
-  s.to_act = s.order = s.in_hand = full;
+  for (int row = 0; row < 4 * L; ++row) {
+    s.pot_amt[row] = s.pot_set[row] = 0;
+    if constexpr (REF) s.rr.pot_n[row] = 0;
+  }
+  s.in_hand = full;
+  s.to_act = s.order = to_act;
   s.cursor = 2 % P;
   s.folded = 0;
   s.stage = 0;
@@ -265,32 +386,40 @@ MC_HD void mc_settle_pass(MCTable<P>& s, const int* cards, int sb, int bb) {
 // random_policy on two u32 words (_policy_prng): fold 15% (a free check
 // when nothing is owed), raise 30% by 1..20 while the street has fewer
 // than 2 raises, else call.
-template <int P>
-MC_HD int mc_policy(const MCTable<P>& s, uint32_t u, uint32_t amt_bits,
+template <int P, int R>
+MC_HD int mc_policy(const MCTable<P, R>& s, uint32_t u, uint32_t amt_bits,
                     uint32_t fold_bits, uint32_t raise_bits) {
   int amt = (int)(amt_bits % (uint32_t)MC_MAX_RAISE) + 1;
   int head = mc_head(s);
-  bool owes = mc_sub(mc_street_total(s.lvl), s.contrib[head]) > 0;
+  bool owes =
+      mc_sub(mc_street_total<MCTable<P, R>::L>(s.lvl), s.contrib[head]) > 0;
   bool can_raise = s.street_raises < MC_MAX_RAISES_PER_STREET;
   bool is_fold = u < fold_bits;
   bool is_raise = u < raise_bits && !is_fold && can_raise;
   return is_fold ? (owes ? -1 : 0) : (is_raise ? amt : 0);
 }
 
-// K3's work for one table: n_steps fused steps. act[i * stride] is step
-// i's raw action; stash[(h * (2P+5) + c) * stride] is card c of hand h.
+// Hand h's deal from a stash: card c at stash[(h * (2P+5) + c) * stride].
 template <int P>
-MC_HD void mc_run_det(MCTable<P>& s, const int* act, const int* stash,
+MC_HD void mc_stash_deal(const int* stash, long long stride, int hand_ptr,
+                         int* deal) {
+  constexpr int NC = 2 * P + 5;
+  for (int c = 0; c < NC; ++c)
+    deal[c] = stash[((long long)hand_ptr * NC + c) * stride];
+}
+
+// K3's work for one table: n_steps fused steps. act[i * stride] is step
+// i's raw action; hand h > 0 is dealt from stash row min(h, hmax - 1).
+template <int P, int R>
+MC_HD void mc_run_det(MCTable<P, R>& s, const int* act, const int* stash,
                       long long stride, int n_steps, int hmax, int sb,
                       int bb) {
-  constexpr int NC = 2 * P + 5;
   for (int i = 0; i < n_steps; ++i) {
     int hand_ptr = mc_min(s.hand_ct + 1, hmax - 1);
     mc_step_nosettle(s, act[i * stride]);
     if (s.wait) {
-      int deal[NC];
-      for (int c = 0; c < NC; ++c)
-        deal[c] = stash[((long long)hand_ptr * NC + c) * stride];
+      int deal[2 * P + 5];
+      mc_stash_deal<P>(stash, stride, hand_ptr, deal);
       mc_settle_pass(s, deal, sb, bb);
     }
   }
@@ -298,9 +427,9 @@ MC_HD void mc_run_det(MCTable<P>& s, const int* act, const int* stash,
 
 // K4's work for one table: per iteration, `defer` betting slots of two
 // words each (u, then amt_bits), then 2P+5 deal words and a settle pass.
-template <int P>
-MC_HD void mc_run_prng(MCTable<P>& s, MCWords& src, int n_steps, int defer,
-                       int sb, int bb, uint32_t fold_bits,
+template <int P, int R>
+MC_HD void mc_run_prng(MCTable<P, R>& s, MCWords& src, int n_steps,
+                       int defer, int sb, int bb, uint32_t fold_bits,
                        uint32_t raise_bits) {
   constexpr int NC = 2 * P + 5;
   for (int it = 0; it < n_steps / defer; ++it) {
@@ -314,3 +443,15 @@ MC_HD void mc_run_prng(MCTable<P>& s, MCWords& src, int n_steps, int defer,
     mc_settle_pass(s, deal, sb, bb);
   }
 }
+
+// Launch a kernel template<P, R> for the run-time (P, rules) of a C entry:
+// `CASE(N, R)` is expanded for the one seat count MC_SEATS that the build
+// defines (ops/_build.py builds a library per seat count), under both rule
+// sets; any other (P, rules) is refused.
+#define MC_DISPATCH(CASE)                 \
+  switch (rules * 100 + P) {              \
+    CASE(MC_SEATS, MC_REFERENCE)          \
+    CASE(MC_SEATS, MC_STANDARD)           \
+    default:                              \
+      return (int)cudaErrorInvalidValue;  \
+  }

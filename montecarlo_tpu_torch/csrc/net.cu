@@ -1,0 +1,153 @@
+// Policy-net evaluation kernels (ops/cuda_net.py).
+//
+// K5 `mc_net_det_kernel` replaces montecarlo_tpu/ops/pallas_engine.py:1171
+// `_make_net_kernel(mode="det")` via run_net_det: every seat plays the net
+// by argmax, deals come from an injected stash, and every step settles.
+// K6 `mc_net_eval_kernel` replaces `_make_net_kernel` in prng mode via
+// run_net_eval: net seats pick by Gumbel argmax, the others play the random
+// policy, `defer` slots per settle pass, stacks reset every hand.
+//
+// Layout and threads as the engine kernels (engine.cu): one thread runs one
+// table of the packed state, read and written once per launch. The net's
+// 6,020 float weights (24 KB) are copied into shared memory once per block;
+// every thread of a warp reads the same weight at the same time, so each
+// read is a broadcast. Features, hidden activations and logits live in
+// registers and local memory. A decision costs 11,776 float operations
+// (5,888 products, 5,888 sums, each rounded once: no FMA, see net.cuh), so
+// K6 is bound by float issue on the net seats' decisions and by the
+// engine's integer work elsewhere. The MLP on tensor cores (128 tables x
+// 24 features as an mma tile) is later work.
+#include <cuda_runtime.h>
+
+#include "net.cuh"
+
+#define MC_NET_THREADS 128
+
+__device__ void mc_load_weights(float* w, const float* weights) {
+  for (int i = threadIdx.x; i < MC_NET_WEIGHTS; i += blockDim.x)
+    w[i] = weights[i];
+  __syncthreads();
+}
+
+// cards: [n_blocks, hmax, 2P+5, 8, 128].
+template <int P, int R>
+__global__ void __launch_bounds__(MC_NET_THREADS)
+    mc_net_det_kernel(int* state, const int* cards, const float* weights,
+                      int n_tables, int n_steps, int hmax, int sb,
+                      int bb) {
+  __shared__ float w[MC_NET_WEIGHTS];
+  mc_load_weights(w, weights);
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_tables) return;
+  const long long blk = t / MC_TABLES_PER_BLOCK;
+  const int lane = t % MC_TABLES_PER_BLOCK;
+  MCTable<P, R> s;
+  mc_load(s, state, t);
+  mc_run_net_det(s,
+                 cards + blk * hmax * (2 * P + 5) * MC_TABLES_PER_BLOCK + lane,
+                 MC_TABLES_PER_BLOCK, n_steps, hmax, sb, bb, w);
+  mc_store(s, state, t);
+}
+
+// Injected words: int32 [n_steps / defer, 6 defer + 2P + 5, n_tables];
+// else Philox keyed by (seed, table).
+template <int P, int R>
+__global__ void __launch_bounds__(MC_NET_THREADS)
+    mc_net_eval_kernel(int* state, uint32_t seed, const int* words,
+                       const float* weights, int n_tables, int n_steps,
+                       int defer, int sb, int bb, int ss, int net_seats,
+                       int reset_stacks, uint32_t fold_bits,
+                       uint32_t raise_bits) {
+  __shared__ float w[MC_NET_WEIGHTS];
+  mc_load_weights(w, weights);
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_tables) return;
+  MCTable<P, R> s;
+  mc_load(s, state, t);
+  MCWords src(words, n_tables, t, seed, (uint32_t)t, 0u, 0u);
+  mc_run_net_eval(s, src, n_steps, defer, sb, bb, ss, net_seats,
+                  reset_stacks != 0, fold_bits, raise_bits, w);
+  mc_store(s, state, t);
+}
+
+// A probe, on no main path: per table, the features, the masked logits
+// and the Gumbel scores on `words` [4, n_tables] of the acting position,
+// into out [MC_PROBE_ROWS, n_tables].
+template <int P, int R>
+__global__ void __launch_bounds__(MC_NET_THREADS)
+    mc_net_probe_kernel(const int* state, const int* words,
+                        const float* weights, float* out, int n_tables,
+                        int bb) {
+  __shared__ float w[MC_NET_WEIGHTS];
+  mc_load_weights(w, weights);
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_tables) return;
+  MCTable<P, R> s;
+  mc_load(s, state, t);
+  float f[MC_NUM_FEATURES], lg[MC_NUM_ACTIONS];
+  mc_net_scores(s, mc_head(s), bb, w, nullptr, f, lg);
+  float* o = out + t;
+  for (int i = 0; i < MC_NUM_FEATURES; ++i) o[(long long)i * n_tables] = f[i];
+  for (int a = 0; a < MC_NUM_ACTIONS; ++a) {
+    uint32_t g = (uint32_t)words[(long long)a * n_tables + t];
+    o[(long long)(MC_NUM_FEATURES + a) * n_tables] = lg[a];
+    o[(long long)(MC_NUM_FEATURES + MC_NUM_ACTIONS + a) * n_tables] =
+        mc_fsub(lg[a], mc_neg_gumbel(g));
+  }
+}
+
+// In-place on `state`. rules: 0 reference, 1 standard. Returns
+// cudaError_t (cudaErrorInvalidValue for a seat count other than the
+// library's MC_SEATS or another rule set).
+extern "C" int mc_net_det(int* state, const int* cards, const float* weights,
+                          int n_blocks, int P, int rules, int n_steps,
+                          int hmax, int sb, int bb, void* stream) {
+  int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
+  int grid = (n_tables + MC_NET_THREADS - 1) / MC_NET_THREADS;
+  cudaStream_t st = (cudaStream_t)stream;
+#define MC_CASE(N, R)                                                     \
+  case R * 100 + N:                                                       \
+    mc_net_det_kernel<N, R><<<grid, MC_NET_THREADS, 0, st>>>(             \
+        state, cards, weights, n_tables, n_steps, hmax, sb, bb);          \
+    break;
+  MC_DISPATCH(MC_CASE)
+#undef MC_CASE
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mc_net_eval(int* state, int seed, const int* words,
+                           const float* weights, int n_blocks, int P,
+                           int rules, int n_steps, int defer, int sb, int bb,
+                           int ss, int net_seats, int reset_stacks,
+                           int fold_bits, int raise_bits, void* stream) {
+  if (defer < 1 || n_steps % defer != 0) return (int)cudaErrorInvalidValue;
+  int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
+  int grid = (n_tables + MC_NET_THREADS - 1) / MC_NET_THREADS;
+  cudaStream_t st = (cudaStream_t)stream;
+#define MC_CASE(N, R)                                                     \
+  case R * 100 + N:                                                       \
+    mc_net_eval_kernel<N, R><<<grid, MC_NET_THREADS, 0, st>>>(            \
+        state, (uint32_t)seed, words, weights, n_tables, n_steps, defer,  \
+        sb, bb, ss, net_seats, reset_stacks, (uint32_t)fold_bits,         \
+        (uint32_t)raise_bits);                                            \
+    break;
+  MC_DISPATCH(MC_CASE)
+#undef MC_CASE
+  return (int)cudaGetLastError();
+}
+
+extern "C" int mc_net_probe(const int* state, const int* words,
+                            const float* weights, float* out, int n_blocks,
+                            int P, int rules, int bb, void* stream) {
+  int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
+  int grid = (n_tables + MC_NET_THREADS - 1) / MC_NET_THREADS;
+  cudaStream_t st = (cudaStream_t)stream;
+#define MC_CASE(N, R)                                                     \
+  case R * 100 + N:                                                       \
+    mc_net_probe_kernel<N, R><<<grid, MC_NET_THREADS, 0, st>>>(           \
+        state, words, weights, out, n_tables, bb);                        \
+    break;
+  MC_DISPATCH(MC_CASE)
+#undef MC_CASE
+  return (int)cudaGetLastError();
+}

@@ -15,7 +15,7 @@ class TableConfig:
 
     Defaults mirror the reference: 100-chip starting stacks, 5/10 blinds.
     ``rules`` is "reference", "standard" or "tournament" (the port's engine
-    runs "reference" only so far); ``bets_impl`` names the street bet form
+    runs "reference" and "standard" so far); ``bets_impl`` names the street bet form
     ("layers" or "levels") of the JAX engine and is unused by the kernels,
     which run the levels form.
     """

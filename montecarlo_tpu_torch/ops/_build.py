@@ -1,10 +1,18 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, which ``ctypes`` loads. The build happens at first
-use, from the package's own sources, into ``montecarlo_tpu_torch/_build/``
-under a hash of those sources, so an edited source rebuilds and an
-unchanged one loads the cached library. Nothing here runs at import time.
+``nvcc`` compiles ``csrc/*.cu`` for ``sm_90a`` into shared libraries with a
+plain C interface, which ``ctypes`` loads:
+
+- ``library()``: the kernels that take no seat count (``equity.cu``,
+  ``philox.cu``);
+- ``library(P)``: the engine and net kernels (``SEAT_SOURCES``) for seat
+  count P only, both rule sets (``-DMC_SEATS=P``). A run builds the seat
+  counts it uses, not all nine.
+
+A library is built at first use, from the package's own sources, into
+``montecarlo_tpu_torch/_build/<hash of the sources>/<name>/``, so an edited
+source rebuilds and an unchanged one loads the cached library. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -27,19 +35,28 @@ BUILD = PKG / "_build"
 LIB_NAME = "libmc_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SEAT_SOURCES = ("engine.cu", "net.cu")
+MIN_SEATS, MAX_SEATS = 2, 10
 
 P_ = ctypes.c_void_p
 I_ = ctypes.c_int
 LL_ = ctypes.c_longlong
 
 # C entry -> argument types (pointers as c_void_p so ctypes never cuts
-# them to 32 bits). Every entry returns its cudaGetLastError() as int.
+# them to 32 bits), for the library without and with a seat count. Every
+# entry returns its cudaGetLastError() as int.
 SIGNATURES = {
     "mc_equity_counts": [I_, P_, I_, LL_, P_, P_, P_],
     "mc_sweep_counts": [I_, P_, P_, I_, LL_, P_, P_, P_],
-    "mc_engine_det": [P_, P_, P_, I_, I_, I_, I_, I_, I_, P_],
-    "mc_engine_prng": [P_, I_, P_, I_, I_, I_, I_, I_, I_, I_, I_, P_],
     "mc_philox_blocks": [P_, P_, I_, P_],
+}
+SEAT_SIGNATURES = {
+    "mc_engine_det": [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_, P_],
+    "mc_engine_prng": [P_, I_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, P_],
+    "mc_net_det": [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_, P_],
+    "mc_net_eval": [P_, I_, P_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, I_,
+                    I_, I_, P_],
+    "mc_net_probe": [P_, P_, P_, P_, I_, I_, I_, I_, P_],
 }
 
 
@@ -63,13 +80,26 @@ def sources_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> tuple[Path, float]:
-    """Compile the kernels unless a build of these sources exists.
+def _sources(seats):
+    seat = [CSRC / name for name in SEAT_SOURCES]
+    if seats is not None:
+        if not MIN_SEATS <= seats <= MAX_SEATS:
+            raise ValueError(f"seats={seats}: expected {MIN_SEATS}.."
+                             f"{MAX_SEATS}")
+        return seat, [f"-DMC_SEATS={seats}"]
+    return [f for f in sorted(CSRC.glob("*.cu")) if f not in seat], []
 
-    Returns (library path, seconds spent compiling; 0.0 when cached). The
-    ptxas report (registers, spills per kernel) lands beside the library
-    in ``build.log``."""
-    out_dir = BUILD / sources_hash()
+
+def build(seats: int | None = None) -> tuple[Path, float]:
+    """Compile a library unless a build of these sources exists: the one
+    without a seat count (``seats`` None) or the one for ``seats``.
+
+    Returns (library path, seconds spent compiling; 0.0 when cached). One
+    nvcc runs per source, all at once. The ptxas report (registers, stack,
+    spills per kernel) lands beside the library in ``build.log``."""
+    sources, defines = _sources(seats)
+    out_dir = BUILD / sources_hash() / ("common" if seats is None
+                                        else f"p{seats}")
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib, 0.0
@@ -78,18 +108,19 @@ def build() -> tuple[Path, float]:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs, procs = [], []
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in sources:
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
-                 "-o", str(obj)],
+                [nvcc, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-c",
+                 str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         outs = [(src, p.communicate()[0], p.returncode) for src, p in procs]
         for src, out, rc in outs:
             if rc != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
-        log = [f"== {src.name}\n{out}" for src, out, _ in outs]
+        log = [f"== {src.name} {' '.join(defines)}\n{out}"
+               for src, out, _ in outs]
         tmp_lib = Path(tmp) / LIB_NAME
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib),
@@ -102,11 +133,13 @@ def build() -> tuple[Path, float]:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib_path, _ = build()
+def library(seats: int | None = None) -> ctypes.CDLL:
+    """The loaded library without a seat count, or the one for ``seats``;
+    built on first call."""
+    lib_path, _ = build(seats)
     lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in SIGNATURES.items():
+    for name, argtypes in (SIGNATURES if seats is None
+                           else SEAT_SIGNATURES).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

@@ -15,9 +15,9 @@ state in and out as it is.
   Philox words in plain PyTorch, so for a given seed the CPU wrapper and
   the kernel return the same state.
 
-Reference rules only in this slice: every engine entry raises
-``NotImplementedError`` for "standard" and "tournament". Seat counts
-2..10 are accepted.
+Reference and standard rules, selected statically as in the JAX engine
+(a template parameter of the kernels); every engine entry raises
+``NotImplementedError`` for "tournament". Seat counts 2..10 are accepted.
 
 The plain versions ``_run_det_plain`` / ``_run_prng_plain`` translate the
 JAX device functions onto ``[rows, tables]`` tensors (tables on the last
@@ -30,6 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from montecarlo_tpu_torch.device import resolve
 from montecarlo_tpu_torch.ops import _build
 from montecarlo_tpu_torch.ops.cuda_equity import _sample_cards
 from montecarlo_tpu_torch.ops.evaluator import (
@@ -60,7 +61,9 @@ MAX_RAISE = 20
 MAX_RAISES_PER_STREET = 2
 MAX_SEATS = 10
 
-LAUNCHES = {"engine_det": 0, "engine_prng": 0}
+RULES = ("reference", "standard")
+LAUNCHES = {f"engine_{mode}_{rules}": 0
+            for mode in ("det", "prng") for rules in RULES}
 
 
 def reset_launches() -> None:
@@ -99,9 +102,11 @@ def _field_layout(P: int, rules: str = "reference"):
 
 
 def _check_config(P: int, rules: str) -> None:
-    if rules != "reference":
+    if rules == "tournament":
         raise NotImplementedError(
-            f"rules={rules!r}: the port's engine runs reference rules only")
+            "rules='tournament': not ported yet (ROADMAP.md, B4/B5)")
+    if rules not in RULES:
+        raise ValueError(f"rules={rules!r}: expected one of {RULES}")
     if not 2 <= P <= MAX_SEATS:
         raise ValueError(f"num_seats={P}: expected 2..{MAX_SEATS}")
 
@@ -123,9 +128,11 @@ def pack_state(cfg, first_cards) -> torch.Tensor:
     if n_tables % TABLES_PER_BLOCK:
         raise ValueError(f"{n_tables} tables: not a multiple of "
                          f"{TABLES_PER_BLOCK}")
-    sb, bb = cfg.small_blind, cfg.big_blind
+    sb, bb, ss = cfg.small_blind, cfg.big_blind, cfg.starting_stack
     if sb <= 0 or bb <= 0:
         raise ValueError("blinds must be positive")
+    if rules == "standard":  # blinds capped at the stack
+        sb, bb = min(sb, max(ss, 0)), min(bb, max(ss, 0))
     rows = torch.zeros((F, n_tables), dtype=I32, device=fc.device)
 
     def put(name, i, val):
@@ -137,12 +144,19 @@ def pack_state(cfg, first_cards) -> torch.Tensor:
     put("cursor", 0, 2 % P)
     put("last_raiser", 0, P)
     put("in_hand", 0, full)
-    put("to_act", 0, full)
-    put("order", 0, full)
+    all_in = 0
     for k in range(P):
         blind = sb if k == 0 else (bb if k == 1 else 0)
-        put("stacks", k, cfg.starting_stack - blind)
-        put("hand_start", k, cfg.starting_stack)
+        put("stacks", k, ss - blind)
+        put("hand_start", k, ss)
+        all_in |= (ss - blind <= 0) << k
+    if rules == "standard":  # all-in blinds sit out, showdown-live
+        put("all_in", 0, all_in)
+    else:
+        all_in = 0
+    put("to_act", 0, full & ~all_in)
+    put("order", 0, full & ~all_in)
+    for k in range(P):
         put("hole0", k, fc[:, k])
         put("hole1", k, fc[:, P + k])
     lo, hi = min(sb, bb), max(sb, bb)
@@ -179,9 +193,10 @@ def unpack_field(state, cfg, name, i=0) -> torch.Tensor:
     return state[:, off + i].reshape(-1)
 
 
-def state_from_numpy(arr, device="cpu") -> torch.Tensor:
-    """A packed state as numpy (e.g. from the JAX engine) -> int32 tensor."""
-    return torch.tensor(np.asarray(arr, np.int32), device=device)
+def state_from_numpy(arr, device=None) -> torch.Tensor:
+    """A packed state as numpy (e.g. from the JAX engine) -> int32 tensor
+    on ``device`` (the card when None)."""
+    return torch.tensor(np.asarray(arr, np.int32), device=resolve(device))
 
 
 def state_to_numpy(state: torch.Tensor) -> np.ndarray:
@@ -272,24 +287,38 @@ def _hand_values(st):
 
 
 def _settle_payout(st, pots_amt, pots_set, pots_n, in_hand, P):
-    """Showdown payout per pot row (reference rules), [P, T]."""
+    """Showdown payout per pot row, [P, T]. Reference rules (``pots_n``
+    given): amt * inflated n, remainders vanish. Standard rules
+    (``pots_n`` None): amt * |contributors|, odd chips to the
+    first-position winner of each layer."""
     values = _hand_values(st)
     dev = values.device
     in_hand_b = _mask_bits(in_hand, P) != 0
-    set_bits = (pots_set[:, :, None] >> _iota(P, dev).view(1, 1, P, 1)) & 1
+    seats = _iota(P, dev).view(1, 1, P, 1)
+    set_bits = (pots_set[:, :, None] >> seats) & 1
     elig = (set_bits != 0) & in_hand_b[None, None]
     vmax = torch.where(elig, values[None, None], 0).amax(2)
     winners = elig & (values[None, None] == vmax[:, :, None])
     cnt = winners.sum(2, dtype=I32)
-    total_pot = pots_amt * pots_n  # amt * inflated n; remainders vanish
-    share = torch.where(cnt > 0, total_pot // cnt.clamp(min=1), 0)
+    if pots_n is not None:
+        total_pot = pots_amt * pots_n
+    else:
+        total_pot = pots_amt * set_bits.sum(2, dtype=I32)
+    div = cnt.clamp(min=1)
+    share = torch.where(cnt > 0, total_pot // div, 0)
     pay = torch.where(winners, share[:, :, None], 0)
+    if pots_n is None:
+        rem = torch.where(cnt > 0, total_pot % div, 0)
+        first = torch.where(winners, seats, P).amin(2)
+        pay = pay + torch.where(seats == first[:, :, None], rem[:, :, None],
+                                0)
     return pay.sum((0, 1), dtype=I32)
 
 
-def _step_nosettle(st, raw_action, P):
-    """The betting half of ``step_table`` under reference rules; a table
-    whose hand ends latches ``wait`` and empties its play order."""
+def _step_nosettle(st, raw_action, P, rules="reference"):
+    """The betting half of ``step_table``; a table whose hand ends latches
+    ``wait`` and empties its play order."""
+    reference = rules == "reference"
     n_lvl = st["lvl"].shape[0]
     T = st["stage"].shape[0]
     dev = st["stage"].device
@@ -312,8 +341,20 @@ def _step_nosettle(st, raw_action, P):
     r = action.clamp(min=0)
     is_check = is_call & (total == 0)
     threads = (is_call & (total > 0)) | is_raise
-    amount = torch.where(is_raise, r + total, total)
-    paid = torch.where(threads, torch.where(is_raise, delta + r, delta), 0)
+    if reference:
+        # a call pays the full delta (stacks may go negative)
+        amount = torch.where(is_raise, r + total, total)
+        paid = torch.where(threads, torch.where(is_raise, delta + r, delta),
+                           0)
+    else:
+        # payments cap at the stack; an all-in for less joins only what it
+        # covers
+        pay_call = torch.minimum(delta, stack_head)
+        pay_raise = torch.minimum(delta + r, stack_head)
+        amount = torch.where(is_raise, r + total - (delta + r - pay_raise),
+                             total - (delta - pay_call))
+        paid = torch.where(threads, torch.where(is_raise, pay_raise,
+                                                pay_call), 0)
 
     up_lvl, up_ln, ovf = _street_update(st["lvl"], st["ln"], amount, threads)
     do_merge = is_fold | is_check
@@ -327,11 +368,23 @@ def _step_nosettle(st, raw_action, P):
     stacks = st["stacks"] - torch.where(head_onehot, paid[None], 0)
 
     went_all_in = threads & (paid == stack_head)
-    in_hand = st["in_hand"] & ~torch.where(is_fold | went_all_in, head_bit, 0)
-    to_act = torch.where(is_raise, in_hand & ~head_bit,
+    fold_bit = torch.where(is_fold, head_bit, 0)
+    if reference:
+        # exact-equality all-ins leave :players entirely
+        in_hand = st["in_hand"] & ~torch.where(is_fold | went_all_in,
+                                               head_bit, 0)
+        actable = in_hand
+        order = st["order"] & ~fold_bit
+    else:
+        # all-in seats stop acting but stay showdown-live
+        in_hand = st["in_hand"] & ~fold_bit
+        all_in = st["all_in"] | torch.where(went_all_in, head_bit, 0)
+        actable = in_hand & ~all_in
+        order = st["order"] & ~torch.where(is_fold | went_all_in, head_bit,
+                                           0)
+    to_act = torch.where(is_raise, actable & ~head_bit,
                          st["to_act"] & ~head_bit)
-    order = st["order"] & ~torch.where(is_fold, head_bit, 0)
-    folded = st["folded"] | torch.where(is_fold, head_bit, 0)
+    folded = st["folded"] | fold_bit
     cursor = torch.where(is_fold, st["cursor"], cursor_after)
     n_in = _mask_bits(in_hand, P).sum(0, dtype=I32)
 
@@ -340,31 +393,33 @@ def _step_nosettle(st, raw_action, P):
     live = lvl > 0
     row_amt = lvl - _shift_down(lvl)
     ge = (contrib[None] >= lvl[:, None]) & live[:, None]     # [L, P, T]
-    not_folded = _mask_bits(folded, P) == 0
+    if reference:  # :players, folds removed at flush time
+        ge = ge & (_mask_bits(folded, P) == 0)[None]
     seat_bits = torch.ones_like(seats) << seats
-    layer_set = torch.where(ge & not_folded[None], seat_bits[None],
-                            0).sum(1, dtype=I32)
+    layer_set = torch.where(ge, seat_bits[None], 0).sum(1, dtype=I32)
     pots_amt = st["pot_amt"].reshape(4, n_lvl, T)
     pots_set = st["pot_set"].reshape(4, n_lvl, T)
-    pots_n = st["pot_n"].reshape(4, n_lvl, T)
     w = ((flush[None] & (_iota(4, dev) == st["stage"][None]))[:, None]
          & live[None])
     pots_amt = torch.where(w, row_amt[None], pots_amt)
     pots_set = torch.where(w, layer_set[None], pots_set)
-    pots_n = torch.where(w, ln[None], pots_n)
+    if reference:
+        pots_n = torch.where(w, ln[None], st["pot_n"].reshape(4, n_lvl, T))
     lvl = torch.where(flush[None], 0, lvl)
     ln = torch.where(flush[None], 0, ln)
     contrib = torch.where(flush[None], 0, contrib)
 
-    # street transition (at most one under reference rules)
+    # street transitions: at most one under reference rules; standard
+    # chains the board out when nobody can act
     stage = st["stage"]
-    stage_done = to_act == 0
-    gend = (n_in <= 1) | (stage_done & (stage == 3))
-    trans = stage_done & ~gend
-    stage = torch.where(trans, stage + 1, stage)
-    to_act = torch.where(trans, in_hand, to_act)
-    order = torch.where(trans, in_hand, order)
-    cursor = torch.where(trans, zero, cursor)
+    for _ in range(1 if reference else 4):
+        stage_done = to_act == 0
+        gend = (n_in <= 1) | (stage_done & (stage == 3))
+        trans = stage_done & ~gend
+        stage = torch.where(trans, stage + 1, stage)
+        to_act = torch.where(trans, actable, to_act)
+        order = torch.where(trans, actable, order)
+        cursor = torch.where(trans, zero, cursor)
     ended = (n_in <= 1) | ((to_act == 0) & (stage == 3))
     to_act = torch.where(ended, zero, to_act)
     order = torch.where(ended, zero, order)
@@ -385,8 +440,11 @@ def _step_nosettle(st, raw_action, P):
         "stacks": stacks, "contrib": contrib, "lvl": lvl, "ln": ln,
         "pot_amt": pots_amt.reshape(4 * n_lvl, T),
         "pot_set": pots_set.reshape(4 * n_lvl, T),
-        "pot_n": pots_n.reshape(4 * n_lvl, T),
     }
+    if reference:
+        out["pot_n"] = pots_n.reshape(4 * n_lvl, T)
+    else:
+        out["all_in"] = all_in
     # no-head guard: a table with an empty play order is a no-op
     guarded = {name: torch.where(exists if v.dim() == 1 else exists[None],
                                  v, st[name])
@@ -394,9 +452,12 @@ def _step_nosettle(st, raw_action, P):
     return {**st, **guarded}
 
 
-def _settle_pass(st, new_cards, P, sb, bb):
-    """Settlement and next hand for every table whose ``wait`` flag is up
-    (reference rules); ``new_cards``: [2P+5, T]."""
+def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
+                 reset_stacks=False):
+    """Settlement and next hand for every table whose ``wait`` flag is up;
+    ``new_cards``: [2P+5, T]. With ``reset_stacks`` every hand starts from
+    ``ss`` chips a seat (independent-hand evaluation)."""
+    reference = rules == "reference"
     n_lvl = st["lvl"].shape[0]
     T = st["stage"].shape[0]
     dev = st["stage"].device
@@ -404,7 +465,7 @@ def _settle_pass(st, new_cards, P, sb, bb):
     ended = st["wait"] != 0
     pots_amt = st["pot_amt"].reshape(4, n_lvl, T)
     pots_set = st["pot_set"].reshape(4, n_lvl, T)
-    pots_n = st["pot_n"].reshape(4, n_lvl, T)
+    pots_n = st["pot_n"].reshape(4, n_lvl, T) if reference else None
 
     payout = _settle_payout(st, pots_amt, pots_set, pots_n, st["in_hand"], P)
     stacks = torch.where(ended[None], st["stacks"] + payout, st["stacks"])
@@ -421,28 +482,55 @@ def _settle_pass(st, new_cards, P, sb, bb):
 
     # next hand: rotate the players list by one, blinds, deal
     rot = torch.roll(stacks, -1, dims=0)
+    if reset_stacks:
+        rot = torch.full_like(rot, ss)
     seats = _iota(P, dev)
     hand_start = torch.where(ended[None], rot, st["hand_start"])
-    blinds = torch.where(seats == 0, sb, torch.where(seats == 1, bb, 0))
-    stacks = torch.where(ended[None], rot - blinds, stacks)
-    b_lvl, b_ln = ([min(sb, bb), 0], [2, 0]) if sb == bb else \
-        ([min(sb, bb), max(sb, bb)], [2, 1])
-    rows = _iota(n_lvl, dev)
-    blind_lvl = torch.where(rows == 0, b_lvl[0],
-                            torch.where(rows == 1, b_lvl[1], 0))
-    blind_ln = torch.where(rows == 0, b_ln[0],
-                           torch.where(rows == 1, b_ln[1], 0))
-    lvl = torch.where(ended[None], blind_lvl, st["lvl"])
-    ln = torch.where(ended[None], blind_ln, st["ln"])
-    contrib = torch.where(ended[None], blinds, st["contrib"])
     full = (1 << P) - 1
-    out = {
+    out = {}
+    if reference:
+        blinds = torch.where(seats == 0, sb, torch.where(seats == 1, bb, 0))
+        stacks = torch.where(ended[None], rot - blinds, stacks)
+        b_lvl, b_ln = ([min(sb, bb), 0], [2, 0]) if sb == bb else \
+            ([min(sb, bb), max(sb, bb)], [2, 1])
+        rows = _iota(n_lvl, dev)
+        blind_lvl = torch.where(rows == 0, b_lvl[0],
+                                torch.where(rows == 1, b_lvl[1], 0))
+        blind_ln = torch.where(rows == 0, b_ln[0],
+                               torch.where(rows == 1, b_ln[1], 0))
+        lvl = torch.where(ended[None], blind_lvl, st["lvl"])
+        ln = torch.where(ended[None], blind_ln, st["ln"])
+        contrib = torch.where(ended[None], blinds, st["contrib"])
+        to_act_new = full
+        out["pot_n"] = torch.where(ended[None, None], 0, pots_n) \
+            .reshape(4 * n_lvl, T)
+    else:
+        # blinds capped at the stack, placed through the street algebra
+        pay0 = rot[0].clamp(min=0).clamp(max=sb)
+        pay1 = rot[1].clamp(min=0).clamp(max=bb)
+        pays = torch.where(seats == 0, pay0[None],
+                           torch.where(seats == 1, pay1[None], 0))
+        new_stacks = rot - pays
+        stacks = torch.where(ended[None], new_stacks, stacks)
+        z = torch.zeros_like(st["lvl"])
+        l1, n1, _ = _street_update(z, z, pay0, pay0 > 0)
+        l2, n2, _ = _street_update(l1, n1, pay1, pay1 > 0)
+        lvl = torch.where(ended[None], l2, st["lvl"])
+        ln = torch.where(ended[None], n2, st["ln"])
+        contrib = torch.where(ended[None], pays, st["contrib"])
+        # all-in blinds and busted seats sit out, showdown-live
+        seat_bits = torch.ones_like(seats) << seats
+        allin_bm = torch.where(new_stacks <= 0, seat_bits, 0).sum(0,
+                                                                  dtype=I32)
+        out["all_in"] = torch.where(ended, allin_bm, st["all_in"])
+        to_act_new = full & ~allin_bm
+    out.update({
         "stage": torch.where(ended, zero, st["stage"]),
         "cursor": torch.where(ended, 2 % P, st["cursor"]),
         "folded": torch.where(ended, zero, st["folded"]),
         "in_hand": torch.where(ended, full, st["in_hand"]),
-        "to_act": torch.where(ended, full, st["to_act"]),
-        "order": torch.where(ended, full, st["order"]),
+        "to_act": torch.where(ended, to_act_new, st["to_act"]),
+        "order": torch.where(ended, to_act_new, st["order"]),
         "wait": torch.where(ended, zero, st["wait"]),
         "hand_ct": hand_ct,
         "button": torch.where(ended, (st["button"] + 1) % P, st["button"]),
@@ -456,9 +544,7 @@ def _settle_pass(st, new_cards, P, sb, bb):
         .reshape(4 * n_lvl, T),
         "pot_set": torch.where(ended[None, None], 0, pots_set)
         .reshape(4 * n_lvl, T),
-        "pot_n": torch.where(ended[None, None], 0, pots_n)
-        .reshape(4 * n_lvl, T),
-    }
+    })
     return {**st, **out}
 
 
@@ -474,22 +560,35 @@ def _policy(st, u, amt_bits, P):
                        torch.where(is_raise, amt, 0).to(I32))
 
 
-def _run_det_plain(state, actions, cards, P, n_steps, sb, bb):
+def _stash_rows(cards):
+    """[n_blocks, hmax, 2P+5, 8, 128] deals -> [hmax, 2P+5, T]."""
+    hmax, nc = cards.shape[1], cards.shape[2]
+    return cards.permute(1, 2, 0, 3, 4).reshape(hmax, nc, -1)
+
+
+def _stash_deal(stash, hand_ct):
+    """Each table's next deal from the stash: row min(hand_ct + 1,
+    hmax - 1), [2P+5, T]."""
+    hmax, nc, T = stash.shape
+    hand_ptr = torch.clamp(hand_ct + 1, max=hmax - 1)
+    return stash.gather(0, hand_ptr.long().view(1, 1, T)
+                        .expand(1, nc, T))[0]
+
+
+def _run_det_plain(state, actions, cards, P, n_steps, sb, bb,
+                   rules="reference"):
     """Plain version of K3: ``n_steps`` fused steps on injected raw
     actions [n_blocks, n_steps, 8, 128] and deals [n_blocks, hmax, 2P+5,
     8, 128] (hand h > 0 reads stash row min(h, hmax - 1))."""
-    layout, F = _field_layout(P)
+    layout, F = _field_layout(P, rules)
     st = _unpack(_to_rows(state), layout)
     T = st["stage"].shape[0]
     acts = actions.permute(1, 0, 2, 3).reshape(actions.shape[1], T)
-    hmax, nc = cards.shape[1], cards.shape[2]
-    stash = cards.permute(1, 2, 0, 3, 4).reshape(hmax, nc, T)
+    stash = _stash_rows(cards)
     for i in range(n_steps):
-        hand_ptr = torch.clamp(st["hand_ct"] + 1, max=hmax - 1)
-        deal = stash.gather(0, hand_ptr.long().view(1, 1, T)
-                            .expand(1, nc, T))[0]
-        st = _step_nosettle(st, acts[i], P)
-        st = _settle_pass(st, deal, P, sb, bb)
+        deal = _stash_deal(stash, st["hand_ct"])
+        st = _step_nosettle(st, acts[i], P, rules)
+        st = _settle_pass(st, deal, P, sb, bb, rules)
     return _to_blocks(_pack(st, layout))
 
 
@@ -500,7 +599,8 @@ def _defer_for(n_steps: int) -> int:
 def prng_words_shape(n_tables: int, P: int, n_steps: int):
     """Shape of K4's words: [n_steps / defer, 2 * defer + 2P + 5, n_tables]
     — per table and iteration, (u, amt_bits) per betting slot, then the
-    2P+5 deal words."""
+    2P+5 deal words. (K6 adds four Gumbel words per slot:
+    ``cuda_net.net_words_shape``.)"""
     defer = _defer_for(n_steps)
     return (n_steps // defer, 2 * defer + 2 * P + 5, n_tables)
 
@@ -511,45 +611,57 @@ def prng_words(seed: int, n_tables: int, P: int, n_steps: int, it: int,
     int64 [2 * defer + 2P + 5, n_tables], row ``it`` of
     ``prng_words_shape``. Table t draws from stream (seed, t, 0, 0)."""
     W = prng_words_shape(n_tables, P, n_steps)[1]
+    return table_words(seed, n_tables, it * W, W, device)
+
+
+def table_words(seed: int, n_tables: int, start: int, n: int, device):
+    """Words ``start .. start + n - 1`` of every table's stream (seed, t,
+    0, 0): int64 [n, n_tables]."""
     t = torch.arange(n_tables, dtype=I64, device=device)
-    return stream_words(seed, t, 0, 0, it * W, W)
+    return stream_words(seed, t, 0, 0, start, n)
 
 
-def _prng_plain(state, words_of, P, n_steps, sb, bb):
-    """K4's iterations on the words ``words_of(it)`` of each iteration."""
-    layout, F = _field_layout(P)
+def _prng_plain(state, words_of, P, n_steps, sb, bb, rules="reference",
+                ss=100, reset_stacks=False):
+    """K4's iterations on the words ``words_of(it)`` of each iteration
+    (``reset_stacks``: the settle option of the net-eval kernel, for the
+    tests)."""
+    layout, F = _field_layout(P, rules)
     st = _unpack(_to_rows(state), layout)
     defer = _defer_for(n_steps)
     for it in range(n_steps // defer):
         words = words_of(it)
         for k in range(defer):
             raw = _policy(st, words[2 * k], words[2 * k + 1], P)
-            st = _step_nosettle(st, raw, P)
+            st = _step_nosettle(st, raw, P, rules)
         deal = torch.stack(_sample_cards(words[2 * defer:], []))
-        st = _settle_pass(st, deal, P, sb, bb)
+        st = _settle_pass(st, deal, P, sb, bb, rules, ss, reset_stacks)
     return _to_blocks(_pack(st, layout))
 
 
-def _run_prng_plain(state, words, P, n_steps, sb, bb):
+def _run_prng_plain(state, words, P, n_steps, sb, bb, rules="reference",
+                    **settle):
     """Plain version of K4 on explicit words (int64 in [0, 2^32), shape
     ``prng_words_shape``)."""
-    return _prng_plain(state, lambda it: words[it], P, n_steps, sb, bb)
+    return _prng_plain(state, lambda it: words[it], P, n_steps, sb, bb,
+                       rules, **settle)
 
 
-def _run_prng_plain_philox(seed, state, P, n_steps, sb, bb):
+def _run_prng_plain_philox(seed, state, P, n_steps, sb, bb,
+                           rules="reference"):
     """Plain version of K4's Philox mode on the state's device: the state
     the kernel returns for ``seed``."""
     T = state.shape[0] * TABLES_PER_BLOCK
     return _prng_plain(state, lambda it: prng_words(
-        seed, T, P, n_steps, it, state.device), P, n_steps, sb, bb)
+        seed, T, P, n_steps, it, state.device), P, n_steps, sb, bb, rules)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_state(state, P):
-    _, F = _field_layout(P)
+def _check_state(state, P, rules):
+    _, F = _field_layout(P, rules)
     if state.dim() != 4 or tuple(state.shape[1:]) != (F, *TILE) \
             or state.dtype != I32:
         raise ValueError(f"state must be int32 [n_blocks, {F}, 8, 128], got "
@@ -557,6 +669,17 @@ def _check_state(state, P):
     if state.shape[0] * TABLES_PER_BLOCK >= 1 << 31:
         raise ValueError(f"{state.shape[0]} blocks: the kernels index "
                          f"tables with int32")
+    if state.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {state.device}")
+
+
+def _check_stash(cards, state, P):
+    nb = state.shape[0]
+    if cards.dim() != 5 or cards.shape[0] != nb or cards.shape[1] < 1 \
+            or tuple(cards.shape[2:]) != (2 * P + 5, *TILE) \
+            or cards.device != state.device:
+        raise ValueError(f"cards must be [{nb}, hmax, {2 * P + 5}, 8, 128] "
+                         f"on {state.device}")
 
 
 def run_perpetual_det(state, actions, cards, P: int, n_steps: int, sb: int,
@@ -565,27 +688,25 @@ def run_perpetual_det(state, actions, cards, P: int, n_steps: int, sb: int,
     [n_blocks, n_steps, 8, 128] and per-hand deals [n_blocks, hmax, 2P+5,
     8, 128] (hand 0 already dealt into ``state``). Returns the new state."""
     _check_config(P, rules)
-    _check_state(state, P)
+    _check_state(state, P, rules)
+    _check_stash(cards, state, P)
     nb = state.shape[0]
-    if tuple(actions.shape) != (nb, n_steps, *TILE) or \
-            cards.dim() != 5 or cards.shape[0] != nb or cards.shape[1] < 1 \
-            or tuple(cards.shape[2:]) != (2 * P + 5, *TILE):
-        raise ValueError("actions/cards shapes do not match the state")
-    if state.device.type == "cuda":
-        lib = _build.library()
-        out = state.clone()
-        act = actions.to(I32).contiguous()
-        crd = cards.to(I32).contiguous()
-        _build.check(lib.mc_engine_det(
-            out.data_ptr(), act.data_ptr(), crd.data_ptr(), nb, P, n_steps,
-            cards.shape[1], sb, bb, _build.stream_ptr(state.device)),
-            "mc_engine_det")
-        LAUNCHES["engine_det"] += 1
-        return out
-    if state.device.type != "cpu":
-        raise ValueError(f"unsupported device {state.device}")
-    return _run_det_plain(state, actions.to(I32), cards.to(I32), P, n_steps,
-                          sb, bb)
+    if tuple(actions.shape) != (nb, n_steps, *TILE) \
+            or actions.device != state.device:
+        raise ValueError("actions do not match the state")
+    if state.device.type == "cpu":
+        return _run_det_plain(state, actions.to(I32), cards.to(I32), P,
+                              n_steps, sb, bb, rules)
+    lib = _build.library(P)
+    out = state.clone()
+    act = actions.to(I32).contiguous()
+    crd = cards.to(I32).contiguous()
+    _build.check(lib.mc_engine_det(
+        out.data_ptr(), act.data_ptr(), crd.data_ptr(), nb, P,
+        RULES.index(rules), n_steps, cards.shape[1], sb, bb,
+        _build.stream_ptr(state.device)), "mc_engine_det")
+    LAUNCHES[f"engine_det_{rules}"] += 1
+    return out
 
 
 def run_perpetual_prng(seed: int, state, P: int, n_steps: int, sb: int,
@@ -595,42 +716,44 @@ def run_perpetual_prng(seed: int, state, P: int, n_steps: int, sb: int,
     same on the CPU and on the card, or from ``words`` (int64 in
     [0, 2^32), shape ``prng_words_shape``)."""
     _check_config(P, rules)
-    _check_state(state, P)
+    _check_state(state, P, rules)
     nb = state.shape[0]
     shape = prng_words_shape(nb * TABLES_PER_BLOCK, P, n_steps)
     if words is not None and (tuple(words.shape) != shape
                               or words.device != state.device):
         raise ValueError(f"words must be {shape} on {state.device}")
-    if state.device.type == "cuda":
-        lib = _build.library()
-        out = state.clone()
-        w32 = None if words is None else words_as_i32(words).contiguous()
-        _build.check(lib.mc_engine_prng(
-            out.data_ptr(), int(seed), None if w32 is None else w32.data_ptr(),
-            nb, P, n_steps, _defer_for(n_steps), sb, bb, FOLD_P_BITS,
-            RAISE_P_BITS, _build.stream_ptr(state.device)), "mc_engine_prng")
-        LAUNCHES["engine_prng"] += 1
-        return out
-    if state.device.type != "cpu":
-        raise ValueError(f"unsupported device {state.device}")
-    if words is None:
-        return _run_prng_plain_philox(seed, state, P, n_steps, sb, bb)
-    return _run_prng_plain(state, words, P, n_steps, sb, bb)
+    if state.device.type == "cpu":
+        if words is None:
+            return _run_prng_plain_philox(seed, state, P, n_steps, sb, bb,
+                                          rules)
+        return _run_prng_plain(state, words, P, n_steps, sb, bb, rules)
+    lib = _build.library(P)
+    out = state.clone()
+    w32 = None if words is None else words_as_i32(words).contiguous()
+    _build.check(lib.mc_engine_prng(
+        out.data_ptr(), int(seed), None if w32 is None else w32.data_ptr(),
+        nb, P, RULES.index(rules), n_steps, _defer_for(n_steps), sb, bb,
+        FOLD_P_BITS, RAISE_P_BITS, _build.stream_ptr(state.device)),
+        "mc_engine_prng")
+    LAUNCHES[f"engine_prng_{rules}"] += 1
+    return out
 
 
-def first_deal(seed: int, n_tables: int, P: int, device="cpu"):
-    """[n_tables, 2P+5] distinct cards per table on ``device``: table t's
-    are drawn like an in-kernel deal from Philox stream (seed, t, 0, 1),
-    which no kernel draws from, so every device deals the same cards."""
-    t = torch.arange(n_tables, dtype=I64, device=device)
+def first_deal(seed: int, n_tables: int, P: int, device=None):
+    """[n_tables, 2P+5] distinct cards per table on ``device`` (the card
+    when None): table t's are drawn like an in-kernel deal from Philox
+    stream (seed, t, 0, 1), which no kernel draws from, so every device
+    deals the same cards."""
+    t = torch.arange(n_tables, dtype=I64, device=resolve(device))
     words = stream_words(seed, t, 0, 1, 0, 2 * P + 5)
     return torch.stack(_sample_cards(words, []), dim=1)
 
 
 def selfplay_perpetual_kernel(seed: int, cfg, n_tables: int, n_steps: int,
-                              steps_per_launch: int = 512, device="cpu"):
-    """Random-policy perpetual self-play: the first hand dealt from a
-    seeded generator, every later deal and policy draw in the kernel.
+                              steps_per_launch: int = 512, device=None):
+    """Random-policy perpetual self-play on ``device`` (the card when
+    None): the first hand dealt from a seeded generator, every later deal
+    and policy draw in the kernel.
 
     Returns ``(final_packed_state, hands_completed, overflowed_tables)``.
     """

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from montecarlo_tpu_torch.device import resolve
 from montecarlo_tpu_torch.ops import _build
 from montecarlo_tpu_torch.ops.evaluator import (
     eval_masks_cmp_impl,
@@ -48,10 +49,11 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def random_words(generator: torch.Generator, shape, device="cpu"):
-    """Uniform u32 words as int64 in [0, 2^32)."""
+def random_words(generator: torch.Generator, shape, device=None):
+    """Uniform u32 words as int64 in [0, 2^32) on ``device`` (the card when
+    None; ``generator`` must live there)."""
     return torch.randint(0, 1 << 32, shape, dtype=I64, generator=generator,
-                         device=device)
+                         device=resolve(device))
 
 
 def equity_words(seed: int, n_draw: int, start: int, m: int, device):
@@ -227,15 +229,16 @@ def _hand_masks(hero, villain, board, device):
 
 
 def equity_vs_hand_counts(seed: int, hero, villain, n_rollouts: int,
-                          board=(), device="cpu"):
+                          board=(), device=None):
     """Hand-vs-hand counters without a host sync: ``(counts, n)`` with
-    ``counts`` the int64 [2] (wins, ties) tensor on ``device``."""
-    dead, hm, vm = _hand_masks(hero, villain, board, torch.device(device))
+    ``counts`` the int64 [2] (wins, ties) tensor on ``device`` (the card
+    when None)."""
+    dead, hm, vm = _hand_masks(hero, villain, board, resolve(device))
     return equity_counts(seed, dead, hm, vm, n_rollouts), n_rollouts
 
 
 def equity_vs_hand_kernel(seed: int, hero, villain, n_rollouts: int,
-                          board=(), device="cpu"):
+                          board=(), device=None):
     """Hand-vs-hand equity on an optional known board (0, 3 or 4 cards):
     ``(wins, ties, n)`` as ints (``equity_vs_hand_pallas``)."""
     counts, n = equity_vs_hand_counts(seed, hero, villain, n_rollouts,
@@ -275,10 +278,12 @@ def sweep_counts(seed: int, dead: torch.Tensor, hero_masks: torch.Tensor,
     return _sweep_counts_plain_philox(seed, dead, hero_masks, n_per_hand)
 
 
-def equity_sweep_kernel(seed: int, heroes, n_per_hand: int, device="cpu"):
-    """Equity vs a random villain for [H, 2] hero hands in one launch.
+def equity_sweep_kernel(seed: int, heroes, n_per_hand: int, device=None):
+    """Equity vs a random villain for [H, 2] hero hands in one launch, on
+    ``device`` (the card when None).
 
     Returns (equity float64 numpy [H], rollouts per hand)."""
+    device = resolve(device)
     heroes = torch.as_tensor(heroes, dtype=I32).reshape(-1, 2)
     dead = torch.sort(heroes, dim=1).values
     hm = torch.stack(suit_masks_from_cards(heroes), dim=1)

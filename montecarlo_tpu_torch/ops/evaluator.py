@@ -8,7 +8,7 @@ runs on masks of any shape and on any device.
 Two keys:
 
 - ``eval_masks_impl``: the packed ``[category hit-ranks kickers]`` key of
-  ``montecarlo_tpu.handval`` (``cat << 20 | r0 << 16 | ... | r4``). It is
+  ``handval`` (``cat << 20 | r0 << 16 | ... | r4``). It is
   below 2^24, so int32 holds it with the same order as the JAX uint32 key.
 - ``eval_masks_cmp_impl``: the comparison-only key (``cat << 19 |
   payload``) that the kernels use; its ``<``/``==`` relations equal the
@@ -24,14 +24,21 @@ from __future__ import annotations
 
 import torch
 
-I32 = torch.int32
+from montecarlo_tpu_torch.cards import NUM_RANKS
+from montecarlo_tpu_torch.handval import (
+    CAT_FLUSH,
+    CAT_FULL_HOUSE,
+    CAT_HIGH,
+    CAT_PAIR,
+    CAT_QUADS,
+    CAT_SHIFT,
+    CAT_STRAIGHT,
+    CAT_STRAIGHT_FLUSH,
+    CAT_TRIPS,
+    CAT_TWO_PAIR,
+)
 
-# Card and hand-value encoding of montecarlo_tpu.cards / handval: card id
-# = suit * 13 + rank - 2; key = category << CAT_SHIFT | five rank nibbles.
-NUM_RANKS = 13
-CAT_SHIFT = 20
-(CAT_HIGH, CAT_PAIR, CAT_TWO_PAIR, CAT_TRIPS, CAT_STRAIGHT, CAT_FLUSH,
- CAT_FULL_HOUSE, CAT_QUADS, CAT_STRAIGHT_FLUSH) = range(9)
+I32 = torch.int32
 
 
 def _popcount(x):

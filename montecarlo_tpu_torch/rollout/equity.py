@@ -2,9 +2,9 @@
 
 The counterpart of the parts of ``montecarlo_tpu/rollout/equity.py`` that
 the main path uses. ``equity_vs_hand`` and ``equity_vs_random`` run the
-rollout kernels K1/K2 on a CUDA device and their plain versions on the CPU
-(``ops/cuda_equity.py``); ``equity_exact`` enumerates every board
-completion with the plain evaluator.
+rollout kernels K1/K2 on the card, or their plain versions when the caller
+passes ``device="cpu"`` (``ops/cuda_equity.py``); ``equity_exact``
+enumerates every board completion with the plain evaluator.
 """
 
 from __future__ import annotations
@@ -15,20 +15,15 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from montecarlo_tpu_torch.cards import NUM_CARDS, make_card
+from montecarlo_tpu_torch.device import resolve
 from montecarlo_tpu_torch.ops import cuda_equity
 from montecarlo_tpu_torch.ops.evaluator import (
-    NUM_RANKS,
     eval_masks_impl,
     suit_masks_from_cards,
 )
 
 I32 = torch.int32
-NUM_CARDS = 52
-
-
-def make_card(suit: int, rank: int) -> int:
-    """Card id from suit index 0..3 and rank 2..14 (montecarlo_tpu.cards)."""
-    return suit * NUM_RANKS + (rank - 2)
 
 
 class EquityResult(NamedTuple):
@@ -92,9 +87,10 @@ def _result(counts, n):
 
 def equity_vs_hand(seed: int, hero: Sequence[int], villain: Sequence[int],
                    n_rollouts: int, board: Sequence[int] = (),
-                   device="cpu") -> EquityResult:
+                   device=None) -> EquityResult:
     """Hero hole cards vs exact villain hole cards, optionally on a known
-    partial ``board`` (flop or flop+turn): K1 on a CUDA ``device``."""
+    partial ``board`` (flop or flop+turn): K1 on the card (``device``
+    None or CUDA), its plain version for ``device="cpu"``."""
     _check_disjoint(hero, villain, board)
     counts, n = cuda_equity.equity_vs_hand_counts(
         seed, hero, villain, n_rollouts, board, device)
@@ -102,9 +98,11 @@ def equity_vs_hand(seed: int, hero: Sequence[int], villain: Sequence[int],
 
 
 def equity_vs_random(seed: int, hero: Sequence[int], n_rollouts: int,
-                     device="cpu") -> EquityResult:
-    """Hero hole cards vs a uniformly random villain: K2 with one hand."""
+                     device=None) -> EquityResult:
+    """Hero hole cards vs a uniformly random villain: K2 with one hand (on
+    the card unless ``device="cpu"``)."""
     _check_disjoint(hero)
+    device = resolve(device)
     heroes = torch.as_tensor(hero, dtype=I32).reshape(1, 2)
     dead = torch.sort(heroes, dim=1).values
     hm = torch.stack(suit_masks_from_cards(heroes), dim=1)
@@ -115,11 +113,13 @@ def equity_vs_random(seed: int, hero: Sequence[int], n_rollouts: int,
 
 def equity_exact(hero: Sequence[int], villain: Sequence[int],
                  board: Sequence[int] = (), chunk: int = 1 << 18,
-                 device="cpu") -> EquityResult:
+                 device=None) -> EquityResult:
     """EXACT hand-vs-hand equity by enumerating every remaining board
     completion: C(48,5) = 1,712,304 preflop, C(45,2) = 990 on a flop, 44
-    on a turn. The plain evaluator runs on ``device``."""
+    on a turn. The plain evaluator runs on ``device`` (the card when
+    None)."""
     _check_disjoint(hero, villain, board)
+    device = resolve(device)
     fixed = np.asarray(board, np.int32).reshape(-1)
     K = fixed.shape[0]
     live = complement(np.concatenate([np.asarray(hero, np.int64).ravel(),

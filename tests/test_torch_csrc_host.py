@@ -18,9 +18,12 @@ import pytest
 import torch
 
 from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import policy_net as tpn
 from montecarlo_tpu_torch.ops import _build
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
+from montecarlo_tpu_torch.ops import cuda_net as cn
+from montecarlo_tpu_torch.ops import evaluator as tev
 from test_torch_philox import PHILOX_KAT
 
 # One intra-op thread: the suite runs several test processes at once.
@@ -31,8 +34,11 @@ HARNESS = r"""
 #include <cstring>
 #include <vector>
 
+#include <cstdlib>
+
 #include "engine.cuh"
 #include "equity.cuh"
+#include "net.cuh"
 
 typedef std::vector<long long> Out;
 
@@ -82,23 +88,119 @@ static void k2(const int* in, Out& out) {
 }
 
 // rows: the packed state as [F, T] (row f of table t at f * T + t).
-template <int P>
-static void k4(const int* in, Out& out) {
-  uint32_t seed = in[1];
-  int n_steps = in[2], defer = in[3], sb = in[4], bb = in[5];
-  uint32_t fold = in[6], raise = in[7];
-  int T = in[8];
-  const int* rows = in + 9;
-  constexpr int F = mc_fields<P>();
-  std::vector<int> res((size_t)F * T);
-  for (int t = 0; t < T; ++t) {
-    MCTable<P> s;
-    int* v = reinterpret_cast<int*>(&s);
-    for (int f = 0; f < F; ++f) v[f] = rows[(size_t)f * T + t];
-    MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, 0u);
-    mc_run_prng(s, src, n_steps, defer, sb, bb, fold, raise);
-    for (int f = 0; f < F; ++f) res[(size_t)f * T + t] = v[f];
+template <int P, int R>
+static void load_rows(MCTable<P, R>& s, const int* rows, int T, int t) {
+  int* v = reinterpret_cast<int*>(&s);
+  for (int f = 0; f < mc_fields<P, R>(); ++f) v[f] = rows[(size_t)f * T + t];
+}
+
+template <int P, int R>
+static void store_rows(const MCTable<P, R>& s, std::vector<int>& res, int T,
+                       int t) {
+  const int* v = reinterpret_cast<const int*>(&s);
+  for (int f = 0; f < mc_fields<P, R>(); ++f) res[(size_t)f * T + t] = v[f];
+}
+
+static const float* as_floats(const int* p) {
+  return reinterpret_cast<const float*>(p);
+}
+
+// in: P, rules, then the mode's arguments (see the Python side).
+template <int P, int R>
+static void engine(const char* mode, const int* in, Out& out) {
+  constexpr int F = mc_fields<P, R>(), NC = 2 * P + 5;
+  in += 2;
+  if (!strcmp(mode, "probe")) {
+    int bb = in[0], T = in[1];
+    const float* w = as_floats(in + 2);
+    const int* rows = in + 2 + MC_NET_WEIGHTS;
+    const int* words = rows + (size_t)F * T;
+    std::vector<long long> res((size_t)MC_PROBE_ROWS * T);
+    for (int t = 0; t < T; ++t) {
+      MCTable<P, R> s;
+      load_rows(s, rows, T, t);
+      float f[MC_NUM_FEATURES], lg[MC_NUM_ACTIONS];
+      mc_net_scores(s, mc_head(s), bb, w, nullptr, f, lg);
+      float o[MC_PROBE_ROWS];
+      for (int i = 0; i < MC_NUM_FEATURES; ++i) o[i] = f[i];
+      for (int a = 0; a < MC_NUM_ACTIONS; ++a) {
+        o[MC_NUM_FEATURES + a] = lg[a];
+        o[MC_NUM_FEATURES + MC_NUM_ACTIONS + a] = mc_fsub(
+            lg[a], mc_neg_gumbel((uint32_t)words[(size_t)a * T + t]));
+      }
+      for (int i = 0; i < MC_PROBE_ROWS; ++i) {
+        int32_t bits;
+        memcpy(&bits, &o[i], 4);
+        res[(size_t)i * T + t] = bits;
+      }
+    }
+    out.insert(out.end(), res.begin(), res.end());
+    return;
   }
+  // the engine modes return the final rows
+  int T;
+  const int* rows;
+  std::vector<int> res;
+  if (!strcmp(mode, "k3")) {
+    int n_steps = in[0], hmax = in[1], sb = in[2], bb = in[3];
+    T = in[4];
+    rows = in + 5;
+    const int* acts = rows + (size_t)F * T;
+    const int* stash = acts + (size_t)n_steps * T;
+    res.resize((size_t)F * T);
+    for (int t = 0; t < T; ++t) {
+      MCTable<P, R> s;
+      load_rows(s, rows, T, t);
+      mc_run_det(s, acts + t, stash + t, T, n_steps, hmax, sb, bb);
+      store_rows(s, res, T, t);
+    }
+  } else if (!strcmp(mode, "k4")) {
+    uint32_t seed = in[0], fold = in[5], raise = in[6];
+    int n_steps = in[1], defer = in[2], sb = in[3], bb = in[4];
+    T = in[7];
+    rows = in + 8;
+    res.resize((size_t)F * T);
+    for (int t = 0; t < T; ++t) {
+      MCTable<P, R> s;
+      load_rows(s, rows, T, t);
+      MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, 0u);
+      mc_run_prng(s, src, n_steps, defer, sb, bb, fold, raise);
+      store_rows(s, res, T, t);
+    }
+  } else if (!strcmp(mode, "k5")) {
+    int n_steps = in[0], hmax = in[1], sb = in[2], bb = in[3];
+    T = in[4];
+    const float* w = as_floats(in + 5);
+    rows = in + 5 + MC_NET_WEIGHTS;
+    const int* stash = rows + (size_t)F * T;
+    res.resize((size_t)F * T);
+    for (int t = 0; t < T; ++t) {
+      MCTable<P, R> s;
+      load_rows(s, rows, T, t);
+      mc_run_net_det(s, stash + t, T, n_steps, hmax, sb, bb, w);
+      store_rows(s, res, T, t);
+    }
+  } else if (!strcmp(mode, "k6")) {
+    uint32_t seed = in[0], fold = in[8], raise = in[9];
+    int n_steps = in[1], defer = in[2], sb = in[3], bb = in[4], ss = in[5];
+    int net_seats = in[6];
+    bool reset = in[7];
+    T = in[10];
+    const float* w = as_floats(in + 11);
+    rows = in + 11 + MC_NET_WEIGHTS;
+    res.resize((size_t)F * T);
+    for (int t = 0; t < T; ++t) {
+      MCTable<P, R> s;
+      load_rows(s, rows, T, t);
+      MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, 0u);
+      mc_run_net_eval(s, src, n_steps, defer, sb, bb, ss, net_seats, reset,
+                      fold, raise, w);
+      store_rows(s, res, T, t);
+    }
+  } else {
+    exit(2);
+  }
+  (void)NC;
   out.insert(out.end(), res.begin(), res.end());
 }
 
@@ -121,12 +223,17 @@ int main(int argc, char** argv) {
     k1(in.data(), out);
   } else if (!strcmp(argv[1], "k2")) {
     k2(in.data(), out);
-  } else if (!strcmp(argv[1], "k4") && in[0] == 2) {
-    k4<2>(in.data(), out);
-  } else if (!strcmp(argv[1], "k4") && in[0] == 6) {
-    k4<6>(in.data(), out);
+  } else if (!strcmp(argv[1], "key")) {
+    for (size_t i = 1; i + 4 <= in.size(); i += 4)
+      out.push_back(mc_eval_key(in[i], in[i + 1], in[i + 2], in[i + 3]));
   } else {
-    return 2;
+    switch (in[1] * 100 + in[0]) {
+      case 2: engine<2, MC_REFERENCE>(argv[1], in.data(), out); break;
+      case 6: engine<6, MC_REFERENCE>(argv[1], in.data(), out); break;
+      case 102: engine<2, MC_STANDARD>(argv[1], in.data(), out); break;
+      case 106: engine<6, MC_STANDARD>(argv[1], in.data(), out); break;
+      default: return 2;
+    }
   }
   f = fopen(argv[3], "wb");
   fwrite(out.data(), sizeof(long long), out.size(), f);
@@ -145,7 +252,8 @@ def harness(tmp_path_factory):
     d = tmp_path_factory.mktemp("csrc_host")
     (d / "harness.cc").write_text(HARNESS)
     exe = d / "harness"
-    subprocess.run([cxx, "-std=c++17", "-O2", "-I", str(_build.CSRC),
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-I",
+                    str(_build.CSRC),
                     str(d / "harness.cc"), "-o", str(exe)], check=True,
                    capture_output=True, timeout=600)
 
@@ -188,17 +296,149 @@ def test_sweep_rollout_device_code_equals_plain(harness):
     assert got.reshape(2, 4).tolist() == want.tolist()
 
 
+def _flat(x):
+    return x.reshape(-1).tolist()
+
+
+def _weights_as_ints(weights):
+    return _flat(weights.view(torch.int32))
+
+
+def _check_rows(got, want_state, cfg):
+    want = ce._to_rows(want_state)
+    np.testing.assert_array_equal(got.astype(np.int32).reshape(want.shape),
+                                  want.numpy())
+    assert int(ce.unpack_field(want_state, cfg, "hand_ct").sum()) > 0
+
+
 @pytest.mark.parametrize("P,n_steps", [(6, 64), (2, 24)])
 def test_engine_prng_device_code_equals_plain(harness, P, n_steps):
     cfg = TableConfig(num_seats=P)
     T = ce.TABLES_PER_BLOCK
-    state = ce.pack_state(cfg, ce.first_deal(3, T, P))
-    rows = ce._to_rows(state)
-    got = harness("k4", [P, 31, n_steps, ce._defer_for(n_steps), 5, 10,
+    state = ce.pack_state(cfg, ce.first_deal(3, T, P, "cpu"))
+    got = harness("k4", [P, 0, 31, n_steps, ce._defer_for(n_steps), 5, 10,
                          ce.FOLD_P_BITS, ce.RAISE_P_BITS, T,
-                         *rows.reshape(-1).tolist()])
-    want = ce._to_rows(ce.run_perpetual_prng(31, state, P, n_steps, 5, 10))
-    np.testing.assert_array_equal(got.astype(np.int32).reshape(rows.shape),
-                                  want.numpy())
-    assert int(ce.unpack_field(ce._to_blocks(want), cfg, "hand_ct")
-               .sum()) > 0
+                         *_flat(ce._to_rows(state))])
+    _check_rows(got, ce.run_perpetual_prng(31, state, P, n_steps, 5, 10),
+                cfg)
+
+
+@pytest.mark.parametrize("P,n_steps", [(6, 64), (2, 24)])
+def test_engine_prng_device_code_equals_plain_standard_rules(harness, P,
+                                                             n_steps):
+    cfg = TableConfig(num_seats=P, rules="standard")
+    T = ce.TABLES_PER_BLOCK
+    state = ce.pack_state(cfg, ce.first_deal(4, T, P, "cpu"))
+    got = harness("k4", [P, 1, 32, n_steps, ce._defer_for(n_steps), 5, 10,
+                         ce.FOLD_P_BITS, ce.RAISE_P_BITS, T,
+                         *_flat(ce._to_rows(state))])
+    _check_rows(got, ce.run_perpetual_prng(32, state, P, n_steps, 5, 10,
+                                           rules="standard"), cfg)
+
+
+@pytest.mark.parametrize("rules", ce.RULES)
+def test_engine_det_device_code_equals_plain(harness, rules):
+    """K3 on an injected stream that folds, calls and raises without the
+    random policy's limits (under reference rules some tables overflow
+    L = 6: compared too)."""
+    P, n_steps, hmax = 6, 48, 12
+    T = ce.TABLES_PER_BLOCK
+    rng = np.random.default_rng(19)
+    u = rng.random((n_steps, T))
+    acts = np.where(u < 0.2, -1, np.where(u < 0.92, 0, rng.integers(
+        1, 21, u.shape))).astype(np.int32)
+    stash = np.argsort(rng.random((hmax, T, 52)), axis=-1)[..., :2 * P + 5] \
+        .transpose(0, 2, 1).astype(np.int32)           # [hmax, 2P+5, T]
+    cfg = TableConfig(num_seats=P, rules=rules)
+    state = ce.pack_state(cfg, torch.from_numpy(stash[0].T.copy()))
+    got = harness("k3", [P, ce.RULES.index(rules), n_steps, hmax, 5, 10, T,
+                         *_flat(ce._to_rows(state)), *acts.reshape(-1),
+                         *stash.reshape(-1)])
+    want = ce.run_perpetual_det(
+        state, torch.from_numpy(acts.reshape(1, n_steps, *ce.TILE)),
+        torch.from_numpy(stash.reshape(1, hmax, 2 * P + 5, *ce.TILE)), P,
+        n_steps, 5, 10, rules=rules)
+    _check_rows(got, want, cfg)
+    if rules == "reference":
+        assert int(ce.unpack_field(want, cfg, "overflow").sum()) > 0
+
+
+def test_packed_key_device_code_equals_plain(harness):
+    rng = np.random.default_rng(23)
+    cards = np.argsort(rng.random((6000, 52)), axis=1)[:, :7]
+    masks, want = [], []
+    for k in range(0, 8):  # 0..7 cards, as the features reveal them
+        m = tev.suit_masks_from_cards(torch.from_numpy(cards[:, :k]))
+        masks.append(torch.stack(m, dim=1))
+        want.append(tev.eval_masks_impl(*m))
+    masks = torch.cat(masks)
+    got = harness("key", [len(masks), *_flat(masks)])
+    assert got.tolist() == torch.cat(want).tolist()
+
+
+@pytest.fixture(scope="module")
+def es3():
+    return cn.net_weights(tpn.load_params("data/policy_6max_es3.npz"), "cpu")
+
+
+@pytest.mark.parametrize("rules,P", [("reference", 6), ("standard", 6),
+                                     ("standard", 2)])
+def test_net_det_device_code_equals_plain(harness, es3, rules, P):
+    n_steps, hmax = 40, 16
+    T = ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules=rules)
+    stash = cn.deal_stash(5, T, P, hmax, "cpu")
+    state = ce.pack_state(cfg, ce._stash_rows(stash)[0].T)
+    got = harness("k5", [P, ce.RULES.index(rules), n_steps, hmax, 5, 10, T,
+                         *_weights_as_ints(es3),
+                         *_flat(ce._to_rows(state)),
+                         *_flat(ce._stash_rows(stash))])
+    _check_rows(got, cn.run_net_det(state, stash, es3, P, n_steps, 5, 10,
+                                    rules), cfg)
+
+
+@pytest.mark.parametrize("rules,P,net_seats,reset_stacks", [
+    ("standard", 6, 1, True), ("standard", 6, 0b101101, False),
+    ("reference", 6, 0b010010, True), ("standard", 2, 0b10, True)])
+def test_net_eval_device_code_equals_plain(harness, es3, rules, P, net_seats,
+                                           reset_stacks):
+    """K6 in Philox mode. The host's libm logf and PyTorch's CPU log can
+    differ in the last bit; at es3's logit gaps no Gumbel pick here lands
+    within one ulp of a tie, so the states agree."""
+    n_steps = 32
+    T = ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules=rules)
+    state = cn.initial_packed_state(6, cfg, T, "cpu")
+    got = harness("k6", [P, ce.RULES.index(rules), 77, n_steps,
+                         ce._defer_for(n_steps), 5, 10, 100, net_seats,
+                         int(reset_stacks), ce.FOLD_P_BITS, ce.RAISE_P_BITS,
+                         T, *_weights_as_ints(es3),
+                         *_flat(ce._to_rows(state))])
+    _check_rows(got, cn.run_net_eval(77, state, es3, P, n_steps, 5, 10, 100,
+                                     rules, net_seats,
+                                     reset_stacks=reset_stacks), cfg)
+
+
+def test_net_probe_device_code_equals_plain(harness, es3):
+    """Features and masked logits bit for bit (same operations, same
+    order, no FMA); the Gumbel scores within 4 float32 ulps, because the
+    host's libm logf and PyTorch's CPU log (SLEEF) differ in the last bit
+    for some inputs. On the card both sides use libdevice's logf and
+    chip_smoke.py holds the scores bit for bit."""
+    P = 6
+    T = ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = cn.initial_packed_state(9, cfg, T, "cpu")
+    state = cn.run_net_eval(9, state, es3, P, 24, 5, 10, 100, "standard",
+                            0b111111)
+    words = ce.table_words(123, T, 0, 4, "cpu")
+    got = harness("probe", [P, 1, 10, T, *_weights_as_ints(es3),
+                            *_flat(ce._to_rows(state)), *_flat(words)])
+    got = torch.from_numpy(got.astype(np.int32).reshape(cn.PROBE_ROWS, T)) \
+        .view(torch.float32)
+    want = cn.net_probe(state, words, es3, P, 10, "standard")
+    n = tpn.NUM_ACTIONS
+    assert torch.equal(got[:-n].view(torch.int32), want[:-n].view(torch.int32))
+    torch.testing.assert_close(got[-n:], want[-n:], rtol=4 * 2.0 ** -23,
+                               atol=0)
+    assert int(ce.unpack_field(state, cfg, "stage").ne(0).sum()) > 0

@@ -10,8 +10,10 @@ import pytest
 import torch
 
 from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import policy_net as tpn
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
+from montecarlo_tpu_torch.ops import cuda_net as cn
 from montecarlo_tpu_torch.ops import philox
 from montecarlo_tpu_torch.rollout import equity as teq
 from test_torch_philox import PHILOX_KAT
@@ -77,7 +79,7 @@ def test_selfplay_kernel_philox_equals_cpu(cuda, P, n_steps):
     cfg = TableConfig(num_seats=P)
     T = 2 * ce.TABLES_PER_BLOCK
     k = ce.selfplay_perpetual_kernel(8, cfg, T, n_steps, device=cuda)
-    p = ce.selfplay_perpetual_kernel(8, cfg, T, n_steps)
+    p = ce.selfplay_perpetual_kernel(8, cfg, T, n_steps, device="cpu")
     assert torch.equal(k[0].cpu(), p[0]) and k[1:] == p[1:]
 
 
@@ -100,6 +102,15 @@ def test_equity_vs_hand_philox_within_4_sigma_of_exact(cuda):
 
 @pytest.mark.parametrize("P", [2, 6])
 def test_engine_det_kernel_equals_plain(cuda, P):
+    _engine_det_kernel_equals_plain(cuda, P, "reference")
+
+
+@pytest.mark.parametrize("P", [2, 6])
+def test_engine_det_kernel_equals_plain_standard_rules(cuda, P):
+    _engine_det_kernel_equals_plain(cuda, P, "standard")
+
+
+def _engine_det_kernel_equals_plain(cuda, P, rules):
     rng = np.random.default_rng(P)
     nb, n_steps, hmax = 2, 40, 12
     T = nb * ce.TABLES_PER_BLOCK
@@ -109,12 +120,15 @@ def test_engine_det_kernel_equals_plain(cuda, P):
     deal = np.argsort(rng.random((T, hmax, 52)), axis=-1)[..., :2 * P + 5]
     cards = deal.reshape(nb, 1024, hmax, 2 * P + 5).transpose(0, 2, 3, 1) \
         .reshape(nb, hmax, 2 * P + 5, 8, 128).astype(np.int32)
-    state = ce.pack_state(TableConfig(num_seats=P),
+    state = ce.pack_state(TableConfig(num_seats=P, rules=rules),
                           torch.from_numpy(deal[:, 0]).to(cuda))
     acts_t = torch.from_numpy(acts).to(cuda)
     cards_t = torch.from_numpy(np.ascontiguousarray(cards)).to(cuda)
-    k = ce.run_perpetual_det(state, acts_t, cards_t, P, n_steps, 5, 10)
-    p = ce._run_det_plain(state, acts_t, cards_t, P, n_steps, 5, 10)
+    before = ce.LAUNCHES[f"engine_det_{rules}"]
+    k = ce.run_perpetual_det(state, acts_t, cards_t, P, n_steps, 5, 10,
+                             rules=rules)
+    assert ce.LAUNCHES[f"engine_det_{rules}"] == before + 1
+    p = ce._run_det_plain(state, acts_t, cards_t, P, n_steps, 5, 10, rules)
     assert torch.equal(k, p)
 
 
@@ -135,3 +149,81 @@ def test_selfplay_slots_per_hand(cuda):
                                                  device=cuda)
     assert ovf == 0
     assert abs((1 << 16) * 512 / hands / 33.1 - 1) < 0.02
+
+
+@pytest.mark.parametrize("P,n_steps", [(6, 32), (6, 24), (2, 48)])
+def test_engine_prng_kernel_equals_plain_standard_rules(cuda, P, n_steps):
+    g = torch.Generator(device=cuda).manual_seed(P + n_steps)
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = ce.pack_state(cfg, ce.first_deal(3, T, P, cuda))
+    words = cq.random_words(g, ce.prng_words_shape(T, P, n_steps), cuda)
+    k = ce.run_perpetual_prng(0, state, P, n_steps, 5, 10, rules="standard",
+                              words=words)
+    assert torch.equal(k, ce._run_prng_plain(state, words, P, n_steps, 5, 10,
+                                             "standard"))
+    # Philox mode: the kernel and the CPU plain version agree for a seed
+    k = ce.run_perpetual_prng(7, state, P, n_steps, 5, 10, rules="standard")
+    assert torch.equal(k.cpu(), ce.run_perpetual_prng(
+        7, state.cpu(), P, n_steps, 5, 10, rules="standard"))
+
+
+@pytest.fixture
+def es3(cuda):
+    return cn.net_weights(tpn.load_params("data/policy_6max_es3.npz"), cuda)
+
+
+@pytest.mark.parametrize("rules", ce.RULES)
+def test_net_probe_kernel_equals_plain(cuda, es3, rules):
+    """Features, masked logits and Gumbel scores bit for bit on the card:
+    the kernel's __fdiv_rn/__fmul_rn/__fadd_rn and logf against PyTorch's
+    elementwise operations and log on the same inputs."""
+    P, T = 6, 4 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules=rules)
+    state = cn.run_net_eval(4, cn.initial_packed_state(4, cfg, T, cuda), es3,
+                            P, 24, 5, 10, 100, rules, 0b111111)
+    words = ce.table_words(5, T, 0, 4, cuda)
+    k = cn.net_probe(state, words, es3, P, 10, rules)
+    p = cn._net_probe_plain(state, words, es3, P, 10, rules)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.parametrize("rules", ce.RULES)
+def test_net_det_kernel_equals_plain(cuda, es3, rules):
+    P, n_steps, hmax = 6, 40, 16
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules=rules)
+    stash = cn.deal_stash(5, T, P, hmax, cuda)
+    state = ce.pack_state(cfg, ce._stash_rows(stash)[0].T)
+    before = cn.LAUNCHES[f"net_det_{rules}"]
+    k = cn.run_net_det(state, stash, es3, P, n_steps, 5, 10, rules)
+    assert cn.LAUNCHES[f"net_det_{rules}"] == before + 1
+    p = cn._run_net_det_plain(state, stash, es3, P, n_steps, 5, 10, rules)
+    assert torch.equal(k, p)
+    assert int(ce.unpack_field(k, cfg, "hand_ct").sum()) > 0
+
+
+@pytest.mark.parametrize("rules,P,net_seats,n_steps", [
+    ("standard", 6, 1, 32), ("standard", 6, 0b101101, 24),
+    ("reference", 6, 0b010010, 32), ("standard", 2, 0b01, 32),
+    ("standard", 10, 0b1000000001, 16)])
+def test_net_eval_kernel_equals_plain(cuda, es3, rules, P, net_seats,
+                                      n_steps):
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules=rules)
+    state = cn.initial_packed_state(2, cfg, T, cuda)
+    g = torch.Generator(device=cuda).manual_seed(net_seats)
+    words = cq.random_words(g, cn.net_words_shape(T, P, n_steps), cuda)
+    k = cn.run_net_eval(0, state, es3, P, n_steps, 5, 10, 100, rules,
+                        net_seats, words=words)
+    p = cn._run_net_eval_plain(state, words, es3, P, n_steps, 5, 10, 100,
+                               rules, net_seats, True)
+    assert torch.equal(k, p)
+    k = cn.run_net_eval(11, state, es3, P, n_steps, 5, 10, 100, rules,
+                        net_seats)
+    p = cn._run_net_eval_plain_philox(11, state, es3, P, n_steps, 5, 10, 100,
+                                      rules, net_seats, True)
+    assert torch.equal(k, p)
+    if rules == "standard":
+        seat = sum(ce.unpack_field(k, cfg, "seat_delta", i) for i in range(P))
+        assert bool((seat == 0).all())

@@ -54,7 +54,7 @@ def test_field_layout_and_pack_state_match_jax(P):
     got = ce.pack_state(TableConfig(num_seats=P), torch.from_numpy(first))
     np.testing.assert_array_equal(ce.state_to_numpy(got), want)
     np.testing.assert_array_equal(
-        ce.state_to_numpy(ce.state_from_numpy(want)), want)
+        ce.state_to_numpy(ce.state_from_numpy(want, "cpu")), want)
 
 
 @pytest.mark.parametrize("P,seed,n_steps,hmax", [
@@ -69,7 +69,7 @@ def test_det_plain_matches_jax_kernel(P, seed, n_steps, hmax):
         packed, jnp.asarray(act_in), jnp.asarray(cards_in), P, n_steps,
         5, 10, interpret=True))
 
-    state = ce.state_from_numpy(np.asarray(packed))
+    state = ce.state_from_numpy(np.asarray(packed), "cpu")
     got = ce.run_perpetual_det(state, torch.from_numpy(act_in),
                                torch.from_numpy(cards_in), P, n_steps, 5, 10)
     layout, _ = ce._field_layout(P)
@@ -80,6 +80,99 @@ def test_det_plain_matches_jax_kernel(P, seed, n_steps, hmax):
     assert int(ce.unpack_field(got, cfg, "hand_ct").sum()) > 0
     if P == 6:  # the adversarial stream overflows a few tables: compared too
         assert int(ce.unpack_field(got, cfg, "overflow").sum()) > 0
+
+
+@pytest.mark.parametrize("seed", [11, 29])
+def test_det_plain_matches_jax_kernel_standard_rules(seed):
+    """Standard rules (stack-capped payments, showdown-live all-ins,
+    contributor pots, chained street transitions, capped blinds): the
+    cases of tests/test_pallas_engine.py, over the whole state."""
+    P, n_steps, hmax = 6, 48, 12
+    actions, cards = _streams(seed, P, n_steps, hmax)
+    jcfg = JaxTableConfig(num_seats=P, rules="standard")
+    packed = jpe.pack_state(jcfg, cards[:, 0])
+    act_in = actions.reshape(n_steps, *ce.TILE)[None]
+    cards_in = cards.transpose(1, 2, 0).reshape(hmax, 2 * P + 5,
+                                                *ce.TILE)[None]
+    want = np.asarray(jpe.run_perpetual_det(
+        packed, jnp.asarray(act_in), jnp.asarray(cards_in), P, n_steps,
+        5, 10, rules="standard", interpret=True))
+
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = ce.pack_state(cfg, torch.from_numpy(cards[:, 0]))
+    np.testing.assert_array_equal(ce.state_to_numpy(state),
+                                  np.asarray(packed))
+    got = ce.run_perpetual_det(state, torch.from_numpy(act_in),
+                               torch.from_numpy(cards_in), P, n_steps, 5, 10,
+                               rules="standard")
+    layout, _ = ce._field_layout(P, "standard")
+    for name, (off, rows) in layout.items():
+        np.testing.assert_array_equal(got[:, off:off + rows].numpy(),
+                                      want[:, off:off + rows], err_msg=name)
+    clean = ce.unpack_field(got, cfg, "overflow") == 0
+    assert clean.float().mean() > 0.9
+    assert int(ce.unpack_field(got, cfg, "hand_ct").sum()) > 0
+    assert int(ce.unpack_field(got, cfg, "all_in").ne(0).sum()) > 0
+    # Chips conserve on the tables within capacity, save where the stream
+    # folds with nothing owed: when the last players who can act fold
+    # free to a shorter all-in, the layers above the all-in have no
+    # eligible winner and their chips vanish. The JAX engine does the
+    # same (the state above equals it); the random policy and the net
+    # never fold free.
+    chips = sum(ce.unpack_field(got, cfg, "delta_sum", k) for k in range(P))
+    assert float((chips[clean] == 0).float().mean()) > 0.99
+
+
+def _jax_deferred(monkeypatch, first, words, P, rules, **settle):
+    """The JAX kernel body's deferred-settle composition on injected
+    words: ``_policy_prng`` + ``_step_nosettle`` x DEFER, then
+    ``_sample_cards`` + ``_settle_pass``."""
+    seq = iter([words[it, w].astype(np.uint32).reshape(ce.TILE)
+                for it in range(words.shape[0])
+                for w in range(words.shape[1])])
+    monkeypatch.setattr(jpe, "pltpu", types.SimpleNamespace(
+        prng_random_bits=lambda s: jnp.asarray(next(seq))))
+    packed = jpe.pack_state(JaxTableConfig(num_seats=P, rules=rules), first)
+    layout, F = jpe._field_layout(P, rules)
+    st = jpe._unpack(packed[0], layout)
+    for _ in range(words.shape[0]):
+        for _ in range(ce.DEFER):
+            st = jpe._step_nosettle(st, jpe._policy_prng(st, P), P, 5, 10,
+                                    rules)
+        st = jpe._settle_pass(st, jpe._sample_cards(jpe.TILE, 2 * P + 5),
+                              P, 5, 10, rules, **settle)
+    assert next(seq, None) is None  # every word consumed, in order
+    return np.asarray(jpe._pack(st, layout, F))[None]
+
+
+@pytest.mark.parametrize("reset_stacks", [False, True])
+def test_prng_plain_matches_jax_deferred_composition_standard_rules(
+        monkeypatch, reset_stacks):
+    P, n_steps = 6, 64
+    rng = np.random.default_rng(7 + reset_stacks)
+    first = np.argsort(rng.random((T, 52)), axis=1)[:, :2 * P + 5] \
+        .astype(np.int32)
+    words = rng.integers(0, 1 << 32, ce.prng_words_shape(T, P, n_steps),
+                         dtype=np.int64)
+    settle = {"ss": 100, "reset_stacks": reset_stacks}
+    want = _jax_deferred(monkeypatch, first, words, P, "standard", **settle)
+
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = ce.pack_state(cfg, torch.from_numpy(first))
+    got = ce._run_prng_plain(state, torch.from_numpy(words), P, n_steps, 5,
+                             10, "standard", **settle)
+    if not reset_stacks:  # the wrapper's CPU path is the same function
+        assert torch.equal(got, ce.run_perpetual_prng(
+            0, state, P, n_steps, 5, 10, rules="standard",
+            words=torch.from_numpy(words)))
+    layout, _ = ce._field_layout(P, "standard")
+    for name, (off, rows) in layout.items():
+        np.testing.assert_array_equal(got[:, off:off + rows].numpy(),
+                                      want[:, off:off + rows], err_msg=name)
+    assert int(ce.unpack_field(got, cfg, "hand_ct").sum()) > 0
+    assert int(ce.unpack_field(got, cfg, "overflow").sum()) == 0
+    chips = sum(ce.unpack_field(got, cfg, "delta_sum", k) for k in range(P))
+    assert bool((chips == 0).all())
 
 
 def test_prng_plain_matches_jax_deferred_composition(monkeypatch):
@@ -118,7 +211,8 @@ def test_prng_plain_matches_jax_deferred_composition(monkeypatch):
 
 def test_selfplay_cpu_runs_reference_rules_only():
     cfg = TableConfig(num_seats=6)
-    state, hands, ovf = ce.selfplay_perpetual_kernel(3, cfg, T, 64)
+    state, hands, ovf = ce.selfplay_perpetual_kernel(3, cfg, T, 64,
+                                                      device="cpu")
     assert hands > 0 and ovf == 0
     sums, h = ce.position_deltas(state, cfg)
     assert h == hands and sums.shape == (6,)
@@ -126,13 +220,19 @@ def test_selfplay_cpu_runs_reference_rules_only():
     seat = sum(int(ce.unpack_field(state, cfg, "seat_delta", k).sum())
                for k in range(6))
     assert seat == int(sums.sum())
-    for rules in ("standard", "tournament"):
-        bad = TableConfig(num_seats=6, rules=rules)
-        with pytest.raises(NotImplementedError):
-            ce.selfplay_perpetual_kernel(3, bad, T, 16)
-        with pytest.raises(NotImplementedError):
-            ce.run_perpetual_prng(0, state, 6, 16, 5, 10, rules=rules)
-        with pytest.raises(NotImplementedError):
-            ce.run_perpetual_det(state, torch.zeros((1, 1, *ce.TILE)),
-                                 torch.zeros((1, 1, 17, *ce.TILE)), 6, 1,
-                                 5, 10, rules=rules)
+    # standard rules run too; tournament rules are not ported yet
+    std = TableConfig(num_seats=6, rules="standard")
+    st_std, hands_std, ovf_std = ce.selfplay_perpetual_kernel(3, std, T, 64,
+                                                          device="cpu")
+    assert hands_std > 0 and ovf_std == 0
+    assert bool((sum(ce.unpack_field(st_std, std, "delta_sum", k)
+                     for k in range(6)) == 0).all())
+    bad = TableConfig(num_seats=6, rules="tournament")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ce.selfplay_perpetual_kernel(3, bad, T, 16, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ce.run_perpetual_prng(0, state, 6, 16, 5, 10, rules="tournament")
+    with pytest.raises(NotImplementedError):
+        ce.run_perpetual_det(state, torch.zeros((1, 1, *ce.TILE)),
+                             torch.zeros((1, 1, 17, *ce.TILE)), 6, 1,
+                             5, 10, rules="tournament")

@@ -104,13 +104,13 @@ def test_sweep_counts_plain_matches_jax_kernel_body(monkeypatch):
                                         make_card(2, 13))])
 def test_equity_exact_matches_jax(board):
     want = jeq.equity_exact(AKS, QQ, board)
-    got = teq.equity_exact(AKS, QQ, board)
+    got = teq.equity_exact(AKS, QQ, board, device="cpu")
     assert (got.wins, got.ties, got.n) == (want.wins, want.ties, want.n)
 
 
 def test_equity_vs_hand_cpu_within_4_sigma_of_exact():
-    exact = teq.equity_exact(AKS, QQ).equity
-    r = teq.equity_vs_hand(1234, AKS, QQ, 1 << 20)
+    exact = teq.equity_exact(AKS, QQ, device="cpu").equity
+    r = teq.equity_vs_hand(1234, AKS, QQ, 1 << 20, device="cpu")
     assert r.n == 1 << 20 and r.wins + r.ties + r.losses == r.n
     assert abs(r.equity - exact) < 4 * r.stderr, (r.equity, exact)
 
@@ -119,7 +119,7 @@ def test_equity_vs_random_cpu_within_4_sigma_of_sweep_record():
     rec = json.loads((Path(__file__).resolve().parent.parent / "data"
                       / "sweep169.json").read_text())["equity"]
     hands = dict(teq.canonical_hands())
-    r = teq.equity_vs_random(99, hands["AA"], 1 << 18)
+    r = teq.equity_vs_random(99, hands["AA"], 1 << 18, device="cpu")
     assert abs(r.equity - rec["AA"]) < 4 * r.stderr, (r.equity, rec["AA"])
 
 
@@ -135,4 +135,4 @@ def test_canonical_hands_and_card_maps_match_jax():
         np.asarray(jeq.slots_to_cards(jnp.asarray(slots),
                                       jnp.asarray(dead))))
     with pytest.raises(ValueError):
-        teq.equity_vs_hand(0, AKS, [AKS[0], QQ[0]], 16)
+        teq.equity_vs_hand(0, AKS, [AKS[0], QQ[0]], 16, device="cpu")

@@ -12,11 +12,18 @@ from pathlib import Path
 import pytest
 import torch
 
+import montecarlo_tpu_torch.cards as tcards
+import montecarlo_tpu_torch.handval as thandval
 from montecarlo_tpu import cards, handval
 from montecarlo_tpu.engine.state import TableConfig as JaxTableConfig
+from montecarlo_tpu.models import features as jfeatures
+from montecarlo_tpu.models import policy_net as jpolicy_net
 from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import features as tfeatures
+from montecarlo_tpu_torch.models import policy_net as tpolicy_net
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
+from montecarlo_tpu_torch.ops import cuda_net as cn
 from montecarlo_tpu_torch.ops import evaluator as tev
 from montecarlo_tpu_torch.ops import philox
 from montecarlo_tpu_torch.rollout import equity as teq
@@ -24,6 +31,8 @@ from montecarlo_tpu_torch.rollout import equity as teq
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
     "montecarlo_tpu_torch",
+    "montecarlo_tpu_torch.cards",
+    "montecarlo_tpu_torch.handval",
     "montecarlo_tpu_torch.device",
     "montecarlo_tpu_torch.engine.state",
     "montecarlo_tpu_torch.ops._build",
@@ -31,8 +40,35 @@ MODULES = [
     "montecarlo_tpu_torch.ops.philox",
     "montecarlo_tpu_torch.ops.cuda_equity",
     "montecarlo_tpu_torch.ops.cuda_engine",
+    "montecarlo_tpu_torch.ops.cuda_net",
+    "montecarlo_tpu_torch.models.features",
+    "montecarlo_tpu_torch.models.policy_net",
     "montecarlo_tpu_torch.rollout.equity",
 ]
+# Runs the port's CPU path (equity, the engine under both rule sets, net
+# evaluation) in a fresh process, then lists what it loaded of JAX and of
+# the JAX package.
+CPU_PATH = """
+import json, sys
+import torch
+from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models.policy_net import load_params
+from montecarlo_tpu_torch.ops import cuda_engine as ce, cuda_net as cn
+from montecarlo_tpu_torch.rollout import equity as teq
+torch.set_num_threads(1)
+r = teq.equity_vs_hand(1, [0, 12], [25, 38], 4096, device="cpu")
+assert r.n == 4096
+for rules in ("reference", "standard"):
+    cfg = TableConfig(num_seats=6, rules=rules)
+    assert ce.selfplay_perpetual_kernel(2, cfg, 1024, 32, device="cpu")[1] > 0
+means, errs, hands = cn.selfplay_net_eval_kernel(
+    2, TableConfig(num_seats=6, rules="standard"),
+    load_params("data/policy_6max_es3.npz"), 1, 1024, 32, device="cpu")
+assert hands > 0 and means.shape == (6,)
+print(json.dumps(sorted(k for k in sys.modules if k == "jax"
+                        or k.startswith(("jax.", "montecarlo_tpu."))
+                        or k == "montecarlo_tpu")))
+"""
 
 
 def _clean_env():
@@ -54,11 +90,41 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_port_cpu_path_loads_no_jax_and_nothing_of_the_jax_package():
+    out = subprocess.run([sys.executable, "-c", CPU_PATH], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _public(module):
+    return {k: v for k, v in vars(module).items()
+            if not k.startswith("_") and not callable(v)
+            and not isinstance(v, type(sys))}
+
+
 def test_shared_encodings_and_table_config_match_jax():
     import montecarlo_tpu_torch
 
-    assert montecarlo_tpu_torch.cards is cards
-    assert montecarlo_tpu_torch.handval is handval
+    assert not hasattr(montecarlo_tpu_torch, "__getattr__")
+    # the port's copies: every public name, values and functions alike
+    for ours, theirs in ((tcards, cards), (thandval, handval)):
+        names = {k for k in vars(theirs) if not k.startswith("_")
+                 and not isinstance(vars(theirs)[k], type(sys))}
+        assert names <= set(vars(ours)), names - set(vars(ours))
+        assert _public(ours) == _public(theirs)
+    for c in range(52):
+        assert tcards.card_name(c) == cards.card_name(c)
+        assert tcards.card_suit(c) == cards.card_suit(c)
+        assert tcards.card_rank(c) == cards.card_rank(c)
+    for key in (0x812345, 0x5EDCBA, 0x100000, 0x0E9876):
+        assert thandval.unpack_value(key) == handval.unpack_value(key)
+        assert thandval.describe(key) == handval.describe(key)
+    assert thandval.pack_value(3, [9, 9, 9], [14, 2]) == \
+        handval.pack_value(3, [9, 9, 9], [14, 2])
+    assert tfeatures.NUM_FEATURES == jfeatures.NUM_FEATURES
+    assert tpolicy_net.NUM_ACTIONS == jpolicy_net.NUM_ACTIONS
+    assert tpolicy_net.MLPParams._fields == jpolicy_net.MLPParams._fields
     assert tev.NUM_RANKS == cards.NUM_RANKS
     assert teq.NUM_CARDS == cards.NUM_CARDS
     assert tev.CAT_SHIFT == handval.CAT_SHIFT
@@ -90,8 +156,57 @@ def test_cuda_requests_raise_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         philox.philox_blocks(torch.zeros((1, 6), dtype=torch.int64,
                                          device="cuda"))
-    assert all(v == 0 for v in {**cq.LAUNCHES, **ce.LAUNCHES,
+    with pytest.raises((RuntimeError, AssertionError)):
+        cn.selfplay_net_eval_kernel(
+            0, TableConfig(num_seats=6, rules="standard"),
+            tpolicy_net.load_params(ROOT / "data" / "policy_6max_es3.npz"),
+            1, 1024, 16, device="cuda")
+    assert all(v == 0 for v in {**cq.LAUNCHES, **ce.LAUNCHES, **cn.LAUNCHES,
                                 **philox.LAUNCHES}.values())
+
+
+STD = TableConfig(num_seats=6, rules="standard")
+ENTRY_POINTS = {
+    "equity_vs_hand": lambda: teq.equity_vs_hand(0, [0, 1], [2, 3], 1024),
+    "equity_vs_random": lambda: teq.equity_vs_random(0, [0, 1], 1024),
+    "equity_exact": lambda: teq.equity_exact([0, 1], [2, 3], [4, 5, 6, 7]),
+    "equity_sweep_kernel": lambda: cq.equity_sweep_kernel(0, [[0, 1]], 1024),
+    "selfplay_perpetual_kernel": lambda: ce.selfplay_perpetual_kernel(
+        0, TableConfig(num_seats=6), 1024, 16),
+    "selfplay_net_eval_kernel": lambda: cn.selfplay_net_eval_kernel(
+        0, STD, tpolicy_net.load_params(ROOT / "data" /
+                                        "policy_6max_es3.npz"), 1, 1024, 16),
+    "initial_packed_state": lambda: cn.initial_packed_state(0, STD, 1024),
+    "deal_stash": lambda: cn.deal_stash(0, 1024, 6, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(name):
+    """Without a ``device``, an entry point runs on the card: with none
+    present it raises rather than run the plain version on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry point would run there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+    assert all(v == 0 for v in {**cq.LAUNCHES, **ce.LAUNCHES, **cn.LAUNCHES,
+                                **philox.LAUNCHES}.values())
+
+
+def test_build_splits_the_sources_by_seat_count():
+    """The library without a seat count and a seat count's library hold
+    every ``csrc/*.cu`` between them, once; a seat count's sources get its
+    MC_SEATS, and seat counts outside 2..10 are refused."""
+    from montecarlo_tpu_torch.ops import _build
+
+    common, none = _build._sources(None)
+    seat, defines = _build._sources(6)
+    assert none == [] and defines == ["-DMC_SEATS=6"]
+    assert sorted(common + seat) == sorted(_build.CSRC.glob("*.cu"))
+    assert not set(common) & set(seat)
+    for bad in (1, 11):
+        with pytest.raises(ValueError):
+            _build._sources(bad)
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -96,7 +96,7 @@ def test_prng_words_iterations_tile_one_stream():
 def test_prng_plain_philox_equals_plain_on_the_same_words(P, n_steps):
     cfg = TableConfig(num_seats=P)
     T = ce.TABLES_PER_BLOCK
-    state = ce.pack_state(cfg, ce.first_deal(1, T, P))
+    state = ce.pack_state(cfg, ce.first_deal(1, T, P, "cpu"))
     n_iter = ce.prng_words_shape(T, P, n_steps)[0]
     words = torch.stack([ce.prng_words(42, T, P, n_steps, it, "cpu")
                          for it in range(n_iter)])
@@ -106,17 +106,17 @@ def test_prng_plain_philox_equals_plain_on_the_same_words(P, n_steps):
 
 
 def test_first_deal_is_distinct_and_seeded():
-    deal = ce.first_deal(5, 4096, 9)
+    deal = ce.first_deal(5, 4096, 9, "cpu")
     assert deal.shape == (4096, 23) and deal.dtype == torch.int32
     assert int(deal.min()) >= 0 and int(deal.max()) < 52
     assert bool((deal.sort(dim=1).values.diff(dim=1) > 0).all())
-    assert torch.equal(deal, ce.first_deal(5, 4096, 9))
-    assert not torch.equal(deal, ce.first_deal(6, 4096, 9))
+    assert torch.equal(deal, ce.first_deal(5, 4096, 9, "cpu"))
+    assert not torch.equal(deal, ce.first_deal(6, 4096, 9, "cpu"))
 
 
 def test_cpu_wrappers_are_seeded_by_philox():
     hero, villain = [0, 12], [25, 38]
-    r = teq.equity_vs_hand(11, hero, villain, 4096)
+    r = teq.equity_vs_hand(11, hero, villain, 4096, device="cpu")
     dead, hm, vm = (m.tolist() for m in cq._hand_masks(hero, villain, (),
                                                         "cpu"))
     want = cq._equity_counts_plain(cq.equity_words(11, 5, 0, 4096, "cpu"),
