@@ -19,21 +19,38 @@ Phases (any failure raises and exits non-zero; no phase is caught):
       net evaluation at ``bench.py``'s shape (K6: standard rules, 6-max,
       ``data/policy_6max_es3.npz`` at seat 0, random policy elsewhere,
       2^18 tables x 512 slots in launches of 256);
+   c. the ES training path (standard rules, 6-max): one generation at
+      ``bench.py``'s training shape (B8: 32 candidates, es3 + 0.05 N(0, 1)
+      per leaf, 2^14 tables x 256 slots in one launch, the net at seat 0),
+      the same candidates' league fitness against es3 (B8 with two banks),
+      a league evaluation at ``scripts/league_eval.py``'s width (B7: es3
+      and policy_6max_200 at alternate seats, 2^16 tables x 256 slots) and
+      the deterministic net kernel with two banks (K5: jam_tight at seat 0,
+      fof_call elsewhere);
 2. results: equity within 4 sigma of exact enumeration, the sweep within
    5 sigma of ``data/sweep169.json``, reference self-play with no overflow
    and slots/hand within 2% of 33.1; standard self-play with no overflow
    and every table's chips conserved; net evaluation with no overflow and
    every table's seat deltas summing to 0, and the validate gate (the
    trained ``data/policy_6max_200.npz`` at seat 0 beats each of four
-   untrained nets with separated 2-sigma intervals, and 0);
+   untrained nets with separated 2-sigma intervals, and 0); on the ES path
+   no overflow and zero-sum seat deltas on every candidate's tables, each
+   of the 32 candidates' meters equal to a single launch's, two identical
+   banks equal to the single net, bank routing (reference rules: a call
+   bot beats a pot-raise bot at seat 0 and loses with the banks swapped),
+   and two generations of ``train_es`` equal through the population and
+   the per-candidate evaluators (a three-generation run is logged);
 3. agreement, tolerance 0: every kernel call of phase 1 against its plain
    PyTorch version on the card, on the same inputs at the same size (the
    plain versions compute the kernels' Philox words, ``ops/philox.py``),
-   timed once with CUDA events; K6 launch by launch; the net's float path
-   (features, logits, Gumbel scores) bit for bit through the probe kernel;
-   then K1, K2 and K4 on injected words (their ``words`` option);
-4. timing: each main-path kernel call again on the card (CUDA events), and
-   ``net_eval_hands_per_sec`` as ``bench.py`` computes it.
+   timed once with CUDA events; K6 and B7 launch by launch; B8 on four of
+   its 32 candidates (the rest equal single K6 launches, phase 2); the
+   net's float path (features, logits, Gumbel scores) bit for bit through
+   the probe kernel; then K1, K2 and K4 on injected words (their ``words``
+   option);
+4. timing: each main-path kernel call again on the card (CUDA events),
+   ``net_eval_hands_per_sec`` and ``train_hands_per_sec`` as ``bench.py``
+   computes them.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -74,6 +91,24 @@ NET_HMAX = 16
 VAL_TABLES = 1 << 14
 VAL_SLOTS = 256
 UNTRAINED_DRAWS = 4
+# The ES training path (bench.py's _run_net_axis and
+# scripts/bench_net_throughput.py:bench_es_generation): candidates (16
+# antithetic pairs), their noise, tables, slots and seed of a generation,
+# and the candidates held against the plain version; the league evaluation
+# (scripts/league_eval.py's 2^16 tables; its 512 slots cut to one launch
+# of 256 to keep the run's plain checks short); the tables and slots of
+# the checks (scripts/validate_tpu.py:check_net_kernels) and their seed.
+TRAIN_POP = 32
+TRAIN_SIGMA = 0.05
+T_TRAIN = 1 << 14
+TRAIN_SLOTS = 256
+TRAIN_SEED = 13
+PLAIN_CANDIDATES = (0, 11, 22, 31)
+T_LEAGUE = 1 << 16
+LEAGUE_SLOTS = 256
+T_CHECK = 4096
+CHECK_SLOTS = 256
+CHECK_SEED = 314
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
 # Lower counts of the operations a kernel's work needs, for bound_ms,
@@ -124,22 +159,6 @@ def bound(n_bytes, int_ops, f32_ops=0):
     return t[by] * 1e3, by
 
 
-def rule_bot():
-    """A rule bot packed as policy-net weights (the construction of the
-    JAX package's models/bots.py, ``fof_raise``): raise the pot holding a
-    pair or better (feature 14, category / 8, above 1/16), else call;
-    every other logit at -300."""
-    w = [np.zeros(s, np.float32) for s in ((24, 64), (64,), (64, 64), (64,),
-                                            (64, 4), (4,))]
-    w[0][14, 0], w[0][14, 1] = 1.0, -1.0
-    w[1][0], w[1][1] = -0.0625, 0.0625
-    w[2][0, 0] = w[2][1, 1] = 1.0
-    w[4][0, 3] = w[4][1, 1] = 200.0
-    w[5][:] = -300.0
-    w[5][3] = w[5][1] = 0.0
-    return w
-
-
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -150,7 +169,9 @@ def main() -> int:
 
     from montecarlo_tpu_torch.device import cuda_device
     from montecarlo_tpu_torch.engine.state import TableConfig
+    from montecarlo_tpu_torch.models import bots
     from montecarlo_tpu_torch.models import policy_net as tpn
+    from montecarlo_tpu_torch.models import train_es as tte
     from montecarlo_tpu_torch.ops import _build
     from montecarlo_tpu_torch.ops import cuda_engine as ce
     from montecarlo_tpu_torch.ops import cuda_equity as cq
@@ -186,6 +207,20 @@ def main() -> int:
 
     def field_sum(state, cfg, name, rows):
         return sum(ce.unpack_field(state, cfg, name, k) for k in range(rows))
+
+    def flat(pop):
+        """A population state [C, n_blocks, ...] as one state of C x T
+        tables."""
+        return pop.reshape(-1, *pop.shape[2:])
+
+    def clean_and_zero_sum(state, what, tables):
+        check(int(ce.unpack_field(state, std, "overflow").sum()) == 0,
+              f"{what}: no overflow")
+        seat = field_sum(state, std, "seat_delta", P)
+        check(bool((seat == 0).all()),
+              f"{what}: every table's seat deltas sum to 0")
+        log(f"{what}: overflow 0; seat deltas sum to 0 on all {tables} "
+            f"tables")
 
     phase_s, t_phase = {}, [time.perf_counter()]
 
@@ -255,10 +290,26 @@ def main() -> int:
     # state (built once, outside the evaluation, as bench.py does)
     es3 = tpn.load_params(ROOT / "data" / "policy_6max_es3.npz")
     w_es3 = cn.net_weights(es3, dev)
-    w_bot = cn.net_weights(tpn.params_from_numpy(rule_bot()), dev)
+    panel = bots.panel()
+    w_bot = cn.net_weights(panel["fof_raise"], dev)
     stash_net = cn.deal_stash(SEED, T_NET, P, NET_HMAX, dev)
     st_net_det = ce.pack_state(std, ce._stash_rows(stash_net)[0].T)
     st_net0 = cn.initial_packed_state(SEED, std, T_NET, dev)
+    # the ES path's inputs: the generation's candidates (as
+    # bench_es_generation draws them), its first state, the league's nets
+    # and first state, K5's two banks
+    rng = np.random.default_rng(0)
+    cands = [tpn.params_from_numpy([
+        x.numpy() + TRAIN_SIGMA * rng.standard_normal(x.shape)
+        .astype(np.float32) for x in es3]) for _ in range(TRAIN_POP)]
+    p200 = tpn.load_params(ROOT / "data" / "policy_6max_200.npz")
+    st_train0 = cn.initial_packed_state(TRAIN_SEED, std, T_TRAIN, dev)
+    st_league0 = cn.initial_packed_state(SEED, std, T_LEAGUE, dev)
+    parity = tuple(k % 2 for k in range(P))
+    seat0 = (0,) + (1,) * (P - 1)
+    all_seats = (1 << P) - 1
+    w_det_banks = cn.bank_weights([panel["jam_tight"], panel["fof_call"]],
+                                  dev)
     sync()
     phase_done("0 setup")
 
@@ -303,6 +354,29 @@ def main() -> int:
         f"{ {k: launches[k] for k in ('K3s', 'K4s', 'K5', 'K6')} }")
     check(all(launches[k] > 0 for k in ("K3s", "K4s", "K5", "K6")),
           "every kernel of the net path launched")
+
+    # ---- 1c. main path: the ES training path (standard rules) -----------
+    reset_counts()
+    t0 = time.perf_counter()
+    pop_m, pop_e, pop_h = cn.selfplay_net_eval_pop(
+        TRAIN_SEED, std, cands, 1, T_TRAIN, TRAIN_SLOTS, state0=st_train0)
+    lpop_m, lpop_e, lpop_h = cn.selfplay_net_league_pop(
+        TRAIN_SEED, std, cands, es3, T_TRAIN, TRAIN_SLOTS, state0=st_train0)
+    lg_m, lg_e, lg_h = cn.selfplay_net_league(
+        SEED, std, [es3, p200], parity, T_LEAGUE, LEAGUE_SLOTS,
+        steps_per_launch=NET_LAUNCH, state0=st_league0)
+    k5b_out = cn.run_net_det(st_net_det, stash_net, w_det_banks, P,
+                             NET_DET_STEPS, SB, BB, "standard", seat0)
+    sync()
+    es_s = time.perf_counter() - t0
+    launches.update({"K5b": cn.LAUNCHES["net_det_banked_standard"],
+                     "B7": cn.LAUNCHES["net_league_standard"],
+                     "B8": cn.LAUNCHES["net_pop_standard"],
+                     "B8l": cn.LAUNCHES["net_league_pop_standard"]})
+    log(f"main path (ES training): {es_s:.2f} s, launches "
+        f"{ {k: launches[k] for k in ('K5b', 'B7', 'B8', 'B8l')} }")
+    check(all(launches[k] > 0 for k in ("K5b", "B7", "B8", "B8l")),
+          "every kernel of the ES path launched")
     phase_done("1 main paths")
 
     # ---- 2. results -----------------------------------------------------
@@ -384,8 +458,7 @@ def main() -> int:
     # seat 0. An untrained net's own edge depends on its random draw (the
     # TPU-era draw was positive), so each of UNTRAINED_DRAWS draws is
     # logged and the trained net must beat every one of them.
-    trained = tpn.load_params(ROOT / "data" / "policy_6max_200.npz")
-    mt, et, _ = cn.selfplay_net_eval_kernel(11, std, trained, 1, VAL_TABLES,
+    mt, et, _ = cn.selfplay_net_eval_kernel(11, std, p200, 1, VAL_TABLES,
                                             VAL_SLOTS, device=dev)
     log(f"validate gate ({VAL_TABLES} tables x {VAL_SLOTS} slots, seat 0): "
         f"trained policy_6max_200 {mt[0]:+.3f} +- {et[0]:.3f} bb/hand "
@@ -399,6 +472,107 @@ def main() -> int:
         check(mt[0] - 2 * et[0] > mu[0] + 2 * eu[0],
               f"trained - 2 sigma > untrained draw {draw} + 2 sigma")
     check(mt[0] - 2 * et[0] > 0, "trained - 2 sigma > 0")
+
+    # The ES path. The generation's B8 launches again from the same first
+    # state (the main path's one launch each) give the states behind the
+    # meters, and the kernels' counts of net decisions (for the bounds).
+    w8 = cn.pop_weights(cands, dev)
+    w8l = cn.pop_weights(cands, dev, es3)
+    pop0 = st_train0[None].expand(TRAIN_POP, *st_train0.shape).contiguous()
+    decisions = {k: torch.zeros(1, dtype=torch.int64, device=dev)
+                 for k in ("B8", "B8l", "B7")}
+    k8 = cn.run_net_eval_pop(TRAIN_SEED, pop0, w8, P, TRAIN_SLOTS, SB, BB,
+                             SS, "standard", 1, decisions=decisions["B8"])
+    k8l = cn.run_net_eval_pop(TRAIN_SEED, pop0, w8l, P, TRAIN_SLOTS, SB, BB,
+                              SS, "standard", all_seats, seat0,
+                              decisions=decisions["B8l"])
+    for key, k, meters in (("B8", k8, (pop_m, pop_e, pop_h)),
+                           ("B8l", k8l, (lpop_m, lpop_e, lpop_h))):
+        check(all(np.array_equal(a, b) for a, b in
+                  zip(cn.pop_meters(k, std), meters)),
+              f"{key}: the launch replayed gives the main path's meters")
+        check(np.all(meters[2] > 0) and np.all(np.isfinite(meters[0])),
+              f"{key}: hands > 0 and finite meters on every candidate")
+        clean_and_zero_sum(flat(k), f"{key} ({TRAIN_POP} candidates)",
+                           TRAIN_POP * T_TRAIN)
+    log(f"B8 generation: {int(pop_h.sum())} hands over {TRAIN_POP} "
+        f"candidates; seat 0 bb/hand {pop_m[:, 0].min():+.4f} .. "
+        f"{pop_m[:, 0].max():+.4f} (stderr ~{pop_e[:, 0].mean():.4f})")
+    log(f"B8 league fitness against es3: {int(lpop_h.sum())} hands; seat 0 "
+        f"bb/hand {lpop_m[:, 0].min():+.4f} .. {lpop_m[:, 0].max():+.4f}")
+
+    # pop equals singles: each candidate alone, from the same first state
+    for c, params in enumerate(cands):
+        single = cn.selfplay_net_eval_kernel(TRAIN_SEED, std, params, 1,
+                                             T_TRAIN, TRAIN_SLOTS,
+                                             state0=st_train0)
+        check(all(np.array_equal(a, b[c]) for a, b in
+                  zip(single, (pop_m, pop_e, pop_h))),
+              f"candidate {c}: B8 equals a single K6 launch")
+        single = cn.selfplay_net_league(TRAIN_SEED, std, [params, es3],
+                                        seat0, T_TRAIN, TRAIN_SLOTS,
+                                        state0=st_train0)
+        check(all(np.array_equal(a, b[c]) for a, b in
+                  zip(single, (lpop_m, lpop_e, lpop_h))),
+              f"candidate {c}: B8 with two banks equals a single B7 launch")
+    log(f"pop equals singles: all {TRAIN_POP} candidates' meters and hands "
+        f"equal single K6 (and B7) launches exactly")
+
+    # two identical banks are the single net at every seat
+    st_chk = cn.initial_packed_state(CHECK_SEED, std, T_CHECK, dev)
+    m1, _, h1 = cn.selfplay_net_eval_kernel(CHECK_SEED, std, es3, all_seats,
+                                            T_CHECK, CHECK_SLOTS,
+                                            state0=st_chk)
+    m2, _, h2 = cn.selfplay_net_league(CHECK_SEED, std, [es3, es3], parity,
+                                       T_CHECK, CHECK_SLOTS, state0=st_chk)
+    check(np.array_equal(m1, m2) and h1 == h2,
+          "identical banks equal the single net at every seat")
+    log(f"identical banks: {h2} hands, meters equal the single net's")
+
+    # bank routing, reference rules: a pot-raise bot jams every hand and,
+    # all-in seats being left out of showdown, loses its stack, so seat 0's
+    # sign says which bank it played
+    rst = cn.initial_packed_state(CHECK_SEED, cfg, T_CHECK, dev)
+    callbot, raisebot = bots.action_bot(1), bots.action_bot(3)
+    ma = cn.selfplay_net_league(CHECK_SEED, cfg, [callbot, raisebot], seat0,
+                                T_CHECK, CHECK_SLOTS, state0=rst)[0]
+    mb = cn.selfplay_net_league(CHECK_SEED, cfg, [raisebot, callbot], seat0,
+                                T_CHECK, CHECK_SLOTS, state0=rst)[0]
+    mp = cn.selfplay_net_league_pop(CHECK_SEED, cfg, [callbot, raisebot],
+                                    raisebot, T_CHECK, CHECK_SLOTS,
+                                    seat_to_bank=seat0, state0=rst)[0]
+    log(f"routing (reference rules, seat 0): callbot {ma[0]:+.3f}, raisebot "
+        f"{mb[0]:+.3f} bb/hand; pop candidates {mp[0, 0]:+.3f} / "
+        f"{mp[1, 0]:+.3f} (TPU-era record, history only: +2.84 / -10.0)")
+    check(ma[0] > 0 > mb[0], "routing: callbot at seat 0 > 0 > raisebot")
+    check(mp[0, 0] > mp[1, 0] and np.array_equal(mp[0], ma),
+          "routing: the population's candidates route likewise")
+
+    # the trainer: two generations through the population evaluator and
+    # through the per-candidate one give the same result
+    es_kw = dict(generations=2, pop=4, sigma=TRAIN_SIGMA, lr=0.03)
+    a = tte.train_es(TRAIN_SEED, es3, eval_pop_fn=tte.kernel_eval_pop_fn(
+        std, 1, T_CHECK, CHECK_SLOTS), **es_kw)
+    b = tte.train_es(TRAIN_SEED, es3, tte.kernel_eval_fn(
+        std, 1, T_CHECK, CHECK_SLOTS), **es_kw)
+    check(all(torch.equal(tte._flatten(x)[0], tte._flatten(y)[0])
+              for x, y in ((a.params, b.params),
+                           (a.final_params, b.final_params)))
+          and np.array_equal(a.fitness_history, b.fitness_history)
+          and a.hands_total == b.hands_total
+          and a.best_fitness == b.best_fitness,
+          "train_es: the population and per-candidate evaluators agree")
+    log(f"train_es, 2 generations x 4 pairs at {T_CHECK} tables: fitness "
+        f"{np.array2string(a.fitness_history, precision=4)}, "
+        f"{a.hands_total} hands, both evaluators exactly equal")
+    t0 = time.perf_counter()
+    r3 = tte.train_es(TRAIN_SEED, es3, eval_pop_fn=tte.kernel_eval_pop_fn(
+        std, 1, T_TRAIN, TRAIN_SLOTS), generations=3, pop=TRAIN_POP // 2,
+        sigma=TRAIN_SIGMA, lr=0.03)
+    log(f"train_es from es3, 3 generations x {TRAIN_POP} candidates at "
+        f"{T_TRAIN} tables x {TRAIN_SLOTS} slots: fitness "
+        f"{np.array2string(r3.fitness_history, precision=4)}, "
+        f"{r3.hands_total} hands, {time.perf_counter() - t0:.2f} s")
     phase_done("2 results")
 
     # ---- 3. agreement: each kernel call against its plain version -------
@@ -466,32 +640,29 @@ def main() -> int:
     # K6 launch by launch from the main path's first state: the kernel
     # again (the same launches as the main path) against the plain version
     # on the same input state
-    state, tally = st_net0, {}
+    state = st_net0
+    decisions["K6"] = torch.zeros(1, dtype=torch.int64, device=dev)
     for done in range(0, NET_SLOTS, NET_LAUNCH):
         seed = (SEED + done * 7919) & 0x7FFFFFFF
         k = cn.run_net_eval(seed, state, w_es3, P, NET_LAUNCH, SB, BB, SS,
                             "standard", 1)
         p, ms = timed(lambda: cn._run_net_eval_plain_philox(
             seed, state, w_es3, P, NET_LAUNCH, SB, BB, SS, "standard", 1,
-            True, tally if done == 0 else None))
+            True, decisions=decisions["K6"] if done == 0 else None))
         plain_ms.setdefault("K6", ms)
         agree("K6", f"launch at slot {done}, {T_NET} tables x {NET_LAUNCH} "
               f"slots", k, p)
         if done == 0:
             k6_first = k
-            k6_decisions = tally["net_decisions"]
+            k6_decisions = int(decisions["K6"])
         state = k
     del p
-    check(cn.seat_meters(state, std)[2] == net_hands and np.array_equal(
-        cn.seat_meters(state, std)[0], net_means),
-        "the launches replayed give the main path's meters")
-    check(int(ce.unpack_field(state, std, "overflow").sum()) == 0,
-          "net evaluation: no overflow")
-    seat = field_sum(state, std, "seat_delta", P)
-    check(bool((seat == 0).all()),
-          "net evaluation: every table's seat deltas sum to 0")
-    log(f"K6: {k6_decisions} net decisions in the first launch; overflow 0; "
-        f"seat deltas sum to 0 on all {T_NET} tables")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(cn.seat_meters(state, std), (net_means, net_errs,
+                                               net_hands))),
+          "K6: the launches replayed give the main path's meters")
+    clean_and_zero_sum(state, f"K6 net evaluation ({k6_decisions} net "
+                       f"decisions in the first launch)", T_NET)
     words = ce.table_words(SEED + 9, T_NET, 0, 4, dev)
     probe = cn.net_probe(state, words, w_es3, P, BB, "standard")
     want = cn._net_probe_plain(state, words, w_es3, P, BB, "standard")
@@ -501,6 +672,48 @@ def main() -> int:
     log(f"K6 probe: {T_NET} tables x {cn.PROBE_ROWS} floats (features, "
         f"masked logits, Gumbel scores) bit for bit")
     del probe, want
+
+    # the ES path: banked K5; B7 launch by launch from the main path's
+    # first state (the first launch counts its net decisions); B8 on four
+    # of the 32 candidates of the replayed launches
+    p, plain_ms["K5b"] = timed(lambda: cn._run_net_det_plain(
+        st_net_det, stash_net, w_det_banks, P, NET_DET_STEPS, SB, BB,
+        "standard", seat0))
+    agree("K5b", f"two banks, {T_NET} tables x {NET_DET_STEPS} steps",
+          k5b_out, p)
+    w7 = cn.bank_weights([es3, p200], dev)
+    state = st_league0
+    for done in range(0, LEAGUE_SLOTS, NET_LAUNCH):
+        seed = (SEED + done * 7919) & 0x7FFFFFFF
+        k = cn.run_net_league(seed, state, w7, P, NET_LAUNCH, SB, BB, SS,
+                              "standard", all_seats, parity,
+                              decisions=decisions["B7"] if done == 0
+                              else None)
+        p, ms = timed(lambda: cn._run_net_eval_plain_philox(
+            seed, state, w7, P, NET_LAUNCH, SB, BB, SS, "standard",
+            all_seats, True, parity))
+        plain_ms.setdefault("B7", ms)
+        agree("B7", f"launch at slot {done}, {T_LEAGUE} tables x "
+              f"{NET_LAUNCH} slots", k, p)
+        if done == 0:
+            b7_first = k
+        state = k
+    check(all(np.array_equal(a, b) for a, b in
+              zip(cn.seat_meters(state, std), (lg_m, lg_e, lg_h))),
+          "B7: the launches replayed give the main path's meters")
+    clean_and_zero_sum(state, "B7 league evaluation", T_LEAGUE)
+    log(f"B7 league (es3 at even seats, policy_6max_200 at odd): {lg_h} "
+        f"hands, seats {np.array2string(lg_m, precision=4)} bb/hand, es3's "
+        f"seat mean {lg_m[0::2].mean():+.4f}")
+    idx = torch.tensor(PLAIN_CANDIDATES, device=dev)
+    for key, k, w, seats, stb in (("B8", k8, w8, 1, None),
+                                  ("B8l", k8l, w8l, all_seats, seat0)):
+        p, plain_ms[key] = timed(lambda: cn._run_net_eval_plain_philox(
+            TRAIN_SEED, pop0[idx], w[idx], P, TRAIN_SLOTS, SB, BB, SS,
+            "standard", seats, True, stb))
+        agree(key, f"candidates {PLAIN_CANDIDATES} of {TRAIN_POP}, "
+              f"{T_TRAIN} tables x {TRAIN_SLOTS} slots", k[idx], p)
+    del p
 
     # the words option: injected words instead of Philox
     dead, hm, vm = pre
@@ -541,6 +754,17 @@ def main() -> int:
             "standard")),
         "K6": cuda_ms(lambda: cn.run_net_eval(
             SEED, st_net0, w_es3, P, NET_LAUNCH, SB, BB, SS, "standard", 1)),
+        "K5b": cuda_ms(lambda: cn.run_net_det(
+            st_net_det, stash_net, w_det_banks, P, NET_DET_STEPS, SB, BB,
+            "standard", seat0)),
+        "B7": cuda_ms(lambda: cn.run_net_league(
+            SEED, st_league0, w7, P, NET_LAUNCH, SB, BB, SS, "standard",
+            all_seats, parity)),
+        "B8": cuda_ms(lambda: cn.run_net_eval_pop(
+            TRAIN_SEED, pop0, w8, P, TRAIN_SLOTS, SB, BB, SS, "standard", 1)),
+        "B8l": cuda_ms(lambda: cn.run_net_eval_pop(
+            TRAIN_SEED, pop0, w8l, P, TRAIN_SLOTS, SB, BB, SS, "standard",
+            all_seats, seat0)),
     }
     t0 = time.perf_counter()
     cq.equity_sweep_kernel(SEED + 5, heroes, N_SWEEP, dev)
@@ -555,6 +779,19 @@ def main() -> int:
                                         state0=st_net0)[2]
         net_runs.append((time.perf_counter() - t0, h))
     net_best, net_best_hands = min(net_runs)
+    # bench.py's train_hands_per_sec (bench_es_generation): hands over the
+    # 32 candidates / host seconds of one generation, from a state built
+    # once, best of 2 after one warm-up
+
+    def generation(seed):
+        t0 = time.perf_counter()
+        h = cn.selfplay_net_eval_pop(seed, std, cands, 1, T_TRAIN,
+                                     TRAIN_SLOTS, state0=st_train0)[2]
+        return time.perf_counter() - t0, int(h.sum())
+
+    generation(TRAIN_SEED)
+    train_best, train_hands = min(generation(TRAIN_SEED + i + 1)
+                                  for i in range(2))
 
     k6_hands = int(ce.unpack_field(k6_first, std, "hand_ct").sum())
     k5_state = T_NET * ce._field_layout(P, "standard")[1] * 4
@@ -596,12 +833,47 @@ def main() -> int:
                   + k6_hands * P * OPS["hand_key"]
                   + k6_decisions * OPS["features"],
                   k6_decisions * OPS["mlp_f32"])
+    k5b_hands = int(ce.unpack_field(k5b_out, std, "hand_ct").sum())
+    work["K5b"] = (T_NET * NET_DET_STEPS, "table-steps",
+                   2 * k5_state + stash_net.numel() * 4
+                   + w_det_banks.numel() * 4,
+                   T_NET * NET_DET_STEPS * (OPS["step"] + OPS["features"])
+                   + k5b_hands * P * OPS["hand_key"],
+                   T_NET * NET_DET_STEPS * OPS["mlp_f32"])
+    # B7 and B8: the timed launch is the main path's first (B8: only)
+    # launch; its hands and the net decisions the kernel counted. Every
+    # candidate's table t derives the same words, counted once.
+    state_bytes = ce._field_layout(P, "standard")[1] * 4
+    b7_hands = int(ce.unpack_field(b7_first, std, "hand_ct").sum())
+    b7_dec = int(decisions["B7"])
+    work["B7"] = (T_LEAGUE * NET_LAUNCH, "table-slots",
+                  2 * T_LEAGUE * state_bytes + w7.numel() * 4,
+                  b7_hands * OPS["step"]
+                  + T_LEAGUE * blocks * OPS["philox_block"]
+                  + b7_hands * P * OPS["hand_key"]
+                  + b7_dec * OPS["features"], b7_dec * OPS["mlp_f32"])
+    for key, hands, w in (("B8", int(pop_h.sum()), w8),
+                          ("B8l", int(lpop_h.sum()), w8l)):
+        dec = int(decisions[key])
+        work[key] = (TRAIN_POP * T_TRAIN * TRAIN_SLOTS, "table-slots",
+                     2 * TRAIN_POP * T_TRAIN * state_bytes + w.numel() * 4,
+                     hands * OPS["step"]
+                     + T_TRAIN * blocks * OPS["philox_block"]
+                     + hands * P * OPS["hand_key"] + dec * OPS["features"],
+                     dec * OPS["mlp_f32"])
+    # the plain versions' work where it is not the kernel call's: B8's on
+    # four candidates
+    plain_work = {k: len(PLAIN_CANDIDATES) * T_TRAIN * TRAIN_SLOTS
+                  for k in ("B8", "B8l")}
+    log(f"net decisions counted by the kernels: K6 {k6_decisions}, B7 "
+        f"{b7_dec}, B8 {int(decisions['B8'])}, B8 two banks "
+        f"{int(decisions['B8l'])}")
     bounds = {key: bound(*w[2:]) for key, w in work.items()}
     for key, (n, unit, *_rest) in work.items():
         log(f"{key}: kernel {times[key]:.3f} ms, plain {plain_ms[key]:.3f} "
             f"ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]}) for {n} "
             f"{unit} ({times[key] * 1e6 / n:.4f} / "
-            f"{plain_ms[key] * 1e6 / n:.4f} ns each)")
+            f"{plain_ms[key] * 1e6 / plain_work.get(key, n):.4f} ns each)")
     rates = {
         "equity_rollouts_per_sec": N_EQUITY / (times["K1"] / 1e3),
         "sweep169_seconds_warm": sweep_warm_s,
@@ -614,6 +886,10 @@ def main() -> int:
         "net_eval_ns_per_table_step": net_best / (T_NET * NET_SLOTS) * 1e9,
         "net_eval_seconds": net_best,
         "net_eval_hands": net_best_hands,
+        "train_hands_per_sec": train_hands / train_best,
+        "train_pop": TRAIN_POP,
+        "train_seconds": train_best,
+        "train_hands": train_hands,
     }
     log(json.dumps({"card": smi, **rates}))
     phase_done("4 timing")
@@ -635,6 +911,14 @@ def main() -> int:
          engine + "716"),
         ("K5", "K5 net_det standard", src + "net.cu", engine + "1171"),
         ("K6", "K6 net_eval standard", src + "net.cu", engine + "1171"),
+        ("K5b", "K5 net_det banked (B = 2) standard", src + "net.cu",
+         engine + "1340"),
+        ("B7", "B7 net_league (B = 2) standard", src + "net.cu",
+         engine + "1302"),
+        ("B8", "B8 net_eval_pop (C = 32, B = 1) standard", src + "net.cu",
+         engine + "1470"),
+        ("B8l", "B8 net_eval_pop league (C = 32, B = 2) standard",
+         src + "net.cu", engine + "1470"),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": source,
@@ -643,6 +927,7 @@ def main() -> int:
         "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
         "bound_by": bounds[key][1], "library_ms": None,
         "work": work[key][0], "unit": work[key][1],
+        "plain_work": plain_work.get(key, work[key][0]),
     } for key, name, source, replaces in meta]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

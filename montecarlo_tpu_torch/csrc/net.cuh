@@ -4,7 +4,13 @@
 // A transcription of montecarlo_tpu/ops/pallas_engine.py: _features
 // (:1008) and _masked_suit_masks (:990), _mlp_logits (:1105),
 // _gumbel_pick (:1078), _argmax_pick (:1095), _net_action (:1123) and the
-// kernel bodies of _make_net_kernel (:1171) in their single-net form.
+// kernel bodies of _make_net_kernel (:1171), banked and per candidate.
+//
+// Banks. The TPU joins B nets into one block-diagonal MLP B times wider
+// (_stack_weights_league) and selects the acting seat's logit group. Here
+// the B nets lie side by side, each in the flat layout below, and a
+// decision runs only the acting seat's bank: the wide form's other terms
+// are exact zeros, so the logits are the same function.
 //
 // Float order. The kernel must give the plain version's logits bit for
 // bit, or a pick flips somewhere among ~10^8 decisions and the integer
@@ -33,6 +39,30 @@
 #define MC_B3 (MC_W3 + MC_HIDDEN * MC_NUM_ACTIONS)
 #define MC_NET_WEIGHTS (MC_B3 + MC_NUM_ACTIONS)
 static_assert(MC_NET_WEIGHTS == 6020, "weights of the 24-64-64-4 MLP");
+// Banks a block holds in shared memory: 9 x 24,080 bytes fit the 227 KB
+// (232,448 bytes) a block may use.
+#define MC_MAX_BANKS 9
+
+// The weights of the bank that plays the seat acting at play-order
+// position `head`: seat (button + head) mod P plays bank
+// (bank_map >> 4 seat) & 15 (seat_to_bank, four bits a seat).
+template <int P, int R>
+MC_HD const float* mc_bank(const MCTable<P, R>& s, int head, const float* w,
+                           unsigned long long bank_map) {
+  const int seat = mc_floormod(s.button + head, P);
+  return w + (int)((bank_map >> (4 * seat)) & 15u) * MC_NET_WEIGHTS;
+}
+
+// Candidate c's slice of a population launch: its n_tables tables of the
+// packed state and its n_banks banks of weights. The offsets reach past
+// 2^31 elements, so they are computed in 64 bits.
+template <int P, int R>
+MC_HD long long mc_candidate_state(long long c, int n_tables) {
+  return c * n_tables * mc_fields<P, R>();
+}
+MC_HD long long mc_candidate_weights(long long c, int n_banks) {
+  return c * n_banks * MC_NET_WEIGHTS;
+}
 
 // The 24 decision features of position `head` (_features), into f.
 template <int P, int R>
@@ -152,18 +182,23 @@ MC_HD int mc_net_action(const MCTable<P, R>& s, int head, int bb,
   return mc_max(mc_add(pot, mc_sub(total, s.contrib[head])), small);
 }
 
-// K5's work for one table: n_steps fused steps, every seat playing the net
-// by argmax; hand h > 0 is dealt from stash row min(h, hmax - 1).
+// K5's work for one table: n_steps fused steps, every seat playing its
+// bank's net by argmax; hand h > 0 is dealt from stash row min(h, hmax - 1).
 template <int P, int R>
 MC_HD void mc_run_net_det(MCTable<P, R>& s, const int* stash,
                           long long stride, int n_steps, int hmax, int sb,
-                          int bb, const float* w) {
+                          int bb, const float* w,
+                          unsigned long long bank_map) {
   for (int i = 0; i < n_steps; ++i) {
     int hand_ptr = mc_min(s.hand_ct + 1, hmax - 1);
     // a table with no head is a no-op this step, whatever it would play
-    mc_step_nosettle(s, s.order ? mc_net_action(s, mc_head(s), bb, w,
-                                                nullptr)
-                                : 0);
+    int raw = 0;
+    if (s.order) {
+      const int head = mc_head(s);
+      raw = mc_net_action(s, head, bb, mc_bank(s, head, w, bank_map),
+                          nullptr);
+    }
+    mc_step_nosettle(s, raw);
     if (s.wait) {
       int deal[2 * P + 5];
       mc_stash_deal<P>(stash, stride, hand_ptr, deal);
@@ -174,14 +209,17 @@ MC_HD void mc_run_net_det(MCTable<P, R>& s, const int* stash,
 
 // K6's work for one table: per iteration, `defer` slots of six words (u,
 // amt_bits, four Gumbel words; all drawn whoever acts), then 2P+5 deal
-// words and a settle pass. Seats whose bit is set in net_seats play the
-// net, the others the random policy.
+// words and a settle pass. Seats whose bit is set in net_seats play their
+// bank's net, the others the random policy. Returns the count of net
+// decisions.
 template <int P, int R>
-MC_HD void mc_run_net_eval(MCTable<P, R>& s, MCWords& src, int n_steps,
-                           int defer, int sb, int bb, int ss, int net_seats,
-                           bool reset_stacks, uint32_t fold_bits,
-                           uint32_t raise_bits, const float* w) {
+MC_HD int mc_run_net_eval(MCTable<P, R>& s, MCWords& src, int n_steps,
+                          int defer, int sb, int bb, int ss, int net_seats,
+                          bool reset_stacks, uint32_t fold_bits,
+                          uint32_t raise_bits, const float* w,
+                          unsigned long long bank_map) {
   constexpr int NC = 2 * P + 5;
+  int n_net = 0;
   for (int it = 0; it < n_steps / defer; ++it) {
     for (int k = 0; k < defer; ++k) {
       uint32_t words[MC_NET_SLOT_WORDS];
@@ -189,8 +227,11 @@ MC_HD void mc_run_net_eval(MCTable<P, R>& s, MCWords& src, int n_steps,
       int raw = mc_policy(s, words[0], words[1], fold_bits, raise_bits);
       if (s.order) {
         const int head = mc_head(s);
-        if ((net_seats >> mc_floormod(s.button + head, P)) & 1)
-          raw = mc_net_action(s, head, bb, w, words + 2);
+        if ((net_seats >> mc_floormod(s.button + head, P)) & 1) {
+          raw = mc_net_action(s, head, bb, mc_bank(s, head, w, bank_map),
+                              words + 2);
+          ++n_net;
+        }
       }
       mc_step_nosettle(s, raw);
     }
@@ -198,4 +239,5 @@ MC_HD void mc_run_net_eval(MCTable<P, R>& s, MCWords& src, int n_steps,
     mc_sample_cards<NC>(src, nullptr, 0, deal);
     mc_settle_pass(s, deal, sb, bb, ss, reset_stacks);
   }
+  return n_net;
 }

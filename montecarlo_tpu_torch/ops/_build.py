@@ -41,6 +41,7 @@ MIN_SEATS, MAX_SEATS = 2, 10
 P_ = ctypes.c_void_p
 I_ = ctypes.c_int
 LL_ = ctypes.c_longlong
+ULL_ = ctypes.c_ulonglong
 
 # C entry -> argument types (pointers as c_void_p so ctypes never cuts
 # them to 32 bits), for the library without and with a seat count. Every
@@ -53,9 +54,9 @@ SIGNATURES = {
 SEAT_SIGNATURES = {
     "mc_engine_det": [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_, P_],
     "mc_engine_prng": [P_, I_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, P_],
-    "mc_net_det": [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_, P_],
+    "mc_net_det": [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_, I_, ULL_, P_],
     "mc_net_eval": [P_, I_, P_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, I_,
-                    I_, I_, P_],
+                    I_, I_, I_, I_, ULL_, P_, P_],
     "mc_net_probe": [P_, P_, P_, P_, I_, I_, I_, I_, P_],
 }
 

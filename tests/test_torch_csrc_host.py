@@ -3,9 +3,10 @@
 The headers in ``montecarlo_tpu_torch/csrc`` are host C++ as well (``MC_HD``
 expands to ``inline`` outside nvcc). A small harness built with the host
 C++ compiler runs the kernels' per-thread bodies (one rollout of K1/K2,
-one table of K4) in Philox mode, the way the kernels key their streams,
-and the results must equal the plain versions fed ``ops/philox.py``'s
-words. This checks the device code's arithmetic before it meets a card;
+one table of K3-K6; the net kernels with banks and, for K6, a grid of
+candidates at the kernel's state and weight offsets) in Philox mode, the
+way the kernels key their streams, and the results must equal the plain
+versions fed ``ops/philox.py``'s words. This checks the device code's arithmetic before it meets a card;
 the launch geometry is checked on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). Skips without a host C++ compiler.
 """
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import bots
 from montecarlo_tpu_torch.models import policy_net as tpn
 from montecarlo_tpu_torch.ops import _build
 from montecarlo_tpu_torch.ops import cuda_engine as ce
@@ -170,33 +172,50 @@ static void engine(const char* mode, const int* in, Out& out) {
   } else if (!strcmp(mode, "k5")) {
     int n_steps = in[0], hmax = in[1], sb = in[2], bb = in[3];
     T = in[4];
-    const float* w = as_floats(in + 5);
-    rows = in + 5 + MC_NET_WEIGHTS;
+    int n_banks = in[5];
+    unsigned long long bank_map =
+        (unsigned long long)(uint32_t)in[6] | (unsigned long long)in[7] << 32;
+    const float* w = as_floats(in + 8);
+    rows = in + 8 + (size_t)n_banks * MC_NET_WEIGHTS;
     const int* stash = rows + (size_t)F * T;
     res.resize((size_t)F * T);
     for (int t = 0; t < T; ++t) {
       MCTable<P, R> s;
       load_rows(s, rows, T, t);
-      mc_run_net_det(s, stash + t, T, n_steps, hmax, sb, bb, w);
+      mc_run_net_det(s, stash + t, T, n_steps, hmax, sb, bb, w, bank_map);
       store_rows(s, res, T, t);
     }
   } else if (!strcmp(mode, "k6")) {
+    // a population launch, grid (candidates, tables), on the packed state
+    // [C, n_blocks, F, 8, 128] at the kernel's offsets: the final state,
+    // then the count of net decisions
     uint32_t seed = in[0], fold = in[8], raise = in[9];
     int n_steps = in[1], defer = in[2], sb = in[3], bb = in[4], ss = in[5];
     int net_seats = in[6];
     bool reset = in[7];
     T = in[10];
-    const float* w = as_floats(in + 11);
-    rows = in + 11 + MC_NET_WEIGHTS;
-    res.resize((size_t)F * T);
-    for (int t = 0; t < T; ++t) {
-      MCTable<P, R> s;
-      load_rows(s, rows, T, t);
-      MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, 0u);
-      mc_run_net_eval(s, src, n_steps, defer, sb, bb, ss, net_seats, reset,
-                      fold, raise, w);
-      store_rows(s, res, T, t);
+    int C = in[11], n_banks = in[12];
+    unsigned long long bank_map = (unsigned long long)(uint32_t)in[13] |
+                                  (unsigned long long)in[14] << 32;
+    const float* weights = as_floats(in + 15);
+    const int* state = in + 15 + (size_t)C * n_banks * MC_NET_WEIGHTS;
+    res.assign(state, state + (size_t)C * T * F);
+    long long n_net = 0;
+    for (long long c = 0; c < C; ++c) {
+      int* cand = res.data() + mc_candidate_state<P, R>(c, T);
+      const float* w = weights + mc_candidate_weights(c, n_banks);
+      for (int t = 0; t < T; ++t) {
+        MCTable<P, R> s;
+        mc_load(s, cand, t);
+        MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, 0u);
+        n_net += mc_run_net_eval(s, src, n_steps, defer, sb, bb, ss,
+                                 net_seats, reset, fold, raise, w, bank_map);
+        mc_store(s, cand, t);
+      }
     }
+    out.insert(out.end(), res.begin(), res.end());
+    out.push_back(n_net);
+    return;
   } else {
     exit(2);
   }
@@ -376,25 +395,76 @@ def test_packed_key_device_code_equals_plain(harness):
     assert got.tolist() == torch.cat(want).tolist()
 
 
+ES3 = "data/policy_6max_es3.npz"
+
+
 @pytest.fixture(scope="module")
 def es3():
-    return cn.net_weights(tpn.load_params("data/policy_6max_es3.npz"), "cpu")
+    return cn.net_weights(tpn.load_params(ES3), "cpu")
 
 
-@pytest.mark.parametrize("rules,P", [("reference", 6), ("standard", 6),
-                                     ("standard", 2)])
-def test_net_det_device_code_equals_plain(harness, es3, rules, P):
+def _bank_map_ints(seat_to_bank, P, n_banks):
+    bank_map = cn._banks(seat_to_bank, P, n_banks)[1]
+    return [bank_map & 0xFFFFFFFF, bank_map >> 32]
+
+
+def _net_det_harness(harness, weights, seat_to_bank, rules, P):
     n_steps, hmax = 40, 16
     T = ce.TABLES_PER_BLOCK
     cfg = TableConfig(num_seats=P, rules=rules)
     stash = cn.deal_stash(5, T, P, hmax, "cpu")
     state = ce.pack_state(cfg, ce._stash_rows(stash)[0].T)
+    banks = weights.reshape(-1, cn.NUM_WEIGHTS)
     got = harness("k5", [P, ce.RULES.index(rules), n_steps, hmax, 5, 10, T,
-                         *_weights_as_ints(es3),
+                         len(banks),
+                         *_bank_map_ints(seat_to_bank, P, len(banks)),
+                         *_weights_as_ints(banks),
                          *_flat(ce._to_rows(state)),
                          *_flat(ce._stash_rows(stash))])
-    _check_rows(got, cn.run_net_det(state, stash, es3, P, n_steps, 5, 10,
-                                    rules), cfg)
+    _check_rows(got, cn.run_net_det(state, stash, weights, P, n_steps, 5, 10,
+                                    rules, seat_to_bank), cfg)
+
+
+@pytest.mark.parametrize("rules,P", [("reference", 6), ("standard", 6),
+                                     ("standard", 2)])
+def test_net_det_device_code_equals_plain(harness, es3, rules, P):
+    _net_det_harness(harness, es3, None, rules, P)
+
+
+@pytest.mark.parametrize("stb", [(0, 1, 1, 1, 1, 1), (1, 0, 2, 0, 2, 1)])
+def test_net_det_banked_device_code_equals_plain(harness, stb):
+    """The banked decision (mc_bank: seat -> bank, four bits a seat) on
+    distinct banks, so a wrong bank changes the play."""
+    panel = bots.panel()
+    nets = [panel["jam_tight"], panel["fof_call"], tpn.load_params(ES3)]
+    weights = cn.bank_weights(nets[:1 + max(stb)], "cpu")
+    _net_det_harness(harness, weights, stb, "standard", 6)
+
+
+def _net_eval_harness(harness, state, weights, rules, P, net_seats,
+                      reset_stacks, seat_to_bank=None):
+    """The device code of a K6 launch (every form) against the plain
+    version in Philox mode: the final state and the count of net
+    decisions."""
+    n_steps = 32
+    grid, w3 = cn._grid(state, weights)
+    C, nb = grid.shape[:2]
+    T = nb * ce.TABLES_PER_BLOCK
+    got = harness("k6", [P, ce.RULES.index(rules), 77, n_steps,
+                         ce._defer_for(n_steps), 5, 10, 100, net_seats,
+                         int(reset_stacks), ce.FOLD_P_BITS, ce.RAISE_P_BITS,
+                         T, C, w3.shape[1],
+                         *_bank_map_ints(seat_to_bank, P, w3.shape[1]),
+                         *_weights_as_ints(w3), *_flat(grid)])
+    decisions = torch.zeros(1, dtype=torch.int64)
+    want = cn._run_net_eval_plain_philox(77, state, weights, P, n_steps, 5,
+                                         10, 100, rules, net_seats,
+                                         reset_stacks, seat_to_bank,
+                                         decisions)
+    np.testing.assert_array_equal(got[:-1].astype(np.int32),
+                                  _flat(want))
+    assert got[-1] == int(decisions) > 0
+    return want
 
 
 @pytest.mark.parametrize("rules,P,net_seats,reset_stacks", [
@@ -405,18 +475,29 @@ def test_net_eval_device_code_equals_plain(harness, es3, rules, P, net_seats,
     """K6 in Philox mode. The host's libm logf and PyTorch's CPU log can
     differ in the last bit; at es3's logit gaps no Gumbel pick here lands
     within one ulp of a tie, so the states agree."""
-    n_steps = 32
     T = ce.TABLES_PER_BLOCK
     cfg = TableConfig(num_seats=P, rules=rules)
     state = cn.initial_packed_state(6, cfg, T, "cpu")
-    got = harness("k6", [P, ce.RULES.index(rules), 77, n_steps,
-                         ce._defer_for(n_steps), 5, 10, 100, net_seats,
-                         int(reset_stacks), ce.FOLD_P_BITS, ce.RAISE_P_BITS,
-                         T, *_weights_as_ints(es3),
-                         *_flat(ce._to_rows(state))])
-    _check_rows(got, cn.run_net_eval(77, state, es3, P, n_steps, 5, 10, 100,
-                                     rules, net_seats,
-                                     reset_stacks=reset_stacks), cfg)
+    want = _net_eval_harness(harness, state, es3, rules, P, net_seats,
+                             reset_stacks)
+    assert int(ce.unpack_field(want, cfg, "hand_ct").sum()) > 0
+
+
+@pytest.mark.parametrize("n_banks,stb", [(1, None), (2, (0, 1, 1, 1, 1, 1)),
+                                         (3, (2, 0, 1, 1, 0, 2))])
+def test_net_pop_device_code_equals_plain(harness, es3, n_banks, stb):
+    """B8 (and B7 within it): the candidate offsets of state and weights
+    (mc_candidate_state, mc_candidate_weights), the Philox keying by the
+    table within its candidate, and the banked decision."""
+    P, nb, C = 6, 1, 3
+    cfg = TableConfig(num_seats=P, rules="standard")
+    first = cn.initial_packed_state(8, cfg, nb * ce.TABLES_PER_BLOCK, "cpu")
+    state = first[None].expand(C, *first.shape).contiguous()
+    nets = [tpn.load_params(ES3), *bots.panel().values()]
+    weights = torch.stack([cn.bank_weights(nets[c:c + n_banks], "cpu")
+                           for c in range(C)])
+    _net_eval_harness(harness, state, weights, "standard", P, 0b100111,
+                      True, stb)
 
 
 def test_net_probe_device_code_equals_plain(harness, es3):

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import bots
 from montecarlo_tpu_torch.models import policy_net as tpn
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
@@ -227,3 +228,96 @@ def test_net_eval_kernel_equals_plain(cuda, es3, rules, P, net_seats,
     if rules == "standard":
         seat = sum(ce.unpack_field(k, cfg, "seat_delta", i) for i in range(P))
         assert bool((seat == 0).all())
+
+
+def _banks(cuda, names):
+    panel = bots.panel()
+    nets = {"es3": tpn.load_params("data/policy_6max_es3.npz"), **panel}
+    return cn.bank_weights([nets[n] for n in names], cuda)
+
+
+@pytest.mark.parametrize("rules", ce.RULES)
+def test_net_det_banked_kernel_equals_plain(cuda, rules):
+    P, n_steps, hmax = 6, 40, 16
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules=rules)
+    stash = cn.deal_stash(5, T, P, hmax, cuda)
+    state = ce.pack_state(cfg, ce._stash_rows(stash)[0].T)
+    weights = _banks(cuda, ["jam_tight", "fof_call", "es3"])
+    stb = (0, 1, 2, 1, 2, 1)
+    before = cn.LAUNCHES[f"net_det_banked_{rules}"]
+    k = cn.run_net_det(state, stash, weights, P, n_steps, 5, 10, rules, stb)
+    assert cn.LAUNCHES[f"net_det_banked_{rules}"] == before + 1
+    p = cn._run_net_det_plain(state, stash, weights, P, n_steps, 5, 10, rules,
+                              stb)
+    assert torch.equal(k, p)
+    assert int(ce.unpack_field(k, cfg, "hand_ct").sum()) > 0
+
+
+@pytest.mark.parametrize("rules,n_banks,stb", [
+    ("standard", 2, (0, 1, 1, 1, 1, 1)), ("reference", 3, (2, 0, 1, 1, 0, 2)),
+    ("standard", 9, (8, 7, 6, 5, 4, 3))])
+def test_net_league_kernel_equals_plain(cuda, rules, n_banks, stb):
+    """B7 on injected words and in Philox mode, with the decisions the
+    kernel counts; nine banks take 216,720 bytes of dynamic shared
+    memory (the opt-in above 48 KB)."""
+    P, n_steps = 6, 32
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules=rules)
+    state = cn.initial_packed_state(2, cfg, T, cuda)
+    names = ["es3", *bots.panel()][:n_banks]
+    weights = _banks(cuda, names)
+    g = torch.Generator(device=cuda).manual_seed(n_banks)
+    words = cq.random_words(g, cn.net_words_shape(T, P, n_steps), cuda)
+    before = cn.LAUNCHES[f"net_league_{rules}"]
+    k = cn.run_net_league(0, state, weights, P, n_steps, 5, 10, 100, rules,
+                          0b111011, stb, words=words)
+    assert cn.LAUNCHES[f"net_league_{rules}"] == before + 1
+    p = cn._run_net_eval_plain(state, words, weights, P, n_steps, 5, 10, 100,
+                               rules, 0b111011, True, stb)
+    assert torch.equal(k, p)
+    dk, dp = (torch.zeros(1, dtype=torch.int64, device=cuda) for _ in "kp")
+    k = cn.run_net_league(11, state, weights, P, n_steps, 5, 10, 100, rules,
+                          0b111011, stb, decisions=dk)
+    p = cn._run_net_eval_plain_philox(11, state, weights, P, n_steps, 5, 10,
+                                      100, rules, 0b111011, True, stb, dp)
+    assert torch.equal(k, p) and int(dk) == int(dp) > 0
+
+
+@pytest.mark.parametrize("n_banks", [1, 2])
+def test_net_pop_kernel_equals_plain_and_singles(cuda, n_banks):
+    """B8: the population launch against its plain version, and candidate
+    c against a single launch with c's banks (common random numbers)."""
+    P, n_steps, C = 6, 32, 5
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules="standard")
+    first = cn.initial_packed_state(4, cfg, T, cuda)
+    state = first[None].expand(C, *first.shape).contiguous()
+    es3 = tpn.load_params("data/policy_6max_es3.npz")
+    rng = np.random.default_rng(0)
+    cands = [tpn.params_from_numpy([np.asarray(x) + 0.05 * rng.standard_normal(
+        x.shape).astype(np.float32) for x in es3]) for _ in range(C)]
+    weights = cn.pop_weights(cands, cuda,
+                             bots.panel()["fof_raise"] if n_banks == 2
+                             else None)
+    stb = (0, 1, 1, 1, 1, 1) if n_banks == 2 else None
+    form = "pop" if n_banks == 1 else "league_pop"
+    before = cn.LAUNCHES[f"net_{form}_standard"]
+    k = cn.run_net_eval_pop(9, state, weights, P, n_steps, 5, 10, 100,
+                            "standard", 0b000011, stb)
+    assert cn.LAUNCHES[f"net_{form}_standard"] == before + 1
+    p = cn._run_net_eval_plain_philox(9, state, weights, P, n_steps, 5, 10,
+                                      100, "standard", 0b000011, True, stb)
+    assert torch.equal(k, p)
+    for c in range(C):
+        if n_banks == 1:
+            single = cn.run_net_eval(9, first, weights[c, 0], P, n_steps, 5,
+                                     10, 100, "standard", 0b000011)
+        else:
+            single = cn.run_net_league(9, first, weights[c], P, n_steps, 5,
+                                       10, 100, "standard", 0b000011, stb)
+        assert torch.equal(k[c], single)
+    means, _, hands = cn.pop_meters(k, cfg)
+    for c in range(C):
+        m, _, h = cn.seat_meters(k[c], cfg)
+        assert np.array_equal(m, means[c]) and h == hands[c]

@@ -182,7 +182,10 @@ def test_net_det_plain_matches_jax_kernel(bot):
 
 
 def _jax_net_eval(monkeypatch, first, words, jparams, rules, net_seats,
-                  reset_stacks):
+                  reset_stacks, w_refs=None, **banks):
+    """The JAX kernel body's composition on injected words: one net
+    ``jparams``, or wide banked weights ``w_refs`` with ``banks`` (the
+    ``banks=`` and ``seat_to_bank=`` of ``_net_action``)."""
     seq = iter([words[it, w].astype(np.uint32).reshape(ce.TILE)
                 for it in range(words.shape[0])
                 for w in range(words.shape[1])])
@@ -197,14 +200,15 @@ def _jax_net_eval(monkeypatch, first, words, jparams, rules, net_seats,
     packed = jpe.pack_state(JaxTableConfig(num_seats=P, rules=rules), first)
     layout, F = jpe._field_layout(P, rules)
     st = jpe._unpack(packed[0], layout)
-    w_refs = _jax_weights(jparams)
+    if w_refs is None:
+        w_refs = _jax_weights(jparams)
     for _ in range(words.shape[0]):
         for _ in range(ce.DEFER):
             rand = jpe._policy_prng(st, P)
             head, _, _ = jpe._head_info(st, P)
             seat = (st["button"] + head) % P
             use_net = ((jnp.full_like(seat, net_seats) >> seat) & 1) != 0
-            net = jpe._net_action(st, head, P, 5, 10, w_refs)
+            net = jpe._net_action(st, head, P, 5, 10, w_refs, **banks)
             st = jpe._step_nosettle(st, jnp.where(use_net, net, rand), P, 5,
                                     10, rules)
         st = jpe._settle_pass(st, jpe._sample_cards(jpe.TILE, 2 * P + 5),

@@ -19,6 +19,7 @@ from montecarlo_tpu.engine.state import TableConfig as JaxTableConfig
 from montecarlo_tpu.models import features as jfeatures
 from montecarlo_tpu.models import policy_net as jpolicy_net
 from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import bots, train_es
 from montecarlo_tpu_torch.models import features as tfeatures
 from montecarlo_tpu_torch.models import policy_net as tpolicy_net
 from montecarlo_tpu_torch.ops import cuda_engine as ce
@@ -43,15 +44,19 @@ MODULES = [
     "montecarlo_tpu_torch.ops.cuda_net",
     "montecarlo_tpu_torch.models.features",
     "montecarlo_tpu_torch.models.policy_net",
+    "montecarlo_tpu_torch.models.bots",
+    "montecarlo_tpu_torch.models.train_es",
     "montecarlo_tpu_torch.rollout.equity",
 ]
 # Runs the port's CPU path (equity, the engine under both rule sets, net
-# evaluation) in a fresh process, then lists what it loaded of JAX and of
-# the JAX package.
+# evaluation, an ES generation on the population form with a rule bot's
+# league) in a fresh process, then lists what it loaded of JAX and of the
+# JAX package.
 CPU_PATH = """
 import json, sys
 import torch
 from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import bots, train_es
 from montecarlo_tpu_torch.models.policy_net import load_params
 from montecarlo_tpu_torch.ops import cuda_engine as ce, cuda_net as cn
 from montecarlo_tpu_torch.rollout import equity as teq
@@ -61,10 +66,16 @@ assert r.n == 4096
 for rules in ("reference", "standard"):
     cfg = TableConfig(num_seats=6, rules=rules)
     assert ce.selfplay_perpetual_kernel(2, cfg, 1024, 32, device="cpu")[1] > 0
-means, errs, hands = cn.selfplay_net_eval_kernel(
-    2, TableConfig(num_seats=6, rules="standard"),
-    load_params("data/policy_6max_es3.npz"), 1, 1024, 32, device="cpu")
+std = TableConfig(num_seats=6, rules="standard")
+es3 = load_params("data/policy_6max_es3.npz")
+means, errs, hands = cn.selfplay_net_eval_kernel(2, std, es3, 1, 1024, 32,
+                                                 device="cpu")
 assert hands > 0 and means.shape == (6,)
+pool = train_es.kernel_pool_eval_pop_fn(
+    std, [None, bots.panel()["fof_raise"]], n_tables=1024, n_steps=16,
+    device="cpu")
+out = train_es.train_es(2, es3, eval_pop_fn=pool, generations=1, pop=1)
+assert out.hands_total > 0
 print(json.dumps(sorted(k for k in sys.modules if k == "jax"
                         or k.startswith(("jax.", "montecarlo_tpu."))
                         or k == "montecarlo_tpu")))
@@ -176,6 +187,15 @@ ENTRY_POINTS = {
     "selfplay_net_eval_kernel": lambda: cn.selfplay_net_eval_kernel(
         0, STD, tpolicy_net.load_params(ROOT / "data" /
                                         "policy_6max_es3.npz"), 1, 1024, 16),
+    "selfplay_net_league": lambda: cn.selfplay_net_league(
+        0, STD, [bots.action_bot(1)] * 2, (0, 1) * 3, 1024, 16),
+    "selfplay_net_eval_pop": lambda: cn.selfplay_net_eval_pop(
+        0, STD, [bots.action_bot(1)] * 2, 1, 1024, 16),
+    "selfplay_net_league_pop": lambda: cn.selfplay_net_league_pop(
+        0, STD, [bots.action_bot(1)] * 2, bots.action_bot(3), 1024, 16),
+    "train_es": lambda: train_es.train_es(
+        0, bots.action_bot(1), generations=1, pop=1,
+        eval_pop_fn=train_es.kernel_eval_pop_fn(STD, 1, 1024, 16)),
     "initial_packed_state": lambda: cn.initial_packed_state(0, STD, 1024),
     "deal_stash": lambda: cn.deal_stash(0, 1024, 6, 2),
 }
