@@ -27,6 +27,13 @@ Phases (any failure raises and exits non-zero; no phase is caught):
       and policy_6max_200 at alternate seats, 2^16 tables x 256 slots) and
       the deterministic net kernel with two banks (K5: jam_tight at seat 0,
       fof_call elsewhere);
+   d. tournaments and multiway equity: multiway equity (B3) of
+      ``scripts/validate_tpu.py``'s AA/KK/76o preflop at K1's size and of
+      three hands on a fixed flop at the flop's size; K3 under tournament
+      rules on the main path's injected stream with 20-chip stacks, so that
+      seats bust, the blinds skip them and tables freeze; and 2^20 6-max
+      tournaments run to completion (K4 relaunched in launches of 1024
+      slots, ``validate_tpu.py``'s);
 2. results: equity within 4 sigma of exact enumeration, the sweep within
    5 sigma of ``data/sweep169.json``, reference self-play with no overflow
    and slots/hand within 2% of 33.1; standard self-play with no overflow
@@ -39,18 +46,25 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    banks equal to the single net, bank routing (reference rules: a call
    bot beats a pot-raise bot at seat 0 and loses with the banks swapped),
    and two generations of ``train_es`` equal through the population and
-   the per-candidate evaluators (a three-generation run is logged);
+   the per-candidate evaluators (a three-generation run is logged); the
+   multiway shares summing to exactly lcm(1..N) x rollouts and each
+   equity within 4 sigma of exact enumeration; tournament K3 with busted
+   seats and frozen tables; every tournament complete, winner takes all,
+   chips conserved, placements total, no overflow;
 3. agreement, tolerance 0: every kernel call of phase 1 against its plain
    PyTorch version on the card, on the same inputs at the same size (the
    plain versions compute the kernels' Philox words, ``ops/philox.py``),
    timed once with CUDA events; K6 and B7 launch by launch; B8 on four of
    its 32 candidates (the rest equal single K6 launches, phase 2); the
    net's float path (features, logits, Gumbel scores) bit for bit through
-   the probe kernel; then K1, K2 and K4 on injected words (their ``words``
-   option);
+   the probe kernel; tournament K3; the first and last K4 launches of the
+   completion run, which is replayed launch by launch; B3's flop call, and
+   B3 preflop on 2^26 rollouts; then K1, K2, K4 and B3 on injected words
+   (their ``words`` option);
 4. timing: each main-path kernel call again on the card (CUDA events),
    ``net_eval_hands_per_sec`` and ``train_hands_per_sec`` as ``bench.py``
-   computes them.
+   computes them, ``multiway_rollouts_per_sec`` and
+   ``tournaments_per_sec`` (port only).
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -59,6 +73,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -109,6 +124,14 @@ LEAGUE_SLOTS = 256
 T_CHECK = 4096
 CHECK_SLOTS = 256
 CHECK_SEED = 314
+# Path d: tournaments (K3's 20-chip stacks; the completion run's launch
+# length, scripts/validate_tpu.py:210) and multiway equity (the preflop
+# rollouts held against the plain version; the TPU-era agreement bound of
+# the XLA path, validate_tpu.py:501, logged as history).
+TOUR_STACK = 20
+TOUR_LAUNCH = 1024
+N_MW_PLAIN = 1 << 26
+TPU_MW_BOUND = 0.004
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
 # Lower counts of the operations a kernel's work needs, for bound_ms,
@@ -177,6 +200,7 @@ def main() -> int:
     from montecarlo_tpu_torch.ops import cuda_equity as cq
     from montecarlo_tpu_torch.ops import cuda_net as cn
     from montecarlo_tpu_torch.ops import philox
+    from montecarlo_tpu_torch.ops.evaluator import eval_masks_cmp_impl
     from montecarlo_tpu_torch.rollout import equity as teq
 
     dev = cuda_device()
@@ -212,6 +236,29 @@ def main() -> int:
         """A population state [C, n_blocks, ...] as one state of C x T
         tables."""
         return pop.reshape(-1, *pop.shape[2:])
+
+    def exact_multiway(hands, board):
+        """Exact N-way equity: every board completion, each pot split
+        fractionally among its winners, the plain evaluator on the card.
+        Returns (equity float64 [N], boards)."""
+        dead = sorted([c for h in hands for c in h] + list(board))
+        live = teq.complement(dead).numpy()
+        slots = np.fromiter(itertools.chain.from_iterable(
+            itertools.combinations(range(live.shape[0]), 5 - len(board))),
+            dtype=np.int32).reshape(-1, 5 - len(board))
+        boards = np.concatenate([np.tile(np.asarray(board, np.int32),
+                                         (len(slots), 1)), live[slots]],
+                                axis=1)
+        hm = cq._multiway_masks(hands, (), dev)[1]
+        total = torch.zeros(len(hands), dtype=torch.float64, device=dev)
+        for i in range(0, len(boards), PLAIN_CHUNK):
+            bm = cq.suit_masks_from_cards(
+                torch.from_numpy(boards[i:i + PLAIN_CHUNK]).to(dev))
+            values = torch.stack([eval_masks_cmp_impl(
+                *[b | m for b, m in zip(bm, row)]) for row in hm])
+            win = (values == values.amax(0)).double()
+            total += (win / win.sum(0)).sum(1)
+        return (total / len(boards)).cpu().numpy(), len(boards)
 
     def clean_and_zero_sum(state, what, tables):
         check(int(ce.unpack_field(state, std, "overflow").sum()) == 0,
@@ -283,9 +330,23 @@ def main() -> int:
                                      128).contiguous()
     st_full = ce.pack_state(cfg, deal_full[:, 0])
     st_full_std = ce.pack_state(std, deal_full[:, 0])
+    tour_short = TableConfig(num_seats=6, rules="tournament",
+                             starting_stack=TOUR_STACK)
+    tour = TableConfig(num_seats=6, rules="tournament")
+    st_full_tour = ce.pack_state(tour_short, deal_full[:, 0])
     del u, raises, deal_full
     exact_pre = teq.equity_exact(AKS, QQ, device=dev)
     exact_flop = teq.equity_exact(AKS, QQ, FLOP, device=dev)
+    # path d's hands: validate_tpu.py's AA/KK/76o preflop, and AhKh (nut
+    # flush draw), QsQd (overpair) and JcTc (open-ended) on 9h 8s 2h
+    mk = teq.make_card
+    MW_TRIO = [[mk(0, 14), mk(1, 14)], [mk(2, 13), mk(3, 13)],
+               [mk(0, 7), mk(1, 6)]]
+    MW_FLOP_HANDS = [[mk(0, 14), mk(0, 13)], [mk(2, 12), mk(1, 12)],
+                     [mk(3, 11), mk(3, 10)]]
+    MW_FLOP = [mk(0, 9), mk(2, 8), mk(0, 2)]
+    exact_mw = {"preflop": exact_multiway(MW_TRIO, ()),
+                "flop": exact_multiway(MW_FLOP_HANDS, MW_FLOP)}
     # the net path's inputs: K5's deal stash and first state, K6's first
     # state (built once, outside the evaluation, as bench.py does)
     es3 = tpn.load_params(ROOT / "data" / "policy_6max_es3.npz")
@@ -377,6 +438,30 @@ def main() -> int:
         f"{ {k: launches[k] for k in ('K5b', 'B7', 'B8', 'B8l')} }")
     check(all(launches[k] > 0 for k in ("K5b", "B7", "B8", "B8l")),
           "every kernel of the ES path launched")
+
+    # ---- 1d. main path: tournaments and multiway equity -----------------
+    reset_counts()
+    t0 = time.perf_counter()
+    mw = {"preflop": teq.equity_multiway(SEED + 3, MW_TRIO, N_EQUITY,
+                                         device=dev),
+          "flop": teq.equity_multiway(SEED + 4, MW_FLOP_HANDS, N_FLOP,
+                                      MW_FLOP, device=dev)}
+    det_tour = ce.run_perpetual_det(st_full_tour, acts_full, cards_full, P,
+                                    DET_STEPS, SB, BB, rules="tournament")
+    t_tour = time.perf_counter()
+    tour_state, tour_steps = ce.tournaments_to_completion(
+        SEED, tour, T_FULL, steps_per_launch=TOUR_LAUNCH, device=dev)
+    sync()
+    tour_s = time.perf_counter() - t_tour
+    tour_path_s = time.perf_counter() - t0
+    launches.update({"B3": cq.LAUNCHES["multiway"],
+                     "K3t": ce.LAUNCHES["engine_det_tournament"],
+                     "K4t": ce.LAUNCHES["engine_prng_tournament"]})
+    log(f"main path (tournaments, multiway equity): {tour_path_s:.2f} s "
+        f"(the completion run {tour_s:.2f} s), launches "
+        f"{ {k: launches[k] for k in ('B3', 'K3t', 'K4t')} }")
+    check(all(launches[k] > 0 for k in ("B3", "K3t", "K4t")),
+          "every kernel of the tournament and multiway path launched")
     phase_done("1 main paths")
 
     # ---- 2. results -----------------------------------------------------
@@ -573,6 +658,65 @@ def main() -> int:
         f"{T_TRAIN} tables x {TRAIN_SLOTS} slots: fitness "
         f"{np.array2string(r3.fitness_history, precision=4)}, "
         f"{r3.hands_total} hands, {time.perf_counter() - t0:.2f} s")
+
+    # path d: multiway shares are exact integers (recovered from the
+    # equities: shares < 2^53), each equity within 4 sigma of enumeration
+    for case, hands in (("preflop", MW_TRIO), ("flop", MW_FLOP_HANDS)):
+        eq, n = mw[case]
+        exact, n_boards = exact_mw[case]
+        scale = cq.multiway_scale(len(hands))
+        shares = np.rint(eq * scale * n).astype(np.int64)
+        z = (eq - exact) / np.sqrt(exact * (1 - exact) / n)
+        log(f"B3 {case}: {np.array2string(eq, precision=6)} over {n} "
+            f"rollouts, exact {np.array2string(exact, precision=6)} "
+            f"({n_boards} boards), z {np.array2string(z, precision=2)}; "
+            f"max |eq - exact| {np.abs(eq - exact).max():.2e} (TPU-era "
+            f"bound on the XLA path, history only: {TPU_MW_BOUND})")
+        check(eq.shape == (len(hands),) and np.all(np.isfinite(eq)),
+              f"B3 {case}: shape and finiteness")
+        check(int(shares.sum()) == scale * n,
+              f"B3 {case}: the shares sum to lcm(1..N) x rollouts")
+        check(np.all(np.abs(z) < 4), f"B3 {case}: every equity within 4 "
+              f"sigma of exact enumeration")
+
+    # tournament K3 on the injected stream: seats bust, the blinds skip
+    # them, tables freeze; the stream folds free, so chips may vanish
+    # (ROADMAP.md section C): logged, not gated
+    busted = field_sum(det_tour, tour_short, "bust_at", P) > -P
+    frozen3 = ((ce.unpack_field(det_tour, tour_short, "order") == 0)
+               & (ce.unpack_field(det_tour, tour_short, "wait") == 0))
+    det_tour_hands = int(ce.unpack_field(det_tour, tour_short,
+                                         "hand_ct").sum())
+    chips = field_sum(det_tour, tour_short, "delta_sum", P)
+    log(f"K3 tournament ({TOUR_STACK}-chip stacks): {T_FULL} tables x "
+        f"{DET_STEPS} steps, {det_tour_hands} hands, {int(busted.sum())} "
+        f"tables with a busted seat, {int(frozen3.sum())} frozen, "
+        f"{int((chips != 0).sum())} that lost dead money, overflow "
+        f"{int(ce.unpack_field(det_tour, tour_short, 'overflow').sum())}")
+    check(int(busted.sum()) > 0 and int(frozen3.sum()) > 0,
+          "K3 tournament: seats busted and tables froze")
+
+    # tournaments to completion (validate_tpu.py:212-226)
+    places, tour_frozen = ce.tournament_results(tour_state, tour)
+    stacks = torch.stack([ce.unpack_field(tour_state, tour, "stacks", k)
+                          for k in range(P)])
+    tour_hands = ce.unpack_field(tour_state, tour, "hand_ct")
+    check(int(ce.unpack_field(tour_state, tour, "overflow").sum()) == 0,
+          "tournaments: no overflow")
+    check(bool(tour_frozen.all()), "tournaments: every table frozen")
+    check(bool((stacks.amax(0) == P * SS).all())
+          and bool((stacks.sum(0) == P * SS).all()),
+          "tournaments: the winner holds every chip, chips conserved")
+    check(places.shape == (T_FULL, P)
+          and bool((np.sort(places, axis=1) == np.arange(1, P + 1)).all()),
+          "tournaments: placements are a permutation on every table")
+    wins = np.bincount(np.argmin(places, axis=1), minlength=P) / T_FULL
+    log(f"tournaments: {T_FULL}/{T_FULL} complete in {tour_steps} slots "
+        f"({tour_steps // TOUR_LAUNCH} launches), "
+        f"{float(tour_hands.double().mean()):.2f} hands a tournament, "
+        f"max {int(tour_hands.max())}; winner takes all, chips conserved, "
+        f"total placements, overflow 0; seat win shares "
+        f"{np.array2string(wins, precision=4)} (1/6 = {1 / 6:.4f})")
     phase_done("2 results")
 
     # ---- 3. agreement: each kernel call against its plain version -------
@@ -715,7 +859,62 @@ def main() -> int:
               f"{T_TRAIN} tables x {TRAIN_SLOTS} slots", k[idx], p)
     del p
 
+    # path d: tournament K3; the completion run replayed launch by launch
+    # from its first state (the main path's launches), its first and last
+    # launch against the plain version on the same input state; B3's flop
+    # call at full size (through the wrapper's formula), and preflop on
+    # N_MW_PLAIN rollouts (its first rollouts: a rollout's words depend on
+    # its index alone)
+    p, plain_ms["K3t"] = timed(lambda: ce._run_det_plain(
+        st_full_tour, acts_full, cards_full, P, DET_STEPS, SB, BB,
+        "tournament"))
+    agree("K3t", f"tournament rules, {TOUR_STACK}-chip stacks, {T_FULL} "
+          f"tables x {DET_STEPS} steps", det_tour, p)
+    del p
+    n_tour = tour_steps // TOUR_LAUNCH
+    st_tour0 = ce.pack_state(tour, ce.first_deal(SEED, T_FULL, P, dev))
+    state = st_tour0
+    for i in range(n_tour):
+        seed = (SEED + i * TOUR_LAUNCH * 7919) & 0x7FFFFFFF
+        k = ce.run_perpetual_prng(seed, state, P, TOUR_LAUNCH, SB, BB,
+                                  rules="tournament")
+        if i in (0, n_tour - 1):
+            p, ms = timed(lambda: ce._run_prng_plain_philox(
+                seed, state, P, TOUR_LAUNCH, SB, BB, "tournament"))
+            plain_ms.setdefault("K4t", ms)
+            agree("K4t", f"completion launch {i + 1} of {n_tour}, {T_FULL} "
+                  f"tables x {TOUR_LAUNCH} slots", k, p)
+            del p
+        if i == 0:
+            k4t_first = k
+        if i == n_tour - 1:
+            tour_last = (seed, state)
+        state = k
+    check(torch.equal(state, tour_state),
+          "K4t: the launches replayed give the main path's final state")
+    del state, k
+    mw_masks = {"preflop": cq._multiway_masks(MW_TRIO, (), dev),
+                "flop": cq._multiway_masks(MW_FLOP_HANDS, MW_FLOP, dev)}
+    dead, hm = mw_masks["flop"]
+    p = cq._multiway_shares_plain_philox(SEED + 4, dead.tolist(),
+                                         hm.tolist(), N_FLOP, dev,
+                                         chunk=PLAIN_CHUNK)
+    agree("B3", f"main path flop, {N_FLOP} rollouts", mw["flop"][0],
+          p.cpu().numpy() / (cq.multiway_scale(3) * N_FLOP))
+    dead, hm = mw_masks["preflop"]
+    p, plain_ms["B3"] = timed(lambda: cq._multiway_shares_plain_philox(
+        SEED + 3, dead.tolist(), hm.tolist(), N_MW_PLAIN, dev,
+        chunk=PLAIN_CHUNK))
+    agree("B3", f"preflop, the main path's first {N_MW_PLAIN} rollouts",
+          cq.multiway_shares(SEED + 3, dead, hm, N_MW_PLAIN), p)
+    del p
+
     # the words option: injected words instead of Philox
+    dead, hm = mw_masks["preflop"]
+    words = cq.random_words(g, (5, PLAIN_CHUNK), dev)
+    agree("B3", f"injected words, {PLAIN_CHUNK} rollouts",
+          cq.multiway_shares(0, dead, hm, PLAIN_CHUNK, words=words),
+          cq._multiway_shares_plain(words, dead.tolist(), hm.tolist()))
     dead, hm, vm = pre
     words = cq.random_words(g, (5, PLAIN_CHUNK), dev)
     agree("K1", f"injected words, {PLAIN_CHUNK} rollouts",
@@ -765,7 +964,19 @@ def main() -> int:
         "B8l": cuda_ms(lambda: cn.run_net_eval_pop(
             TRAIN_SEED, pop0, w8l, P, TRAIN_SLOTS, SB, BB, SS, "standard",
             all_seats, seat0)),
+        "B3": cuda_ms(lambda: cq.multiway_shares(
+            SEED + 3, *mw_masks["preflop"], N_EQUITY)),
+        "K3t": cuda_ms(lambda: ce.run_perpetual_det(
+            st_full_tour, acts_full, cards_full, P, DET_STEPS, SB, BB,
+            rules="tournament")),
+        "K4t": cuda_ms(lambda: ce.run_perpetual_prng(
+            SEED, st_tour0, P, TOUR_LAUNCH, SB, BB, rules="tournament")),
     }
+    k4t_last_ms = cuda_ms(lambda: ce.run_perpetual_prng(
+        tour_last[0], tour_last[1], P, TOUR_LAUNCH, SB, BB,
+        rules="tournament"))
+    log(f"K4t: the completion run's last launch (most tables frozen) "
+        f"{k4t_last_ms:.3f} ms against the first's {times['K4t']:.3f} ms")
     t0 = time.perf_counter()
     cq.equity_sweep_kernel(SEED + 5, heroes, N_SWEEP, dev)
     sweep_warm_s = time.perf_counter() - t0
@@ -861,10 +1072,30 @@ def main() -> int:
                      + T_TRAIN * blocks * OPS["philox_block"]
                      + hands * P * OPS["hand_key"] + dec * OPS["features"],
                      dec * OPS["mlp_f32"])
+    # path d. B3: per rollout N hand keys and the Philox blocks of its
+    # 5 - K words; K3t as K3; K4t: the timed first launch of the
+    # completion run, with the hands it completed
+    work["B3"] = (N_EQUITY, "rollouts", 0,
+                  N_EQUITY * (len(MW_TRIO) * OPS["hand_key"]
+                              + 2 * OPS["philox_block"]), 0)
+    work["K3t"] = (T_FULL * DET_STEPS, "table-steps",
+                   2 * st_full_tour.numel() * 4 + acts_full.numel() * 4
+                   + cards_full.numel() * 4,
+                   T_FULL * DET_STEPS * OPS["step"]
+                   + det_tour_hands * P * OPS["hand_key"], 0)
+    k4t_hands = int(ce.unpack_field(k4t_first, tour, "hand_ct").sum())
+    blocks_t = -(-TOUR_LAUNCH // ce.DEFER
+                 * ce.prng_words_shape(1, P, TOUR_LAUNCH)[1] // 4)
+    work["K4t"] = (T_FULL * TOUR_LAUNCH, "table-slots",
+                   2 * st_tour0.numel() * 4,
+                   k4t_hands * OPS["step"]
+                   + T_FULL * blocks_t * OPS["philox_block"]
+                   + k4t_hands * P * OPS["hand_key"], 0)
     # the plain versions' work where it is not the kernel call's: B8's on
-    # four candidates
+    # four candidates, B3's preflop on N_MW_PLAIN rollouts
     plain_work = {k: len(PLAIN_CANDIDATES) * T_TRAIN * TRAIN_SLOTS
                   for k in ("B8", "B8l")}
+    plain_work["B3"] = N_MW_PLAIN
     log(f"net decisions counted by the kernels: K6 {k6_decisions}, B7 "
         f"{b7_dec}, B8 {int(decisions['B8'])}, B8 two banks "
         f"{int(decisions['B8l'])}")
@@ -890,6 +1121,13 @@ def main() -> int:
         "train_pop": TRAIN_POP,
         "train_seconds": train_best,
         "train_hands": train_hands,
+        # port only: B3 preflop, 3 hands, one launch of 2^30 rollouts; 2^20
+        # 6-max tournaments from 100-chip stacks run to completion, host
+        # seconds of tournaments_to_completion (first deal included)
+        "multiway_rollouts_per_sec": N_EQUITY / (times["B3"] / 1e3),
+        "tournaments_per_sec": T_FULL / tour_s,
+        "tournament_seconds": tour_s,
+        "tournament_slots": tour_steps,
     }
     log(json.dumps({"card": smi, **rates}))
     phase_done("4 timing")
@@ -919,6 +1157,12 @@ def main() -> int:
          engine + "1470"),
         ("B8l", "B8 net_eval_pop league (C = 32, B = 2) standard",
          src + "net.cu", engine + "1470"),
+        ("K3t", "K3 engine_det tournament", src + "engine.cu",
+         engine + "716"),
+        ("K4t", "K4 engine_prng tournament (completion run, first launch)",
+         src + "engine.cu", engine + "716"),
+        ("B3", "B3 equity_multiway (N = 3, preflop)", src + "equity.cu",
+         "montecarlo_tpu/ops/pallas_equity.py:268"),
     ]
     kernels = [{
         "name": name, "route": "cuda", "source": source,

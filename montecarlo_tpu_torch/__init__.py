@@ -8,11 +8,12 @@ reader find the counterpart:
                           of the framework-free JAX-package modules; a test
                           holds every public name equal);
 - ``ops/evaluator.py``    the bitmask 7-card evaluator on int32 tensors;
-- ``ops/cuda_equity.py``  equity rollouts and the 169-hand sweep
-                          (kernels in ``csrc/equity.cu``);
+- ``ops/cuda_equity.py``  equity rollouts, multiway equity and the
+                          169-hand sweep (kernels in ``csrc/equity.cu``);
 - ``ops/cuda_engine.py``  the whole-step betting engine over the packed
-                          per-table state, reference and standard rules
-                          (kernels in ``csrc/engine.cu``);
+                          per-table state, reference, standard and
+                          tournament rules, and tournaments run to
+                          completion (kernels in ``csrc/engine.cu``);
 - ``ops/cuda_net.py``     policy-net evaluation inside the engine
                           (kernels in ``csrc/net.cu``);
 - ``models/features.py``, ``models/policy_net.py``  the 24 decision

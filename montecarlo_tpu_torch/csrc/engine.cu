@@ -6,9 +6,9 @@
 // stash. K4 `mc_engine_prng_kernel` replaces `_make_kernel(mode="prng")`
 // via run_perpetual_prng: the random policy, `defer` betting slots per
 // settle pass and an in-kernel deal, on Philox words or injected words.
-// Both are instantiated per rule set (reference, standard) for the one seat
-// count MC_SEATS of the library being built, as the TPU kernels are
-// compiled per static configuration.
+// Both are instantiated per rule set (reference, standard, tournament) for
+// the one seat count MC_SEATS of the library being built, as the TPU
+// kernels are compiled per static configuration.
 //
 // Layout: the packed state [n_blocks, F, 8, 128] int32 of the JAX engine,
 // 1024 tables per block. One thread runs one table: it reads the table's F
@@ -60,9 +60,9 @@ __global__ void __launch_bounds__(MC_ENGINE_THREADS)
   mc_store(s, state, t);
 }
 
-// In-place on `state`. rules: 0 reference, 1 standard. Returns
-// cudaError_t (cudaErrorInvalidValue for a seat count other than the
-// library's MC_SEATS or another rule set).
+// In-place on `state`. rules: 0 reference, 1 standard, 2 tournament.
+// Returns cudaError_t (cudaErrorInvalidValue for a seat count other than
+// the library's MC_SEATS or another rule set).
 extern "C" int mc_engine_det(int* state, const int* actions,
                              const int* cards, int n_blocks, int P,
                              int rules, int n_steps, int hmax, int sb, int bb,
@@ -75,7 +75,7 @@ extern "C" int mc_engine_det(int* state, const int* actions,
     mc_engine_det_kernel<N, R><<<grid, MC_ENGINE_THREADS, 0, st>>>(       \
         state, actions, cards, n_tables, n_steps, hmax, sb, bb);          \
     break;
-  MC_DISPATCH(MC_CASE)
+  MC_ENGINE_DISPATCH(MC_CASE)
 #undef MC_CASE
   return (int)cudaGetLastError();
 }
@@ -94,7 +94,7 @@ extern "C" int mc_engine_prng(int* state, int seed, const int* words,
         state, (uint32_t)seed, words, n_tables, n_steps, defer, sb, bb,   \
         (uint32_t)fold_bits, (uint32_t)raise_bits);                       \
     break;
-  MC_DISPATCH(MC_CASE)
+  MC_ENGINE_DISPATCH(MC_CASE)
 #undef MC_CASE
   return (int)cudaGetLastError();
 }

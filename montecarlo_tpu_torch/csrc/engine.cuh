@@ -10,9 +10,12 @@
 // mc_floordiv); int32 products wrap as they do in jnp.
 //
 // The rule set is a template parameter R, as it is static in the JAX
-// engine: MC_REFERENCE (the reference's accounting quirks) or MC_STANDARD
+// engine: MC_REFERENCE (the reference's accounting quirks), MC_STANDARD
 // (stack-capped payments, showdown-live all-ins, contributor pots with odd
-// chips to the first winner, capped blinds, chained street transitions).
+// chips to the first winner, capped blinds, chained street transitions) or
+// MC_TOURNAMENT (standard betting and payout; busted seats leave the deal,
+// the button and blinds skip them, each seat's first bust is recorded, and
+// a table with one player holding chips freezes).
 #pragma once
 
 #include "evaluator.cuh"
@@ -20,6 +23,7 @@
 
 #define MC_REFERENCE 0
 #define MC_STANDARD 1
+#define MC_TOURNAMENT 2
 #define MC_MAX_RAISE 20
 #define MC_MAX_RAISES_PER_STREET 2
 #define MC_TABLES_PER_BLOCK 1024
@@ -30,15 +34,23 @@ MC_HD constexpr int mc_layers() {
   return R == MC_REFERENCE ? 6 : 10;
 }
 
-// The rows only one rule set keeps, after pot_set: the reference's
-// n-inflation counter per pot row, or the standard all-in seat mask.
-template <int L, int R>
-struct MCRuleRows {
+// The rows only some rule sets keep, after pot_set: the reference's
+// n-inflation counter per pot row; the all-in seat mask of the standard
+// and tournament rules; the tournament's per-seat first-bust hand index.
+template <int P, int L, int R>
+struct MCRuleRows;
+template <int P, int L>
+struct MCRuleRows<P, L, MC_REFERENCE> {
   int pot_n[4 * L];
 };
-template <int L>
-struct MCRuleRows<L, MC_STANDARD> {
+template <int P, int L>
+struct MCRuleRows<P, L, MC_STANDARD> {
   int all_in;
+};
+template <int P, int L>
+struct MCRuleRows<P, L, MC_TOURNAMENT> {
+  int all_in;
+  int bust_at[P];
 };
 
 // The packed per-table state: field order and sizes of
@@ -52,20 +64,24 @@ struct MCTable {
       seat_delta[P];
   int board[5], lvl[L], ln[L];
   int pot_amt[4 * L], pot_set[4 * L];
-  MCRuleRows<L, R> rr;
+  MCRuleRows<P, L, R> rr;
 };
 
 template <int P, int R>
 MC_HD constexpr int mc_fields() {
   return 12 + 7 * P + 5 + 10 * mc_layers<R>() +
-         (R == MC_REFERENCE ? 4 * mc_layers<R>() : 1);
+         (R == MC_REFERENCE ? 4 * mc_layers<R>() : 1) +
+         (R == MC_TOURNAMENT ? P : 0);
 }
 static_assert(sizeof(MCTable<6, MC_REFERENCE>) ==
                   4 * mc_fields<6, MC_REFERENCE>(), "layout");
 static_assert(sizeof(MCTable<6, MC_STANDARD>) ==
                   4 * mc_fields<6, MC_STANDARD>(), "layout");
+static_assert(sizeof(MCTable<6, MC_TOURNAMENT>) ==
+                  4 * mc_fields<6, MC_TOURNAMENT>(), "layout");
 static_assert(mc_fields<6, MC_REFERENCE>() == 143, "F, P=6, reference");
 static_assert(mc_fields<6, MC_STANDARD>() == 160, "F, P=6, standard");
+static_assert(mc_fields<6, MC_TOURNAMENT>() == 166, "F, P=6, tournament");
 
 // Table t's rows of the packed state [n_blocks, F, 8, 128] into / out of
 // its struct (row f of table t at block * F * 1024 + f * 1024 + lane).
@@ -274,14 +290,17 @@ MC_HD void mc_step_nosettle(MCTable<P, R>& s, int raw) {
 }
 
 // Settlement and next hand for a waiting table (_settle_pass): showdown
-// payout per pot row, delta meters, players-list rotation by one, blinds,
-// and the deal `cards` [2P + 5]. With `reset_stacks` every hand starts
-// from `ss` chips a seat.
+// payout per pot row, delta meters, players-list rotation (by one; in a
+// tournament, to the next position holding chips), blinds, and the deal
+// `cards` [2P + 5]. With `reset_stacks` every hand starts from `ss` chips
+// a seat. A tournament table left with one player holding chips does not
+// redeal: it keeps its settled stacks and hand, and freezes.
 template <int P, int R>
 MC_HD void mc_settle_pass(MCTable<P, R>& s, const int* cards, int sb, int bb,
                           int ss = 0, bool reset_stacks = false) {
   constexpr int L = MCTable<P, R>::L;
   constexpr bool REF = R == MC_REFERENCE;
+  constexpr bool TOUR = R == MC_TOURNAMENT;
   constexpr int full = (1 << P) - 1;
   if (!s.wait) return;
   uint32_t bm[4] = {0u, 0u, 0u, 0u};
@@ -323,18 +342,52 @@ MC_HD void mc_settle_pass(MCTable<P, R>& s, const int* cards, int sb, int bb,
     delta[p] = mc_sub(s.stacks[p], s.hand_start[p]);
     s.delta_sum[p] = mc_add(s.delta_sum[p], delta[p]);
   }
-  s.hand_ct += 1;
-  // seat view of the positional deltas: roll by the button
-  if (s.button >= 0 && s.button < P)
+  // seat view of the positional deltas (and, in a tournament, of the
+  // settled stacks): roll by the button; 0 for a button out of range
+  const bool button_ok = s.button >= 0 && s.button < P;
+  if (button_ok)
     for (int i = 0; i < P; ++i)
       s.seat_delta[i] =
           mc_add(s.seat_delta[i], delta[mc_floormod(i - s.button, P)]);
+  int shift = 1;  // the players list rotates to the next alive position
+  bool redeal = true;
+  if constexpr (TOUR) {
+    // each seat's first bust: the 0-based index of the hand just settled
+    for (int i = 0; i < P; ++i) {
+      const int seat_stack =
+          button_ok ? s.stacks[mc_floormod(i - s.button, P)] : 0;
+      if (seat_stack <= 0 && s.rr.bust_at[i] < 0)
+        s.rr.bust_at[i] = s.hand_ct;
+    }
+    int n_alive = 0;
+    shift = P;
+    for (int p = 0; p < P; ++p)
+      if (s.stacks[p] > 0) {
+        ++n_alive;
+        if (p >= 1) shift = mc_min(shift, p);
+      }
+    shift = mc_min(mc_max(shift, 1), P - 1);
+    redeal = n_alive > 1;
+  }
+  s.hand_ct += 1;
+  for (int row = 0; row < 4 * L; ++row) {
+    s.pot_amt[row] = s.pot_set[row] = 0;
+    if constexpr (REF) s.rr.pot_n[row] = 0;
+  }
+  s.wait = 0;
+  if (!redeal) {
+    // a tournament won: the table freezes as settled, its play order
+    // empty, so every later step and settle pass is a no-op
+    s.to_act = s.order = 0;
+    return;
+  }
 
-  // next hand: rotate the players list by one, post blinds, deal
+  // next hand: rotate the players list, post blinds, deal
   int rot[P];
-  for (int p = 0; p < P; ++p) rot[p] = reset_stacks ? ss : s.stacks[(p + 1) % P];
+  for (int p = 0; p < P; ++p)
+    rot[p] = reset_stacks ? ss : s.stacks[(p + shift) % P];
   for (int j = 0; j < L; ++j) s.lvl[j] = s.ln[j] = 0;
-  int to_act = full;
+  int in_hand = full, to_act = full, bb_pos = 1;
   if constexpr (REF) {
     for (int p = 0; p < P; ++p) {
       int blind = p == 0 ? sb : (p == 1 ? bb : 0);
@@ -348,21 +401,35 @@ MC_HD void mc_settle_pass(MCTable<P, R>& s, const int* cards, int sb, int bb,
       s.ln[1] = 1;
     }
   } else {
+    if constexpr (TOUR) {
+      // dead seats leave the deal; the big blind is the first alive
+      // position >= 1, and action starts after it
+      in_hand = 0;
+      bb_pos = P;
+      for (int p = 0; p < P; ++p)
+        if (rot[p] > 0) {
+          in_hand |= 1 << p;
+          if (p >= 1) bb_pos = mc_min(bb_pos, p);
+        }
+      bb_pos = mc_min(bb_pos, P - 1);
+    }
     // blinds capped at the stack, placed through the street algebra;
-    // all-in blinds and busted seats sit out, showdown-live
+    // all-in blinds (and, under standard rules, busted seats) sit out,
+    // showdown-live
     const int pay0 = mc_min(mc_max(rot[0], 0), sb);
-    const int pay1 = mc_min(mc_max(rot[1], 0), bb);
+    const int pay1 = mc_min(mc_max(rot[bb_pos], 0), bb);
     int all_in = 0;
     for (int p = 0; p < P; ++p) {
-      int blind = p == 0 ? pay0 : (p == 1 ? pay1 : 0);
+      int blind = p == 0 ? pay0 : (p == bb_pos ? pay1 : 0);
       s.stacks[p] = mc_sub(rot[p], blind);
       s.contrib[p] = blind;
       if (s.stacks[p] <= 0) all_in |= 1 << p;
     }
     if (pay0 > 0) mc_street_update<L>(s.lvl, s.ln, pay0);
     if (pay1 > 0) mc_street_update<L>(s.lvl, s.ln, pay1);
+    all_in &= in_hand;
     s.rr.all_in = all_in;
-    to_act = full & ~all_in;
+    to_act = in_hand & ~all_in;
   }
   for (int p = 0; p < P; ++p) {
     s.hand_start[p] = rot[p];
@@ -370,17 +437,12 @@ MC_HD void mc_settle_pass(MCTable<P, R>& s, const int* cards, int sb, int bb,
     s.hole1[p] = cards[P + p];
   }
   for (int i = 0; i < 5; ++i) s.board[i] = cards[2 * P + i];
-  for (int row = 0; row < 4 * L; ++row) {
-    s.pot_amt[row] = s.pot_set[row] = 0;
-    if constexpr (REF) s.rr.pot_n[row] = 0;
-  }
-  s.in_hand = full;
+  s.in_hand = in_hand;
   s.to_act = s.order = to_act;
-  s.cursor = 2 % P;
+  s.cursor = (bb_pos + 1) % P;
   s.folded = 0;
   s.stage = 0;
-  s.button = mc_floormod(s.button + 1, P);
-  s.wait = 0;
+  s.button = mc_floormod(s.button + shift, P);
 }
 
 // random_policy on two u32 words (_policy_prng): fold 15% (a free check
@@ -446,12 +508,20 @@ MC_HD void mc_run_prng(MCTable<P, R>& s, MCWords& src, int n_steps,
 
 // Launch a kernel template<P, R> for the run-time (P, rules) of a C entry:
 // `CASE(N, R)` is expanded for the one seat count MC_SEATS that the build
-// defines (ops/_build.py builds a library per seat count), under both rule
-// sets; any other (P, rules) is refused.
-#define MC_DISPATCH(CASE)                 \
+// defines (ops/_build.py builds a library per seat count), under the rule
+// sets the entry takes; any other (P, rules) is refused. The engine kernels
+// (K3, K4) take all three rule sets, the net kernels (K5, K6) reference
+// and standard, as the JAX net entry points do.
+#define MC_DISPATCH_SWITCH(CASES)         \
   switch (rules * 100 + P) {              \
-    CASE(MC_SEATS, MC_REFERENCE)          \
-    CASE(MC_SEATS, MC_STANDARD)           \
+    CASES                                 \
     default:                              \
       return (int)cudaErrorInvalidValue;  \
   }
+#define MC_DISPATCH(CASE)                 \
+  MC_DISPATCH_SWITCH(CASE(MC_SEATS, MC_REFERENCE)  \
+                     CASE(MC_SEATS, MC_STANDARD))
+#define MC_ENGINE_DISPATCH(CASE)                   \
+  MC_DISPATCH_SWITCH(CASE(MC_SEATS, MC_REFERENCE)  \
+                     CASE(MC_SEATS, MC_STANDARD)   \
+                     CASE(MC_SEATS, MC_TOURNAMENT))

@@ -43,3 +43,62 @@ MC_HD int mc_rollout_vs_random(MCWords& src, const int* hd,
                        bm[3] | vm[3]);
   return (vh > vv) - (vh < vv);
 }
+
+// Multiway equity (pallas_equity.py:268-298): up to MC_MAX_HANDS hands in
+// one pot. lcm(1..13) x 16,384 rollouts overflows the TPU kernel's int32
+// shares in one program, so 12 hands is the JAX package's limit too.
+#define MC_MAX_HANDS 12
+// The Philox sub-stream of multiway rollouts: K1 draws from sub-stream 0
+// and K2 from 1..65535 (hand h + 1), so 65536 is no other kernel's.
+#define MC_SUB_MULTIWAY 65536u
+
+// lcm(1..n): a multiway pot's shares, so that every split is exact.
+MC_HD int mc_lcm_to(int n) {
+  int l = 1;
+  for (int i = 2; i <= n; ++i) {
+    int a = l, b = i;
+    while (b) {
+      int r = a % b;
+      a = b;
+      b = r;
+    }
+    l = l / a * i;
+  }
+  return l;
+}
+
+struct MCMultiwayParams {
+  int dead[2 * MC_MAX_HANDS + 5];  // ascending dead cards (holes + board)
+  int n_dead, n_hands, scale;      // scale = lcm(1..n_hands)
+  uint32_t hand[MC_MAX_HANDS][4];  // suit masks, known board included
+};
+
+// One rollout: draw the NDRAW = 5 - K missing board cards, rank every
+// hand, and add scale / (number of winners) to each winner's share, an
+// exact integer split of the pot.
+template <int NDRAW>
+MC_HD void mc_rollout_multiway(MCWords& src, const MCMultiwayParams& p,
+                               unsigned long long* shares) {
+  uint32_t m[4] = {0u, 0u, 0u, 0u};
+  if constexpr (NDRAW > 0) {
+    int cards[NDRAW];
+    mc_sample_cards<NDRAW>(src, p.dead, p.n_dead, cards);
+#pragma unroll
+    for (int t = 0; t < NDRAW; ++t) mc_add_card(m, cards[t]);
+  }
+  int v[MC_MAX_HANDS], vmax = 0, cnt = 0;
+#pragma unroll
+  for (int h = 0; h < MC_MAX_HANDS; ++h)
+    if (h < p.n_hands) {
+      v[h] = mc_eval_cmp(m[0] | p.hand[h][0], m[1] | p.hand[h][1],
+                         m[2] | p.hand[h][2], m[3] | p.hand[h][3]);
+      vmax = h ? mc_max(vmax, v[h]) : v[h];
+    }
+#pragma unroll
+  for (int h = 0; h < MC_MAX_HANDS; ++h)
+    if (h < p.n_hands) cnt += v[h] == vmax;
+  const unsigned long long share = (unsigned long long)(p.scale / cnt);
+#pragma unroll
+  for (int h = 0; h < MC_MAX_HANDS; ++h)
+    if (h < p.n_hands && v[h] == vmax) shares[h] += share;
+}

@@ -6,8 +6,8 @@ plain C interface, which ``ctypes`` loads:
 - ``library()``: the kernels that take no seat count (``equity.cu``,
   ``philox.cu``);
 - ``library(P)``: the engine and net kernels (``SEAT_SOURCES``) for seat
-  count P only, both rule sets (``-DMC_SEATS=P``). A run builds the seat
-  counts it uses, not all nine.
+  count P only, under each rule set they take (``-DMC_SEATS=P``). A run
+  builds the seat counts it uses, not all nine.
 
 A library is built at first use, from the package's own sources, into
 ``montecarlo_tpu_torch/_build/<hash of the sources>/<name>/``, so an edited
@@ -49,6 +49,7 @@ ULL_ = ctypes.c_ulonglong
 SIGNATURES = {
     "mc_equity_counts": [I_, P_, I_, LL_, P_, P_, P_],
     "mc_sweep_counts": [I_, P_, P_, I_, LL_, P_, P_, P_],
+    "mc_multiway_shares": [I_, P_, I_, P_, I_, LL_, P_, P_, P_],
     "mc_philox_blocks": [P_, P_, I_, P_],
 }
 SEAT_SIGNATURES = {

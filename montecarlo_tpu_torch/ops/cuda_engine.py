@@ -15,9 +15,12 @@ state in and out as it is.
   Philox words in plain PyTorch, so for a given seed the CPU wrapper and
   the kernel return the same state.
 
-Reference and standard rules, selected statically as in the JAX engine
-(a template parameter of the kernels); every engine entry raises
-``NotImplementedError`` for "tournament". Seat counts 2..10 are accepted.
+Reference, standard and tournament rules, selected statically as in the
+JAX engine (a template parameter of the kernels). Seat counts 2..10 are
+accepted. Under tournament rules busted seats leave the deal, each seat's
+first bust is kept in ``bust_at``, and a table left with one player holding
+chips freezes (an empty play order); ``tournaments_to_completion`` relaunches
+K4 until every table has frozen and ``tournament_results`` ranks the seats.
 
 The plain versions ``_run_det_plain`` / ``_run_prng_plain`` translate the
 JAX device functions onto ``[rows, tables]`` tensors (tables on the last
@@ -61,7 +64,7 @@ MAX_RAISE = 20
 MAX_RAISES_PER_STREET = 2
 MAX_SEATS = 10
 
-RULES = ("reference", "standard")
+RULES = ("reference", "standard", "tournament")
 LAUNCHES = {f"engine_{mode}_{rules}": 0
             for mode in ("det", "prng") for rules in RULES}
 
@@ -102,9 +105,6 @@ def _field_layout(P: int, rules: str = "reference"):
 
 
 def _check_config(P: int, rules: str) -> None:
-    if rules == "tournament":
-        raise NotImplementedError(
-            "rules='tournament': not ported yet (ROADMAP.md, B4/B5)")
     if rules not in RULES:
         raise ValueError(f"rules={rules!r}: expected one of {RULES}")
     if not 2 <= P <= MAX_SEATS:
@@ -131,7 +131,7 @@ def pack_state(cfg, first_cards) -> torch.Tensor:
     sb, bb, ss = cfg.small_blind, cfg.big_blind, cfg.starting_stack
     if sb <= 0 or bb <= 0:
         raise ValueError("blinds must be positive")
-    if rules == "standard":  # blinds capped at the stack
+    if rules != "reference":  # blinds capped at the stack
         sb, bb = min(sb, max(ss, 0)), min(bb, max(ss, 0))
     rows = torch.zeros((F, n_tables), dtype=I32, device=fc.device)
 
@@ -150,10 +150,13 @@ def pack_state(cfg, first_cards) -> torch.Tensor:
         put("stacks", k, ss - blind)
         put("hand_start", k, ss)
         all_in |= (ss - blind <= 0) << k
-    if rules == "standard":  # all-in blinds sit out, showdown-live
+    if rules != "reference":  # all-in blinds sit out, showdown-live
         put("all_in", 0, all_in)
     else:
         all_in = 0
+    if rules == "tournament":  # nobody has busted yet
+        for k in range(P):
+            put("bust_at", k, -1)
     put("to_act", 0, full & ~all_in)
     put("order", 0, full & ~all_in)
     for k in range(P):
@@ -452,12 +455,26 @@ def _step_nosettle(st, raw_action, P, rules="reference"):
     return {**st, **guarded}
 
 
+def _seat_view(pos, button, P):
+    """Seat view of positional rows [P, T]: seat = (button + position) mod
+    P, so roll each table's rows by its button (0 where the button is out
+    of range)."""
+    out = torch.where(button[None] == 0, pos, 0)
+    for b in range(1, P):
+        out = out + torch.where(button[None] == b, torch.roll(pos, b, dims=0),
+                                0)
+    return out
+
+
 def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
                  reset_stacks=False):
     """Settlement and next hand for every table whose ``wait`` flag is up;
     ``new_cards``: [2P+5, T]. With ``reset_stacks`` every hand starts from
-    ``ss`` chips a seat (independent-hand evaluation)."""
+    ``ss`` chips a seat (independent-hand evaluation). A tournament table
+    left with one player holding chips does not redeal: it keeps its
+    settled stacks and hand and freezes with an empty play order."""
     reference = rules == "reference"
+    tournament = rules == "tournament"
     n_lvl = st["lvl"].shape[0]
     T = st["stage"].shape[0]
     dev = st["stage"].device
@@ -472,25 +489,45 @@ def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
     hand_ct = st["hand_ct"] + ended.to(I32)
     delta = stacks - st["hand_start"]
     delta_sum = st["delta_sum"] + torch.where(ended[None], delta, 0)
-    # seat view of the positional deltas: roll by the button
-    seat_delta_inc = torch.where(st["button"][None] == 0, delta, 0)
-    for b in range(1, P):
-        seat_delta_inc = seat_delta_inc + torch.where(
-            st["button"][None] == b, torch.roll(delta, b, dims=0), 0)
-    seat_delta = st["seat_delta"] + torch.where(ended[None], seat_delta_inc,
-                                                0)
+    seat_delta = st["seat_delta"] + torch.where(
+        ended[None], _seat_view(delta, st["button"], P), 0)
+    seats = _iota(P, dev)
+    seat_bits = torch.ones_like(seats) << seats
+    out = {}
+    if tournament:
+        # each seat's first bust (the 0-based index of the hand settled),
+        # from the seat view of the settled stacks
+        newly = (ended[None] & (_seat_view(stacks, st["button"], P) <= 0)
+                 & (st["bust_at"] < 0))
+        out["bust_at"] = torch.where(newly, st["hand_ct"][None],
+                                     st["bust_at"])
+        # rotate to the next position holding chips; with one player left
+        # the table freezes
+        alive_pos = stacks > 0
+        n_alive = alive_pos.sum(0, dtype=I32)
+        shift = torch.where(alive_pos & (seats >= 1), seats, P).amin(0) \
+            .clamp(1, P - 1)
+        rot = stacks
+        for b in range(1, P):
+            rot = torch.where(shift[None] == b, torch.roll(stacks, -b, dims=0),
+                              rot)
+        freeze = ended & (n_alive <= 1)
+        redeal = ended & ~freeze
+        button_shift = shift
+    else:
+        rot = torch.roll(stacks, -1, dims=0)
+        freeze = torch.zeros_like(ended)
+        redeal = ended
+        button_shift = 1
 
-    # next hand: rotate the players list by one, blinds, deal
-    rot = torch.roll(stacks, -1, dims=0)
+    # next hand: rotate the players list, blinds, deal
     if reset_stacks:
         rot = torch.full_like(rot, ss)
-    seats = _iota(P, dev)
-    hand_start = torch.where(ended[None], rot, st["hand_start"])
+    hand_start = torch.where(redeal[None], rot, st["hand_start"])
     full = (1 << P) - 1
-    out = {}
     if reference:
         blinds = torch.where(seats == 0, sb, torch.where(seats == 1, bb, 0))
-        stacks = torch.where(ended[None], rot - blinds, stacks)
+        stacks = torch.where(redeal[None], rot - blinds, stacks)
         b_lvl, b_ln = ([min(sb, bb), 0], [2, 0]) if sb == bb else \
             ([min(sb, bb), max(sb, bb)], [2, 1])
         rows = _iota(n_lvl, dev)
@@ -498,46 +535,70 @@ def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
                                 torch.where(rows == 1, b_lvl[1], 0))
         blind_ln = torch.where(rows == 0, b_ln[0],
                                torch.where(rows == 1, b_ln[1], 0))
-        lvl = torch.where(ended[None], blind_lvl, st["lvl"])
-        ln = torch.where(ended[None], blind_ln, st["ln"])
-        contrib = torch.where(ended[None], blinds, st["contrib"])
-        to_act_new = full
+        lvl = torch.where(redeal[None], blind_lvl, st["lvl"])
+        ln = torch.where(redeal[None], blind_ln, st["ln"])
+        contrib = torch.where(redeal[None], blinds, st["contrib"])
+        in_hand_new = to_act_new = full
+        cursor0 = 2 % P
         out["pot_n"] = torch.where(ended[None, None], 0, pots_n) \
             .reshape(4 * n_lvl, T)
     else:
+        if tournament:
+            # dead seats leave the deal; the big blind is the first alive
+            # position >= 1 and action starts after it
+            alive_new = rot > 0
+            in_hand_new = torch.where(alive_new, seat_bits, 0).sum(0,
+                                                                   dtype=I32)
+            bb_pos = torch.where(alive_new & (seats >= 1), seats, P) \
+                .amin(0).clamp(max=P - 1)
+            is_bb = seats == bb_pos[None]
+            pay1_cap = _pick(rot, bb_pos)
+            cursor0 = (bb_pos + 1) % P
+        else:
+            is_bb = seats == 1
+            pay1_cap = rot[1]
+            cursor0 = 2 % P
+            in_hand_new = full
         # blinds capped at the stack, placed through the street algebra
         pay0 = rot[0].clamp(min=0).clamp(max=sb)
-        pay1 = rot[1].clamp(min=0).clamp(max=bb)
+        pay1 = pay1_cap.clamp(min=0).clamp(max=bb)
         pays = torch.where(seats == 0, pay0[None],
-                           torch.where(seats == 1, pay1[None], 0))
+                           torch.where(is_bb, pay1[None], 0))
         new_stacks = rot - pays
-        stacks = torch.where(ended[None], new_stacks, stacks)
+        stacks = torch.where(redeal[None], new_stacks, stacks)
         z = torch.zeros_like(st["lvl"])
         l1, n1, _ = _street_update(z, z, pay0, pay0 > 0)
         l2, n2, _ = _street_update(l1, n1, pay1, pay1 > 0)
-        lvl = torch.where(ended[None], l2, st["lvl"])
-        ln = torch.where(ended[None], n2, st["ln"])
-        contrib = torch.where(ended[None], pays, st["contrib"])
-        # all-in blinds and busted seats sit out, showdown-live
-        seat_bits = torch.ones_like(seats) << seats
-        allin_bm = torch.where(new_stacks <= 0, seat_bits, 0).sum(0,
-                                                                  dtype=I32)
-        out["all_in"] = torch.where(ended, allin_bm, st["all_in"])
-        to_act_new = full & ~allin_bm
+        lvl = torch.where(redeal[None], l2, st["lvl"])
+        ln = torch.where(redeal[None], n2, st["ln"])
+        contrib = torch.where(redeal[None], pays, st["contrib"])
+        # all-in blinds (and, under standard rules, busted seats) sit out,
+        # showdown-live
+        dead_bm = torch.where(new_stacks <= 0, seat_bits, 0).sum(0,
+                                                                 dtype=I32)
+        allin_bm = dead_bm & in_hand_new
+        out["all_in"] = torch.where(redeal, allin_bm, st["all_in"])
+        to_act_new = in_hand_new & ~allin_bm
+    to_act = torch.where(redeal, to_act_new, st["to_act"])
+    order = torch.where(redeal, to_act_new, st["order"])
+    # a frozen tournament table: its empty play order makes every later
+    # step a no-op
+    to_act = torch.where(freeze, zero, to_act)
+    order = torch.where(freeze, zero, order)
     out.update({
-        "stage": torch.where(ended, zero, st["stage"]),
-        "cursor": torch.where(ended, 2 % P, st["cursor"]),
-        "folded": torch.where(ended, zero, st["folded"]),
-        "in_hand": torch.where(ended, full, st["in_hand"]),
-        "to_act": torch.where(ended, to_act_new, st["to_act"]),
-        "order": torch.where(ended, to_act_new, st["order"]),
+        "stage": torch.where(redeal, zero, st["stage"]),
+        "cursor": torch.where(redeal, cursor0, st["cursor"]),
+        "folded": torch.where(redeal, zero, st["folded"]),
+        "in_hand": torch.where(redeal, in_hand_new, st["in_hand"]),
+        "to_act": to_act, "order": order,
         "wait": torch.where(ended, zero, st["wait"]),
         "hand_ct": hand_ct,
-        "button": torch.where(ended, (st["button"] + 1) % P, st["button"]),
+        "button": torch.where(redeal, (st["button"] + button_shift) % P,
+                              st["button"]),
         "stacks": stacks, "contrib": contrib,
-        "hole0": torch.where(ended[None], new_cards[:P], st["hole0"]),
-        "hole1": torch.where(ended[None], new_cards[P:2 * P], st["hole1"]),
-        "board": torch.where(ended[None], new_cards[2 * P:], st["board"]),
+        "hole0": torch.where(redeal[None], new_cards[:P], st["hole0"]),
+        "hole1": torch.where(redeal[None], new_cards[P:2 * P], st["hole1"]),
+        "board": torch.where(redeal[None], new_cards[2 * P:], st["board"]),
         "hand_start": hand_start, "delta_sum": delta_sum,
         "seat_delta": seat_delta, "lvl": lvl, "ln": ln,
         "pot_amt": torch.where(ended[None, None], 0, pots_amt)
@@ -752,8 +813,8 @@ def first_deal(seed: int, n_tables: int, P: int, device=None):
 def selfplay_perpetual_kernel(seed: int, cfg, n_tables: int, n_steps: int,
                               steps_per_launch: int = 512, device=None):
     """Random-policy perpetual self-play on ``device`` (the card when
-    None): the first hand dealt from a seeded generator, every later deal
-    and policy draw in the kernel.
+    None), under any rule set: the first hand dealt from a seeded
+    generator, every later deal and policy draw in the kernel.
 
     Returns ``(final_packed_state, hands_completed, overflowed_tables)``.
     """
@@ -781,3 +842,70 @@ def position_deltas(state, cfg):
                            .sum(dtype=I64)) for k in range(P)])
     hands = int(unpack_field(state, cfg, "hand_ct").sum())
     return sums, hands
+
+
+def tournaments_to_completion(seed: int, cfg, n_tables: int,
+                              steps_per_launch: int = 512,
+                              max_steps: int = 1 << 17, device=None):
+    """Tournament-rules tables on ``device`` (the card when None), K4
+    relaunched until every table has frozen (one player holds every chip):
+    total placements, no unfinished tail.
+
+    The first deal comes from ``first_deal`` (Philox, so a seed does not
+    reproduce a JAX run); launch seeds are (seed + steps done * 7919) &
+    0x7FFFFFFF. Frozen tables are no-ops inside the kernel. Between
+    launches the frozen count (``order == 0``, which only a launch boundary
+    makes exact: a table waiting for its settle pass has an empty play
+    order too) is summed on the device and read once. Returns ``(state,
+    steps_used)``; raises ``RuntimeError`` when ``max_steps`` runs out with
+    live tables."""
+    if cfg.rules != "tournament":
+        raise ValueError(f"rules={cfg.rules!r}: expected 'tournament'")
+    P = cfg.num_seats
+    _check_config(P, cfg.rules)
+    state = pack_state(cfg, first_deal(seed, n_tables, P, device))
+    done = 0
+    while done < max_steps:
+        state = run_perpetual_prng((seed + done * 7919) & 0x7FFFFFFF, state,
+                                   P, steps_per_launch, cfg.small_blind,
+                                   cfg.big_blind, rules=cfg.rules)
+        done += steps_per_launch
+        frozen = int((unpack_field(state, cfg, "order") == 0).sum())
+        if frozen == n_tables:
+            return state, done
+    raise RuntimeError(
+        f"{n_tables - frozen} tournaments still live after {done} steps")
+
+
+def tournament_results(state, cfg):
+    """Finishing places per seat (1 = winner) from the bust records and
+    the final stacks (``pallas_engine.tournament_results``): unbusted seats
+    outrank busted ones, later busts beat earlier, and ties (the same bust
+    hand, the same stack) share by stable order. Returns numpy
+    ``(places [n_tables, P], frozen [n_tables] bool)``."""
+    if cfg.rules != "tournament":
+        raise ValueError(f"rules={cfg.rules!r}: expected 'tournament'")
+    P = cfg.num_seats
+    layout, _ = _field_layout(P, cfg.rules)
+    names = ("bust_at", "button", "stacks", "order")
+    # only these rows go to the host
+    picked = [layout[n][0] + k for n in names for k in range(layout[n][1])]
+    rows = state_to_numpy(_to_rows(state.index_select(1, torch.tensor(
+        picked, device=state.device)))).astype(np.int64)
+    starts = np.cumsum([0] + [layout[n][1] for n in names])
+
+    def field(name):
+        i = names.index(name)
+        return rows[starts[i]:starts[i + 1]]
+
+    bust = field("bust_at").T                                  # [T, P]
+    button = field("button")[0]
+    # positional stacks -> seat view via the button
+    idx = (np.arange(P)[None, :] - button[:, None]) % P
+    stacks = np.take_along_axis(field("stacks").T, idx, axis=1)
+    frozen = field("order")[0] == 0
+    alive_rank = np.where(bust < 0, np.iinfo(np.int32).max, bust)
+    key = alive_rank * (stacks.max() + 2) + stacks
+    places = np.argsort(np.argsort(-key, axis=1, kind="stable"),
+                        axis=1, kind="stable") + 1
+    return places, frozen

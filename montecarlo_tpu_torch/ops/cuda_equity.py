@@ -1,27 +1,36 @@
-"""Equity rollouts on the card: kernels K1 and K2 and their plain versions.
+"""Equity rollouts on the card: kernels K1, K2 and B3 and their plain
+versions.
 
 The counterpart of ``montecarlo_tpu/ops/pallas_equity.py``. Kernel K1
 (``csrc/equity.cu:mc_equity_kernel``) replaces ``_make_equity_kernel``
 (hand vs hand on a board of 0, 3 or 4 known cards); K2
 (``mc_sweep_kernel``) replaces ``_sweep_kernel`` (per hero hand vs a random
-villain). Both draw one u32 word per card and take it modulo the live-card
-count, as the TPU kernels do, so a kernel and its plain version compute the
-same function of the words.
+villain); B3 (``mc_multiway_kernel``) replaces ``_make_multiway_kernel``
+(N hands in one pot, ties split as integer shares scaled by lcm(1..N)).
+Each draws one u32 word per card and takes it modulo the live-card count,
+as the TPU kernels do, so a kernel and its plain version compute the same
+function of the words.
 
 Words: the plain versions take them explicitly, as int64 tensors in
-[0, 2^32) of shape ``[n_draw, n]`` (K1) or ``[7, H, n]`` (K2). The kernels
-draw them from Philox4x32-10 (``csrc/philox.cuh``), or read injected words
-of the same shape. ``equity_words`` / ``sweep_words`` compute the kernels'
-Philox words in plain PyTorch (``ops/philox.py``), so for a given ``seed``
-the CPU wrappers and the kernels return the same counts, and
-``_equity_counts_plain_philox`` / ``_sweep_counts_plain_philox`` hold a
-kernel's Philox mode against its plain version at any size.
+[0, 2^32) of shape ``[n_draw, n]`` (K1, B3) or ``[7, H, n]`` (K2). The
+kernels draw them from Philox4x32-10 (``csrc/philox.cuh``), or read
+injected words of the same shape. ``equity_words`` / ``sweep_words`` /
+``multiway_words`` compute the kernels' Philox words in plain PyTorch
+(``ops/philox.py``), so for a given ``seed`` the CPU wrappers and the
+kernels return the same counts, and the ``_*_plain_philox`` functions hold
+a kernel's Philox mode against its plain version at any size.
+
+B3 keeps 64-bit shares, so any rollout count is one launch; the TPU splits
+its launches at int32's limit and keys each with its own seed, so B3 and
+``equity_multiway_pallas`` agree in distribution, not draw for draw.
 
 A wrapper runs the plain version only for CPU tensors; for a CUDA tensor
 it launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -41,7 +50,15 @@ I64 = torch.int64
 # tensors).
 CPU_CHUNK = 1 << 18
 
-LAUNCHES = {"equity": 0, "sweep": 0}
+# Hands in one multiway pot: lcm(1..13) x 16,384 rollouts overflows the
+# TPU kernel's int32 shares in one program, so 12 is the JAX package's
+# limit as well (csrc/equity.cuh:MC_MAX_HANDS).
+MAX_MULTIWAY_HANDS = 12
+# The Philox sub-stream of multiway rollouts, which K1 (0) and K2 (hand
+# h + 1 <= 65535) never use (csrc/equity.cuh:MC_SUB_MULTIWAY).
+MULTIWAY_SUB = 1 << 16
+
+LAUNCHES = {"equity": 0, "sweep": 0, "multiway": 0}
 
 
 def reset_launches() -> None:
@@ -71,6 +88,21 @@ def sweep_words(seed: int, H: int, start: int, m: int, device):
     r = torch.arange(start, start + m, dtype=I64, device=device)[None]
     h = torch.arange(H, dtype=I64, device=device)[:, None]
     return stream_words(seed, r & MASK, r >> 32, h + 1, 0, 7)
+
+
+def multiway_words(seed: int, n_draw: int, start: int, m: int, device):
+    """B3's Philox words for rollouts ``start .. start + m - 1``: int64
+    [n_draw, m]. Rollout r draws from stream (seed, r mod 2^32, r >> 32,
+    ``MULTIWAY_SUB``)."""
+    r = torch.arange(start, start + m, dtype=I64, device=device)
+    if n_draw == 0:  # the whole board is known
+        return torch.zeros((0, m), dtype=I64, device=device)
+    return stream_words(seed, r & MASK, r >> 32, MULTIWAY_SUB, 0, n_draw)
+
+
+def multiway_scale(n_hands: int) -> int:
+    """lcm(1..N): the shares of one rollout's pot."""
+    return math.lcm(*range(1, n_hands + 1))
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +166,40 @@ def _sweep_counts_plain(words, dead, hero_masks):
     vv = eval_masks_cmp_impl(*[b | v for b, v in zip(bm, vm)])
     return torch.stack([(vh > vv).sum(dim=1, dtype=I64),
                         (vh == vv).sum(dim=1, dtype=I64)])
+
+
+def _multiway_shares_plain(words, dead, hand_masks):
+    """B3's shares on explicit words: int64 [N] on the words' device.
+
+    ``words``: int64 [5 - K, n]; ``dead``: the 2N + K ascending dead cards
+    (python ints); ``hand_masks``: N rows of four ints, the known board
+    included. Each rollout adds lcm(1..N) / (number of winners) to each
+    winner's share."""
+    dead = [int(d) for d in dead]
+    n = words.shape[1]
+    if words.shape[0]:
+        bm = _masks_of(_sample_cards(words, dead))
+    else:  # the whole board is known
+        bm = [torch.zeros(n, dtype=I32, device=words.device)] * 4
+    values = torch.stack([
+        eval_masks_cmp_impl(*[m | int(h) for m, h in zip(bm, masks)])
+        for masks in hand_masks])                           # [N, n]
+    winners = values == values.amax(0)
+    share = multiway_scale(len(hand_masks)) // winners.sum(0, dtype=I64)
+    return torch.where(winners, share, 0).sum(1, dtype=I64)
+
+
+def _multiway_shares_plain_philox(seed, dead, hand_masks, n_rollouts,
+                                  device, chunk=CPU_CHUNK):
+    """Plain version of B3's Philox mode on ``device``: the shares the
+    kernel returns for ``seed``, in chunks of ``chunk`` rollouts."""
+    n_draw = 5 - (len(dead) - 2 * len(hand_masks))
+    total = torch.zeros(len(hand_masks), dtype=I64, device=device)
+    for start in range(0, n_rollouts, chunk):
+        m = min(chunk, n_rollouts - start)
+        total += _multiway_shares_plain(
+            multiway_words(seed, n_draw, start, m, device), dead, hand_masks)
+    return total
 
 
 def _equity_counts_plain_philox(seed, dead, hero_masks, villain_masks,
@@ -214,18 +280,26 @@ def equity_counts(seed: int, dead: torch.Tensor, hero_masks: torch.Tensor,
     return _equity_counts_plain_philox(seed, d, hm, vm, n_rollouts, dev)
 
 
-def _hand_masks(hero, villain, board, device):
-    hero = torch.as_tensor(hero, dtype=I32).reshape(-1)
-    villain = torch.as_tensor(villain, dtype=I32).reshape(-1)
+def _multiway_masks(hands, board, device):
+    """(dead [2N + K] ascending, hand masks [N, 4] with the board OR-ed
+    in), int32 on ``device``."""
+    hands = torch.as_tensor(hands, dtype=I32).reshape(-1, 2)
     board = torch.as_tensor(board, dtype=I32).reshape(-1)
-    dead = torch.sort(torch.cat([hero, villain, board])).values
+    dead = torch.sort(torch.cat([hands.reshape(-1), board])).values
     bmask = (suit_masks_from_cards(board) if board.numel()
              else [torch.zeros((), dtype=I32)] * 4)
     hm = torch.stack([m | b for m, b in
-                      zip(suit_masks_from_cards(hero), bmask)])
-    vm = torch.stack([m | b for m, b in
-                      zip(suit_masks_from_cards(villain), bmask)])
-    return dead.to(device), hm.to(device), vm.to(device)
+                      zip(suit_masks_from_cards(hands), bmask)], dim=1)
+    return dead.to(device), hm.to(device)
+
+
+def _hand_masks(hero, villain, board, device):
+    """(dead ascending, hero masks [4], villain masks [4]) on ``device``,
+    the board's masks OR-ed into both."""
+    dead, hm = _multiway_masks(torch.stack([
+        torch.as_tensor(h, dtype=I32).reshape(2) for h in (hero, villain)]),
+        board, device)
+    return dead, hm[0], hm[1]
 
 
 def equity_vs_hand_counts(seed: int, hero, villain, n_rollouts: int,
@@ -290,3 +364,60 @@ def equity_sweep_kernel(seed: int, heroes, n_per_hand: int, device=None):
     counts = sweep_counts(seed, dead.to(device), hm.to(device), n_per_hand)
     w, t = counts.cpu().numpy().astype(np.float64)
     return (w + 0.5 * t) / n_per_hand, n_per_hand
+
+
+def multiway_shares(seed: int, dead: torch.Tensor, hand_masks: torch.Tensor,
+                    n_rollouts: int, words=None):
+    """B3's shares as int64 [N] on ``dead``'s device, over ``n_rollouts``
+    rollouts drawing ``5 - K`` board cards each; they sum to lcm(1..N) x
+    ``n_rollouts``.
+
+    ``dead``: int32 [2N + K] ascending dead cards (holes plus known board);
+    ``hand_masks``: int32 [N, 4], the known board's masks OR-ed in;
+    2 <= N <= 12 and 0 <= K <= 5. ``words`` (optional): int64 [5 - K,
+    n_rollouts] injected words; without them the words are Philox's for
+    ``seed`` (the same on the CPU and on the card)."""
+    N, n_dead = hand_masks.shape[0], dead.shape[0]
+    K = n_dead - 2 * N
+    if not 2 <= N <= MAX_MULTIWAY_HANDS:
+        raise ValueError(f"{N} hands: expected 2..{MAX_MULTIWAY_HANDS}")
+    if not 0 <= K <= 5 or n_dead > 52:
+        raise ValueError(f"{n_dead} dead cards for {N} hands: expected "
+                         f"2N + K with 0 <= K <= 5")
+    dev = dead.device
+    if words is not None:
+        _check_words(words, (5 - K, n_rollouts), dev)
+    dead_l = [int(x) for x in dead.tolist()]
+    masks_l = [[int(x) for x in row] for row in hand_masks.tolist()]
+    if dev.type == "cuda":
+        lib = _build.library()
+        out = torch.zeros(N, dtype=I64, device=dev)
+        w32 = None if words is None else words_as_i32(words).contiguous()
+        c_dead = (_build.I_ * n_dead)(*dead_l)
+        c_masks = (_build.I_ * (4 * N))(*[x for row in masks_l for x in row])
+        _build.check(lib.mc_multiway_shares(
+            int(seed), c_dead, n_dead, c_masks, N, int(n_rollouts),
+            None if w32 is None or w32.numel() == 0 else w32.data_ptr(),
+            out.data_ptr(), _build.stream_ptr(dev)), "mc_multiway_shares")
+        LAUNCHES["multiway"] += 1
+        return out
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    if words is not None:
+        return _multiway_shares_plain(words, dead_l, masks_l)
+    return _multiway_shares_plain_philox(seed, dead_l, masks_l, n_rollouts,
+                                         dev)
+
+
+def equity_multiway_kernel(seed: int, hands, n_rollouts: int, board=(),
+                           device=None):
+    """Multiway equity of N hands ([N, 2] cards) against each other on an
+    optional known ``board``, ties split exactly, in one B3 launch on
+    ``device`` (the card when None) (``equity_multiway_pallas``).
+
+    Returns (equity float64 numpy [N], rollouts)."""
+    dead, hm = _multiway_masks(hands, board, resolve(device))
+    shares = multiway_shares(seed, dead, hm, n_rollouts)
+    scale = multiway_scale(hm.shape[0])
+    return shares.cpu().numpy().astype(np.float64) / (scale * n_rollouts), \
+        n_rollouts

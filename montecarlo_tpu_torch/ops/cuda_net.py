@@ -76,7 +76,10 @@ MAX_CANDIDATES = 65535
 # Launch counts by form: K5 with one net or with banks; K6 with one net
 # (``eval``), banks (``league``, B7), candidates (``pop``, B8) or both.
 FORMS = ("det", "det_banked", "eval", "league", "pop", "league_pop")
-LAUNCHES = {f"net_{form}_{rules}": 0 for form in FORMS for rules in ce.RULES}
+# The rule sets of the net kernels, as of the JAX net entry points:
+# tournament rules are the engine's alone.
+RULES = ("reference", "standard")
+LAUNCHES = {f"net_{form}_{rules}": 0 for form in FORMS for rules in RULES}
 LAUNCHES["net_probe"] = 0
 
 
@@ -323,6 +326,8 @@ def _check(state, weights, P, rules, lead=()):
     """``state`` a packed state (with a leading candidate axis when
     ``lead`` has two entries) and ``weights`` float32 [*lead,
     NUM_WEIGHTS] beside it."""
+    if rules not in RULES:
+        raise ValueError(f"rules={rules!r}: the net kernels take {RULES}")
     ce._check_config(P, rules)
     ce._check_state(state[0] if len(lead) == 2 else state, P, rules)
     want = (*lead, NUM_WEIGHTS)
@@ -368,7 +373,7 @@ def run_net_det(state, cards, weights, P: int, n_steps: int, sb: int,
     crd = cards.to(I32).contiguous()
     _build.check(lib.mc_net_det(
         out.data_ptr(), crd.data_ptr(), weights.data_ptr(), state.shape[0],
-        P, ce.RULES.index(rules), n_steps, cards.shape[1], sb, bb,
+        P, RULES.index(rules), n_steps, cards.shape[1], sb, bb,
         len(weights) if banked else 1, bank_map,
         _build.stream_ptr(state.device)), "mc_net_det")
     LAUNCHES[f"net_{'det_banked' if banked else 'det'}_{rules}"] += 1
@@ -406,7 +411,7 @@ def _launch_eval(form, seed, state, weights, P, n_steps, sb, bb, ss, rules,
     w32 = None if words is None else words_as_i32(words).contiguous()
     _build.check(lib.mc_net_eval(
         out.data_ptr(), int(seed), None if w32 is None else w32.data_ptr(),
-        weights.data_ptr(), C, nb, P, ce.RULES.index(rules), n_steps,
+        weights.data_ptr(), C, nb, P, RULES.index(rules), n_steps,
         ce._defer_for(n_steps), sb, bb, ss, net_seats, int(reset_stacks),
         ce.FOLD_P_BITS, ce.RAISE_P_BITS, w3.shape[1], bank_map,
         None if decisions is None else decisions.data_ptr(),
@@ -491,7 +496,7 @@ def net_probe(state, words, weights, P: int, bb: int, rules: str):
     w32 = words_as_i32(words).contiguous()
     _build.check(_build.library(P).mc_net_probe(
         state.data_ptr(), w32.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        state.shape[0], P, ce.RULES.index(rules), bb,
+        state.shape[0], P, RULES.index(rules), bb,
         _build.stream_ptr(state.device)), "mc_net_probe")
     LAUNCHES["net_probe"] += 1
     return out

@@ -1,10 +1,11 @@
 """Monte Carlo equity estimation (the user-facing rollout API).
 
 The counterpart of the parts of ``montecarlo_tpu/rollout/equity.py`` that
-the main path uses. ``equity_vs_hand`` and ``equity_vs_random`` run the
-rollout kernels K1/K2 on the card, or their plain versions when the caller
-passes ``device="cpu"`` (``ops/cuda_equity.py``); ``equity_exact``
-enumerates every board completion with the plain evaluator.
+the main paths use. ``equity_vs_hand``, ``equity_vs_random`` and
+``equity_multiway`` run the rollout kernels K1, K2 and B3 on the card, or
+their plain versions when the caller passes ``device="cpu"``
+(``ops/cuda_equity.py``); ``equity_exact`` enumerates every board
+completion with the plain evaluator.
 """
 
 from __future__ import annotations
@@ -109,6 +110,17 @@ def equity_vs_random(seed: int, hero: Sequence[int], n_rollouts: int,
     counts = cuda_equity.sweep_counts(seed, dead.to(device), hm.to(device),
                                       n_rollouts)
     return _result(counts[:, 0], n_rollouts)
+
+
+def equity_multiway(seed: int, hands, n_rollouts: int,
+                    board: Sequence[int] = (), device=None):
+    """Equity of N specified hands ([N, 2] cards, 2 <= N <= 12) against
+    each other, ties split fractionally, optionally on a partial board:
+    B3 on the card (``device`` None or CUDA), its plain version for
+    ``device="cpu"``. Returns (equity float64 numpy [N], n)."""
+    _check_disjoint(hands, board)
+    return cuda_equity.equity_multiway_kernel(seed, hands, n_rollouts, board,
+                                              device)
 
 
 def equity_exact(hero: Sequence[int], villain: Sequence[int],

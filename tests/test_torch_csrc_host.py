@@ -2,9 +2,10 @@
 
 The headers in ``montecarlo_tpu_torch/csrc`` are host C++ as well (``MC_HD``
 expands to ``inline`` outside nvcc). A small harness built with the host
-C++ compiler runs the kernels' per-thread bodies (one rollout of K1/K2,
-one table of K3-K6; the net kernels with banks and, for K6, a grid of
-candidates at the kernel's state and weight offsets) in Philox mode, the
+C++ compiler runs the kernels' per-thread bodies (one rollout of K1/K2/B3,
+one table of K3-K6, K3/K4 under every rule set; the net kernels with banks
+and, for K6, a grid of candidates at the kernel's state and weight
+offsets) in Philox mode, the
 way the kernels key their streams, and the results must equal the plain
 versions fed ``ops/philox.py``'s words. This checks the device code's arithmetic before it meets a card;
 the launch geometry is checked on the card (``tests/test_torch_cuda.py``,
@@ -66,6 +67,36 @@ static void k1(const int* in, Out& out) {
   }
   out.push_back(wins);
   out.push_back(ties);
+}
+
+// B3: in = seed, start (hi, lo), n, N, n_dead, dead..., masks [N, 4].
+static void mw(const int* in, Out& out) {
+  uint32_t seed = in[0];
+  long long start = ((long long)in[1] << 32) | (uint32_t)in[2];
+  int n = in[3];
+  MCMultiwayParams p;
+  p.n_hands = in[4];
+  p.n_dead = in[5];
+  for (int i = 0; i < 2 * MC_MAX_HANDS + 5; ++i)
+    p.dead[i] = i < p.n_dead ? in[6 + i] : 99;
+  p.scale = mc_lcm_to(p.n_hands);
+  for (int h = 0; h < MC_MAX_HANDS; ++h)
+    for (int s = 0; s < 4; ++s)
+      p.hand[h][s] = h < p.n_hands ? in[6 + p.n_dead + 4 * h + s] : 0u;
+  unsigned long long shares[MC_MAX_HANDS] = {};
+  for (long long r = start; r < start + n; ++r) {
+    MCWords src(nullptr, n, r, seed, (uint32_t)r, (uint32_t)(r >> 32),
+                MC_SUB_MULTIWAY);
+    switch (5 - (p.n_dead - 2 * p.n_hands)) {
+      case 0: mc_rollout_multiway<0>(src, p, shares); break;
+      case 1: mc_rollout_multiway<1>(src, p, shares); break;
+      case 2: mc_rollout_multiway<2>(src, p, shares); break;
+      case 3: mc_rollout_multiway<3>(src, p, shares); break;
+      case 4: mc_rollout_multiway<4>(src, p, shares); break;
+      default: mc_rollout_multiway<5>(src, p, shares); break;
+    }
+  }
+  out.insert(out.end(), shares, shares + p.n_hands);
 }
 
 static void k2(const int* in, Out& out) {
@@ -242,6 +273,8 @@ int main(int argc, char** argv) {
     k1(in.data(), out);
   } else if (!strcmp(argv[1], "k2")) {
     k2(in.data(), out);
+  } else if (!strcmp(argv[1], "mw")) {
+    mw(in.data(), out);
   } else if (!strcmp(argv[1], "key")) {
     for (size_t i = 1; i + 4 <= in.size(); i += 4)
       out.push_back(mc_eval_key(in[i], in[i + 1], in[i + 2], in[i + 3]));
@@ -251,6 +284,8 @@ int main(int argc, char** argv) {
       case 6: engine<6, MC_REFERENCE>(argv[1], in.data(), out); break;
       case 102: engine<2, MC_STANDARD>(argv[1], in.data(), out); break;
       case 106: engine<6, MC_STANDARD>(argv[1], in.data(), out); break;
+      case 202: engine<2, MC_TOURNAMENT>(argv[1], in.data(), out); break;
+      case 206: engine<6, MC_TOURNAMENT>(argv[1], in.data(), out); break;
       default: return 2;
     }
   }
@@ -353,6 +388,39 @@ def test_engine_prng_device_code_equals_plain_standard_rules(harness, P,
                          *_flat(ce._to_rows(state))])
     _check_rows(got, ce.run_perpetual_prng(32, state, P, n_steps, 5, 10,
                                            rules="standard"), cfg)
+
+
+@pytest.mark.parametrize("P,n_steps,stack", [(6, 128, 20), (2, 48, 30)])
+def test_engine_prng_device_code_equals_plain_tournament_rules(
+        harness, P, n_steps, stack):
+    """Short stacks: seats bust, the blinds skip them, and tables freeze
+    and then sit through settle passes."""
+    cfg = TableConfig(num_seats=P, rules="tournament", starting_stack=stack)
+    T = ce.TABLES_PER_BLOCK
+    state = ce.pack_state(cfg, ce.first_deal(5, T, P, "cpu"))
+    got = harness("k4", [P, 2, 33, n_steps, ce._defer_for(n_steps), 5, 10,
+                         ce.FOLD_P_BITS, ce.RAISE_P_BITS, T,
+                         *_flat(ce._to_rows(state))])
+    want = ce.run_perpetual_prng(33, state, P, n_steps, 5, 10,
+                                 rules="tournament")
+    _check_rows(got, want, cfg)
+    assert int((ce.unpack_field(want, cfg, "order") == 0).sum()) > 0
+    assert int((ce.unpack_field(want, cfg, "bust_at", 1) >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("n_hands,board,start", [
+    (3, (), 0), (2, (5, 6, 7), (1 << 32) - 700), (6, (5, 6, 7, 44), 9),
+    (12, (), 3), (4, (5, 6, 7, 44, 50), 0)])
+def test_multiway_rollout_device_code_equals_plain(harness, n_hands, board,
+                                                   start):
+    seed, n = 0x7F4A7C15, 1500
+    hands = [[8 + 2 * h, 9 + 2 * h] for h in range(n_hands)]
+    dead, hm = (m.tolist() for m in cq._multiway_masks(hands, board, "cpu"))
+    got = harness("mw", [seed, start >> 32, start & 0xFFFFFFFF, n, n_hands,
+                         len(dead), *dead, *[x for row in hm for x in row]])
+    words = cq.multiway_words(seed, 5 - len(board), start, n, "cpu")
+    assert got.tolist() == cq._multiway_shares_plain(words, dead,
+                                                     hm).tolist()
 
 
 @pytest.mark.parametrize("rules", ce.RULES)

@@ -111,7 +111,12 @@ def test_engine_det_kernel_equals_plain_standard_rules(cuda, P):
     _engine_det_kernel_equals_plain(cuda, P, "standard")
 
 
-def _engine_det_kernel_equals_plain(cuda, P, rules):
+@pytest.mark.parametrize("P,stack", [(2, 30), (6, 20), (6, 100)])
+def test_engine_det_kernel_equals_plain_tournament_rules(cuda, P, stack):
+    _engine_det_kernel_equals_plain(cuda, P, "tournament", stack)
+
+
+def _engine_det_kernel_equals_plain(cuda, P, rules, stack=100):
     rng = np.random.default_rng(P)
     nb, n_steps, hmax = 2, 40, 12
     T = nb * ce.TABLES_PER_BLOCK
@@ -121,7 +126,8 @@ def _engine_det_kernel_equals_plain(cuda, P, rules):
     deal = np.argsort(rng.random((T, hmax, 52)), axis=-1)[..., :2 * P + 5]
     cards = deal.reshape(nb, 1024, hmax, 2 * P + 5).transpose(0, 2, 3, 1) \
         .reshape(nb, hmax, 2 * P + 5, 8, 128).astype(np.int32)
-    state = ce.pack_state(TableConfig(num_seats=P, rules=rules),
+    state = ce.pack_state(TableConfig(num_seats=P, rules=rules,
+                                      starting_stack=stack),
                           torch.from_numpy(deal[:, 0]).to(cuda))
     acts_t = torch.from_numpy(acts).to(cuda)
     cards_t = torch.from_numpy(np.ascontiguousarray(cards)).to(cuda)
@@ -169,12 +175,66 @@ def test_engine_prng_kernel_equals_plain_standard_rules(cuda, P, n_steps):
         7, state.cpu(), P, n_steps, 5, 10, rules="standard"))
 
 
+@pytest.mark.parametrize("P,n_steps", [(6, 128), (2, 48)])
+def test_engine_prng_kernel_equals_plain_tournament_rules(cuda, P, n_steps):
+    """Short stacks, so that seats bust and frozen tables sit through
+    settle passes; injected words and Philox mode."""
+    g = torch.Generator(device=cuda).manual_seed(P + n_steps)
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules="tournament", starting_stack=20)
+    state = ce.pack_state(cfg, ce.first_deal(3, T, P, cuda))
+    words = cq.random_words(g, ce.prng_words_shape(T, P, n_steps), cuda)
+    before = ce.LAUNCHES["engine_prng_tournament"]
+    k = ce.run_perpetual_prng(0, state, P, n_steps, 5, 10,
+                              rules="tournament", words=words)
+    assert ce.LAUNCHES["engine_prng_tournament"] == before + 1
+    assert torch.equal(k, ce._run_prng_plain(state, words, P, n_steps, 5, 10,
+                                             "tournament"))
+    k = ce.run_perpetual_prng(7, state, P, n_steps, 5, 10, rules="tournament")
+    assert torch.equal(k.cpu(), ce.run_perpetual_prng(
+        7, state.cpu(), P, n_steps, 5, 10, rules="tournament"))
+    assert int((ce.unpack_field(k, cfg, "order") == 0).sum()) > 0
+
+
+def test_tournaments_to_completion_kernel_equals_cpu(cuda):
+    cfg = TableConfig(num_seats=6, rules="tournament", starting_stack=20)
+    T = 2 * ce.TABLES_PER_BLOCK
+    k, k_steps = ce.tournaments_to_completion(4, cfg, T, 64, device=cuda)
+    p, p_steps = ce.tournaments_to_completion(4, cfg, T, 64, device="cpu")
+    assert torch.equal(k.cpu(), p) and k_steps == p_steps
+    places, frozen = ce.tournament_results(k, cfg)
+    assert frozen.all()
+    assert (np.sort(places, axis=1) == np.arange(1, 7)).all()
+
+
+@pytest.mark.parametrize("n_hands,board", [
+    (3, ()), (2, (5, 6, 7)), (6, (5, 6, 7, 44)), (12, ()),
+    (4, (5, 6, 7, 44, 50))])
+def test_multiway_kernel_equals_plain(cuda, n_hands, board):
+    """B3 on injected words and in Philox mode (n not a multiple of the
+    grid's threads)."""
+    hands = [[8 + 2 * h, 9 + 2 * h] for h in range(n_hands)]
+    dead, hm = cq._multiway_masks(hands, board, cuda)
+    g = torch.Generator(device=cuda).manual_seed(n_hands)
+    n = (1 << 18) + 5
+    words = cq.random_words(g, (5 - len(board), n), cuda)
+    before = cq.LAUNCHES["multiway"]
+    k = cq.multiway_shares(0, dead, hm, n, words=words)
+    assert cq.LAUNCHES["multiway"] == before + 1
+    assert torch.equal(k, cq._multiway_shares_plain(words, dead.tolist(),
+                                                    hm.tolist()))
+    assert int(k.sum()) == cq.multiway_scale(n_hands) * n
+    k = cq.multiway_shares(9, dead, hm, n)
+    assert torch.equal(k.cpu(), cq.multiway_shares(9, dead.cpu(), hm.cpu(),
+                                                   n))
+
+
 @pytest.fixture
 def es3(cuda):
     return cn.net_weights(tpn.load_params("data/policy_6max_es3.npz"), cuda)
 
 
-@pytest.mark.parametrize("rules", ce.RULES)
+@pytest.mark.parametrize("rules", cn.RULES)
 def test_net_probe_kernel_equals_plain(cuda, es3, rules):
     """Features, masked logits and Gumbel scores bit for bit on the card:
     the kernel's __fdiv_rn/__fmul_rn/__fadd_rn and logf against PyTorch's
@@ -189,7 +249,7 @@ def test_net_probe_kernel_equals_plain(cuda, es3, rules):
     assert torch.equal(k.view(torch.int32), p.view(torch.int32))
 
 
-@pytest.mark.parametrize("rules", ce.RULES)
+@pytest.mark.parametrize("rules", cn.RULES)
 def test_net_det_kernel_equals_plain(cuda, es3, rules):
     P, n_steps, hmax = 6, 40, 16
     T = 2 * ce.TABLES_PER_BLOCK
@@ -236,7 +296,7 @@ def _banks(cuda, names):
     return cn.bank_weights([nets[n] for n in names], cuda)
 
 
-@pytest.mark.parametrize("rules", ce.RULES)
+@pytest.mark.parametrize("rules", cn.RULES)
 def test_net_det_banked_kernel_equals_plain(cuda, rules):
     P, n_steps, hmax = 6, 40, 16
     T = 2 * ce.TABLES_PER_BLOCK

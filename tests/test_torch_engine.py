@@ -23,7 +23,9 @@ import torch
 from montecarlo_tpu.engine.state import TableConfig as JaxTableConfig
 from montecarlo_tpu.ops import pallas_engine as jpe
 from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import policy_net as tpn
 from montecarlo_tpu_torch.ops import cuda_engine as ce
+from montecarlo_tpu_torch.ops import cuda_net as cn
 
 # One intra-op thread: the suite runs several test processes at once.
 torch.set_num_threads(1)
@@ -45,14 +47,21 @@ def _streams(seed, P, n_steps, hmax):
 
 @pytest.mark.parametrize("P", [2, 6, 9])
 def test_field_layout_and_pack_state_match_jax(P):
-    for rules in ("reference", "standard", "tournament"):
-        assert ce._field_layout(P, rules) == jpe._field_layout(P, rules)
+    """Every rule set's layout and first state, with full stacks and with
+    stacks short enough that a blind goes all in."""
     rng = np.random.default_rng(P)
     first = np.argsort(rng.random((2 * T, 52)), axis=1)[:, :2 * P + 5]
-    want = np.asarray(jpe.pack_state(JaxTableConfig(num_seats=P),
-                                     first.astype(np.int32)))
-    got = ce.pack_state(TableConfig(num_seats=P), torch.from_numpy(first))
-    np.testing.assert_array_equal(ce.state_to_numpy(got), want)
+    for rules in ("reference", "standard", "tournament"):
+        assert ce._field_layout(P, rules) == jpe._field_layout(P, rules)
+        for stack in (100, 8):
+            want = np.asarray(jpe.pack_state(JaxTableConfig(
+                num_seats=P, rules=rules, starting_stack=stack),
+                first.astype(np.int32)))
+            got = ce.pack_state(TableConfig(num_seats=P, rules=rules,
+                                            starting_stack=stack),
+                                torch.from_numpy(first))
+            np.testing.assert_array_equal(ce.state_to_numpy(got), want,
+                                          err_msg=f"{rules} {stack}")
     np.testing.assert_array_equal(
         ce.state_to_numpy(ce.state_from_numpy(want, "cpu")), want)
 
@@ -123,7 +132,8 @@ def test_det_plain_matches_jax_kernel_standard_rules(seed):
     assert float((chips[clean] == 0).float().mean()) > 0.99
 
 
-def _jax_deferred(monkeypatch, first, words, P, rules, **settle):
+def _jax_deferred(monkeypatch, first, words, P, rules, starting_stack=100,
+                  **settle):
     """The JAX kernel body's deferred-settle composition on injected
     words: ``_policy_prng`` + ``_step_nosettle`` x DEFER, then
     ``_sample_cards`` + ``_settle_pass``."""
@@ -132,7 +142,8 @@ def _jax_deferred(monkeypatch, first, words, P, rules, **settle):
                 for w in range(words.shape[1])])
     monkeypatch.setattr(jpe, "pltpu", types.SimpleNamespace(
         prng_random_bits=lambda s: jnp.asarray(next(seq))))
-    packed = jpe.pack_state(JaxTableConfig(num_seats=P, rules=rules), first)
+    packed = jpe.pack_state(JaxTableConfig(
+        num_seats=P, rules=rules, starting_stack=starting_stack), first)
     layout, F = jpe._field_layout(P, rules)
     st = jpe._unpack(packed[0], layout)
     for _ in range(words.shape[0]):
@@ -209,7 +220,7 @@ def test_prng_plain_matches_jax_deferred_composition(monkeypatch):
                                "hand_ct").sum()) > 0
 
 
-def test_selfplay_cpu_runs_reference_rules_only():
+def test_selfplay_cpu_runs_every_rule_set():
     cfg = TableConfig(num_seats=6)
     state, hands, ovf = ce.selfplay_perpetual_kernel(3, cfg, T, 64,
                                                       device="cpu")
@@ -220,19 +231,29 @@ def test_selfplay_cpu_runs_reference_rules_only():
     seat = sum(int(ce.unpack_field(state, cfg, "seat_delta", k).sum())
                for k in range(6))
     assert seat == int(sums.sum())
-    # standard rules run too; tournament rules are not ported yet
     std = TableConfig(num_seats=6, rules="standard")
     st_std, hands_std, ovf_std = ce.selfplay_perpetual_kernel(3, std, T, 64,
                                                           device="cpu")
     assert hands_std > 0 and ovf_std == 0
     assert bool((sum(ce.unpack_field(st_std, std, "delta_sum", k)
                      for k in range(6)) == 0).all())
-    bad = TableConfig(num_seats=6, rules="tournament")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ce.selfplay_perpetual_kernel(3, bad, T, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ce.run_perpetual_prng(0, state, 6, 16, 5, 10, rules="tournament")
-    with pytest.raises(NotImplementedError):
-        ce.run_perpetual_det(state, torch.zeros((1, 1, *ce.TILE)),
-                             torch.zeros((1, 1, 17, *ce.TILE)), 6, 1,
-                             5, 10, rules="tournament")
+    # tournament rules: seats bust, the survivors' chips conserve
+    tour = TableConfig(num_seats=6, rules="tournament", starting_stack=20)
+    st_t, hands_t, ovf_t = ce.selfplay_perpetual_kernel(3, tour, T, 64,
+                                                        device="cpu")
+    assert hands_t > 0 and ovf_t == 0
+    assert bool((sum(ce.unpack_field(st_t, tour, "delta_sum", k)
+                     for k in range(6)) == 0).all())
+    assert int((ce.unpack_field(st_t, tour, "bust_at", 0) >= 0).sum()) > 0
+    assert ce.position_deltas(st_t, tour)[1] == hands_t
+    # the net kernels take reference and standard rules only, as the JAX
+    # net entry points do
+    es3 = cn.net_weights(tpn.load_params("data/policy_6max_es3.npz"), "cpu")
+    with pytest.raises(ValueError, match="net kernels"):
+        cn.run_net_eval(0, st_t, es3, 6, 16, 5, 10, 20, "tournament", 1)
+    with pytest.raises(ValueError, match="net kernels"):
+        cn.run_net_det(st_t, torch.zeros((1, 1, 17, *ce.TILE)), es3, 6, 1,
+                       5, 10, "tournament")
+    with pytest.raises(ValueError, match="net kernels"):
+        cn.selfplay_net_eval_kernel(0, tour, tpn.load_params(
+            "data/policy_6max_es3.npz"), 1, T, 16, device="cpu")

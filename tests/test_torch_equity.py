@@ -1,13 +1,18 @@
-"""The port's equity rollouts (K1/K2 plain versions) against the JAX kernels.
+"""The port's equity rollouts (K1/K2/B3 plain versions) against the JAX
+kernels.
 
 The JAX kernels draw their words from the TPU's PRNG, which has no CPU
 lowering. So the JAX side here runs the kernel bodies' own jnp pieces
 (``_sample_cards``, ``_masks_of``, ``eval_masks_cmp_impl``) on one
 (128, 128) tile, with ``_uniform_draws`` patched to return injected numpy
-words; the port's plain versions get the same words. Counts must be equal.
+words; for B3 it runs the kernel body of ``_make_multiway_kernel`` itself,
+with ``pl`` and ``pltpu`` replaced by stubs that feed it the words. The
+port's plain versions get the same words. Counts must be equal.
 """
 
 import json
+import math
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -136,3 +141,78 @@ def test_canonical_hands_and_card_maps_match_jax():
                                       jnp.asarray(dead))))
     with pytest.raises(ValueError):
         teq.equity_vs_hand(0, AKS, [AKS[0], QQ[0]], 16, device="cpu")
+
+
+@pytest.mark.parametrize("n_hands", [2, 3, 6])
+@pytest.mark.parametrize("n_board", [0, 3, 4])
+def test_multiway_shares_plain_matches_jax_kernel_body(monkeypatch, n_hands,
+                                                       n_board):
+    """B3 on one (128, 128) tile of injected words: the JAX kernel body
+    (program 0 of ``_make_multiway_kernel``) and the port's plain version
+    give equal integer shares."""
+    rng = np.random.default_rng(10 * n_hands + n_board)
+    deal = rng.permutation(52)[:2 * n_hands + n_board].astype(np.int32)
+    hands, board = deal[:2 * n_hands].reshape(n_hands, 2), deal[2 * n_hands:]
+    dead, hm = ce._multiway_masks(hands, board, "cpu")
+    n_draw = 5 - n_board
+    words = rng.integers(0, 1 << 32, (n_draw, TILE_N), dtype=np.int64)
+    draws = iter([jnp.asarray(w.astype(np.uint32).reshape(pe.TILE))
+                  for w in words])
+    monkeypatch.setattr(pe, "pl", types.SimpleNamespace(
+        program_id=lambda axis: 0,
+        when=lambda cond: (lambda body: body() if cond else None)))
+    monkeypatch.setattr(pe, "pltpu", types.SimpleNamespace(
+        prng_seed=lambda seed: None,
+        prng_random_bits=lambda shape: next(draws)))
+    scale = math.lcm(*range(1, n_hands + 1))
+    want = np.zeros(n_hands, np.int32)
+    pe._make_multiway_kernel(n_hands, len(dead), n_draw, scale)(
+        np.zeros(1, np.int32), dead.numpy(), hm.numpy(), want)
+    assert next(draws, None) is None  # every word consumed
+    got = ce.multiway_shares(0, dead, hm, TILE_N,
+                             words=torch.from_numpy(words))
+    assert got.tolist() == want.tolist()
+    assert int(got.sum()) == scale * TILE_N
+
+
+AA = [make_card(0, 14), make_card(1, 14)]
+KK = [make_card(2, 13), make_card(3, 13)]
+SEVEN_SIX = [make_card(0, 7), make_card(1, 6)]
+
+
+def test_equity_multiway_cpu():
+    """tests/test_equity.py's multiway case on the port's CPU path."""
+    hands = [AA, KK, SEVEN_SIX]
+    eq, n = teq.equity_multiway(31, hands, 1 << 17, device="cpu")
+    assert n == 1 << 17 and eq.shape == (3,)
+    assert abs(float(eq.sum()) - 1.0) < 1e-12  # the equities partition 1
+    assert eq[0] > eq[1] > 0.15                # AA > KK
+    assert eq[2] < 0.30
+    assert 0.5 < eq[0] < 0.68, eq              # about 0.58 / 0.24 / 0.18
+    # two hands: the same question as equity_vs_hand
+    two = teq.equity_multiway(32, hands[:2], 1 << 17, device="cpu")[0]
+    pair = teq.equity_vs_hand(33, AA, KK, 1 << 17, device="cpu")
+    assert abs(float(two[0]) - pair.equity) < 0.01
+    # the Philox words of the CPU wrapper are the kernel's
+    dead, hm = ce._multiway_masks(hands, (), "cpu")
+    assert torch.equal(
+        ce.multiway_shares(31, dead, hm, 5000),
+        ce._multiway_shares_plain(ce.multiway_words(31, 5, 0, 5000, "cpu"),
+                                  dead.tolist(), hm.tolist()))
+
+
+def test_equity_multiway_rejects_overlaps_and_bad_sizes():
+    ah = make_card(2, 14)
+    with pytest.raises(ValueError):
+        teq.equity_multiway(0, [[ah, make_card(2, 13)], [ah, make_card(3, 2)]],
+                            1000, device="cpu")
+    with pytest.raises(ValueError):
+        teq.equity_multiway(0, [AA, KK], 1000, board=[AA[0]], device="cpu")
+    with pytest.raises(ValueError):  # one hand is no pot to split
+        teq.equity_multiway(0, [AA], 1000, device="cpu")
+    thirteen = np.arange(26).reshape(13, 2)
+    with pytest.raises(ValueError):  # lcm(1..13) shares overflow int32
+        teq.equity_multiway(0, thirteen, 1000, device="cpu")
+    with pytest.raises(ValueError):  # six board cards
+        teq.equity_multiway(0, [AA, KK], 1000, board=[20, 21, 22, 23, 24, 25],
+                            device="cpu")

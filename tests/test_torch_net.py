@@ -284,7 +284,7 @@ def test_net_wrappers_check_their_inputs():
         cn.run_net_eval(0, state, w, P, 16, 5, 10, 100, "standard", 1 << P)
     with pytest.raises(ValueError):  # a reference-rules layout
         cn.run_net_eval(0, state, w, P, 16, 5, 10, 100, "reference", 1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="net kernels"):
         cn.run_net_det(state, torch.zeros((1, 2, 17, *ce.TILE)), w, P, 4, 5,
                        10, "tournament")
     big = torch.zeros((1 << 21, 1, 1, 1), dtype=torch.int32).expand(

@@ -48,10 +48,10 @@ MODULES = [
     "montecarlo_tpu_torch.models.train_es",
     "montecarlo_tpu_torch.rollout.equity",
 ]
-# Runs the port's CPU path (equity, the engine under both rule sets, net
-# evaluation, an ES generation on the population form with a rule bot's
-# league) in a fresh process, then lists what it loaded of JAX and of the
-# JAX package.
+# Runs the port's CPU path (equity and multiway equity, the engine under
+# every rule set, tournaments to completion, net evaluation, an ES
+# generation on the population form with a rule bot's league) in a fresh
+# process, then lists what it loaded of JAX and of the JAX package.
 CPU_PATH = """
 import json, sys
 import torch
@@ -63,9 +63,15 @@ from montecarlo_tpu_torch.rollout import equity as teq
 torch.set_num_threads(1)
 r = teq.equity_vs_hand(1, [0, 12], [25, 38], 4096, device="cpu")
 assert r.n == 4096
-for rules in ("reference", "standard"):
+eq, n = teq.equity_multiway(1, [[0, 12], [25, 38], [5, 6]], 4096,
+                            device="cpu")
+assert n == 4096 and abs(eq.sum() - 1) < 1e-12
+for rules in ("reference", "standard", "tournament"):
     cfg = TableConfig(num_seats=6, rules=rules)
     assert ce.selfplay_perpetual_kernel(2, cfg, 1024, 32, device="cpu")[1] > 0
+tour = TableConfig(num_seats=6, rules="tournament", starting_stack=20)
+state, _ = ce.tournaments_to_completion(2, tour, 1024, 64, device="cpu")
+assert ce.tournament_results(state, tour)[1].all()
 std = TableConfig(num_seats=6, rules="standard")
 es3 = load_params("data/policy_6max_es3.npz")
 means, errs, hands = cn.selfplay_net_eval_kernel(2, std, es3, 1, 1024, 32,
@@ -161,6 +167,8 @@ def test_cuda_requests_raise_without_a_card():
         teq.equity_vs_hand(0, [0, 1], [2, 3], 1024, device="cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         cq.equity_sweep_kernel(0, [[0, 1]], 1024, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        teq.equity_multiway(0, [[0, 1], [2, 3]], 1024, device="cuda")
     cfg = TableConfig(num_seats=6)
     with pytest.raises((RuntimeError, AssertionError)):
         ce.selfplay_perpetual_kernel(0, cfg, 1024, 16, device="cuda")
@@ -182,6 +190,12 @@ ENTRY_POINTS = {
     "equity_vs_random": lambda: teq.equity_vs_random(0, [0, 1], 1024),
     "equity_exact": lambda: teq.equity_exact([0, 1], [2, 3], [4, 5, 6, 7]),
     "equity_sweep_kernel": lambda: cq.equity_sweep_kernel(0, [[0, 1]], 1024),
+    "equity_multiway": lambda: teq.equity_multiway(
+        0, [[0, 1], [2, 3], [4, 5]], 1024),
+    "equity_multiway_kernel": lambda: cq.equity_multiway_kernel(
+        0, [[0, 1], [2, 3]], 1024, [7, 8, 9]),
+    "tournaments_to_completion": lambda: ce.tournaments_to_completion(
+        0, TableConfig(num_seats=6, rules="tournament"), 1024),
     "selfplay_perpetual_kernel": lambda: ce.selfplay_perpetual_kernel(
         0, TableConfig(num_seats=6), 1024, 16),
     "selfplay_net_eval_kernel": lambda: cn.selfplay_net_eval_kernel(
