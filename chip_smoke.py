@@ -50,7 +50,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    multiway shares summing to exactly lcm(1..N) x rollouts and each
    equity within 4 sigma of exact enumeration; tournament K3 with busted
    seats and frozen tables; every tournament complete, winner takes all,
-   chips conserved, placements total, no overflow;
+   chips conserved, placements total, no overflow; and the tournament
+   seat-0 edge (ROADMAP C-1): the completion run again with the first
+   button written to 3, with two more seeds, and from a first deal taken
+   from a uniform permutation per table with the JAX engine's position
+   mapping, each seat's win share and its z against 1/6 logged, and a
+   chi-squared test of ``first_deal``'s cards per seat and per position;
 3. agreement, tolerance 0: every kernel call of phase 1 against its plain
    PyTorch version on the card, on the same inputs at the same size (the
    plain versions compute the kernels' Philox words, ``ops/philox.py``),
@@ -64,7 +69,17 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 4. timing: each main-path kernel call again on the card (CUDA events),
    ``net_eval_hands_per_sec`` and ``train_hands_per_sec`` as ``bench.py``
    computes them, ``multiway_rollouts_per_sec`` and
-   ``tournaments_per_sec`` (port only).
+   ``tournaments_per_sec`` (port only);
+5. the probes (path e, after the timing so that the main paths' numbers
+   are taken as before): the ported ``scripts/exp_carry_model.py`` at its
+   sizes (2^20 tables x 512 steps; every carry form at each R it is built
+   for), the 256-step run of ``carry_array`` at R = 141 and the SASS of
+   every carry kernel's step loop (the adds, loads and stores a folded
+   loop would lose); the ported ``scripts/debug_kernel_compile.py``: each
+   stage built by its own nvcc (one at a time, in the background from the
+   end of phase 0), then 256 steps from the main path's K3 state (mid-hand,
+   pots on the table) at the script's 32 blocks and at 1024 blocks; every
+   probe launch held against its plain version, tolerance 0, and timed.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -75,6 +90,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +148,10 @@ TOUR_STACK = 20
 TOUR_LAUNCH = 1024
 N_MW_PLAIN = 1 << 26
 TPU_MW_BOUND = 0.004
+# Path e: the stage probe's steps and its small size
+# (scripts/debug_kernel_compile.py's 256 steps and 32 blocks).
+STAGE_STEPS = 256
+STAGE_BLOCKS = 32
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
 # Lower counts of the operations a kernel's work needs, for bound_ms,
@@ -140,17 +160,25 @@ PLAIN_CHUNK = 1 << 24
 # key additions), one 7-card hand key (evaluator.cuh: multiplicity masks,
 # two run scans, the flush mask, the chosen payload), one betting step
 # (engine.cuh:mc_step_nosettle: head scan, clamp, street algebra,
-# membership), the 24 features of a decision. Float operations: the MLP's
-# products and sums, each rounded once. Where a kernel's steps depend on
-# the data, a hand counts one betting step (every hand has at least one).
+# membership), the 24 features of a decision, one random-policy decision
+# (mc_policy: the head scan over 6 seats, the amount owed, the draw's
+# compares), one 17-card deal past its Philox words (mc_sample_cards: a
+# modulo per card and 3 operations per earlier card, 17 + 3 * 136). Float
+# operations: the MLP's products and sums, each rounded once. Where a
+# kernel's steps depend on the data, a hand counts one betting step (every
+# hand has at least one). The carry probe: one add per word-step.
 OPS = {"philox_block": 60, "hand_key": 60, "step": 100, "features": 100,
-       "mlp_f32": 2 * (24 * 64 + 64 * 64 + 64 * 4)}
+       "mlp_f32": 2 * (24 * 64 + 64 * 64 + 64 * 4), "policy": 50,
+       "deal": 425}
 # H100 SXM rates: HBM 3.35 TB/s; float32 67 TFLOP/s counts an FMA as two
 # operations, so one rounded multiply or add per lane and clock is 33.5
-# T/s; the INT32 lanes are half the FP32 lanes, 16.75 T/s.
+# T/s. Integer operations issue to the INT32 lanes (64 an SM) and to the
+# FP32 lanes (IMAD, and Hopper's VIADD), so their peak is also one a lane
+# and clock, 33.5 T/s: the carry probe's adds run at 31 T/s (PERF.md, PR
+# 6), above the INT32 lanes' 16.75.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 33.5e12
-INT_OPS_PER_S = 16.75e12
+INT_OPS_PER_S = 33.5e12
 # Philox4x32-10 known answers: (counter x0..x3, key k0 k1) -> output, from
 # the Random123 distribution's kat_vectors (Salmon et al., SC'11).
 PHILOX_KAT = [
@@ -196,12 +224,16 @@ def main() -> int:
     from montecarlo_tpu_torch.models import policy_net as tpn
     from montecarlo_tpu_torch.models import train_es as tte
     from montecarlo_tpu_torch.ops import _build
+    from montecarlo_tpu_torch.ops import cuda_carry as cc
     from montecarlo_tpu_torch.ops import cuda_engine as ce
     from montecarlo_tpu_torch.ops import cuda_equity as cq
     from montecarlo_tpu_torch.ops import cuda_net as cn
+    from montecarlo_tpu_torch.ops import cuda_stages as cs
     from montecarlo_tpu_torch.ops import philox
     from montecarlo_tpu_torch.ops.evaluator import eval_masks_cmp_impl
     from montecarlo_tpu_torch.rollout import equity as teq
+    from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
+    from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
 
     dev = cuda_device()
 
@@ -226,7 +258,7 @@ def main() -> int:
         return float(np.median([timed(fn)[1] for _ in range(reps)]))
 
     def reset_counts():
-        for mod in (cq, ce, cn):
+        for mod in (cq, ce, cn, cc, cs):
             mod.reset_launches()
 
     def field_sum(state, cfg, name, rows):
@@ -296,6 +328,11 @@ def main() -> int:
         log(f"{lib_path}\n" + (lib_path.parent / "build.log").read_text())
     _build.library()
     _build.library(6)
+    # the stage probe's builds, one nvcc per stage, one at a time, in the
+    # background while the main paths run on the card (phase 5 uses them)
+    stage_pool = ThreadPoolExecutor(1)
+    stage_job = stage_pool.submit(lambda: [
+        cs.stage_library(stage, dkc.P, fresh=True) for stage in cs.STAGES])
 
     kat = philox.philox_blocks(torch.tensor([c for c, _ in PHILOX_KAT],
                                             dtype=torch.int64, device=dev))
@@ -717,6 +754,75 @@ def main() -> int:
         f"max {int(tour_hands.max())}; winner takes all, chips conserved, "
         f"total placements, overflow 0; seat win shares "
         f"{np.array2string(wins, precision=4)} (1/6 = {1 / 6:.4f})")
+
+    # ROADMAP C-1, seat 0's win share. (1) The first button written to 3:
+    # the positions play the same hands on the same words, so a positional
+    # edge moves to seat 3 (a seat-view fault would keep it at seat 0).
+    # (2) Two more seeds. (3) The first deal from a uniform permutation of
+    # the deck per table (argsort of float64 uniforms) with the JAX
+    # engine's position mapping (pallas_engine.py:1693-1696), in place of
+    # first_deal; and a chi-squared test of first_deal's cards.
+    sd = np.sqrt(1 / 6 * 5 / 6 / T_FULL)
+
+    def c1_shares(what, state, steps, first_sb):
+        places, frozen = ce.tournament_results(state, tour)
+        check(bool(frozen.all()), f"C-1 {what}: every table frozen")
+        w = np.bincount(np.argmin(places, axis=1), minlength=P) / T_FULL
+        z = (w - 1 / 6) / sd
+        log(f"C-1 {what}: {steps} slots; seat win shares "
+            f"{np.array2string(w, precision=4)}, z "
+            f"{np.array2string(z, precision=1)}; the first small blind "
+            f"(seat {first_sb}) z = {z[first_sb]:+.1f}")
+        return w
+
+    c1 = {"seed 0, button 0": c1_shares("the main run (button 0)",
+                                        tour_state, tour_steps, 0)}
+    button_row = ce._field_layout(P, "tournament")[0]["button"][0]
+    st_b3 = ce.pack_state(tour, ce.first_deal(SEED, T_FULL, P, dev))
+    st_b3[:, button_row] = 3
+    c1["seed 0, button 3"] = c1_shares(
+        "first button 3", *ce.run_to_completion(SEED, st_b3, tour,
+                                                TOUR_LAUNCH), 3)
+    check(np.array_equal(np.roll(c1["seed 0, button 0"], 3),
+                         c1["seed 0, button 3"]),
+          "C-1: with the first button at 3 every win moves to seat + 3")
+    for k in (1, 2):
+        c1[f"seed {k}, button 0"] = c1_shares(
+            f"seed {SEED + k}", *ce.tournaments_to_completion(
+                SEED + k, tour, T_FULL, steps_per_launch=TOUR_LAUNCH,
+                device=dev), 0)
+    deck = torch.rand((T_FULL, 52), generator=g, dtype=torch.float64,
+                      device=dev).argsort(dim=1)
+    jax_pos = list(range(2 * P)) + [2 * P + k for k in (1, 2, 3, 5, 7)]
+    c1["permutation deal"] = c1_shares(
+        "first deal from a permutation", *ce.run_to_completion(
+            SEED, ce.pack_state(tour, deck[:, jax_pos]), tour, TOUR_LAUNCH),
+        0)
+    del deck, st_b3
+    fsb = np.array([c1[k][0] for k in c1 if "button 0" in k]
+                   + [c1["permutation deal"][0]])
+    log(f"C-1: the first small blind's win share over the "
+        f"{len(fsb)} independent button-0 runs: {fsb.mean():.5f} "
+        f"(z = {(fsb.mean() - 1 / 6) / (sd / np.sqrt(len(fsb))):+.1f})")
+    fd = ce.first_deal(SEED, T_FULL, P, dev)
+
+    def chi2_z(cols):
+        """Chi-squared of the cards in ``cols`` over the 52 cards, 51
+        degrees of freedom, as a Wilson-Hilferty z."""
+        n = torch.bincount(fd[:, cols].reshape(-1), minlength=52).double()
+        e = len(cols) * T_FULL / 52
+        x2, k = float(((n - e) ** 2 / e).sum()), 51
+        return x2, ((x2 / k) ** (1 / 3) - (1 - 2 / (9 * k))) \
+            / np.sqrt(2 / (9 * k))
+    seat_chi = [chi2_z([p, P + p]) for p in range(P)]
+    col_chi = [chi2_z([c]) for c in range(2 * P + 5)]
+    log(f"C-1: first_deal chi-squared (51 dof) per position's two hole "
+        f"cards {[round(x, 1) for x, _ in seat_chi]}, per card slot max "
+        f"{max(x for x, _ in col_chi):.1f}; max z "
+        f"{max(z for _, z in seat_chi + col_chi):+.2f}")
+    check(max(z for _, z in seat_chi + col_chi) < 5,
+          "C-1: first_deal's cards are uniform per position and slot")
+    del fd
     phase_done("2 results")
 
     # ---- 3. agreement: each kernel call against its plain version -------
@@ -1131,6 +1237,155 @@ def main() -> int:
     }
     log(json.dumps({"card": smi, **rates}))
     phase_done("4 timing")
+
+    # ---- 5. the probes (path e): carry model and engine stages ----------
+    builds = stage_job.result()
+    stage_pool.shutdown()
+    for b in builds:
+        log(f"stage {b.stage}: nvcc {b.seconds:.2f} s (its own build), "
+            f"ptxas {b.ptxas}")
+    g5 = torch.Generator(device=dev).manual_seed(SEED + 5)
+    stage_in = {STAGE_BLOCKS: det_out[:STAGE_BLOCKS].clone(),
+                T_FULL // 1024: det_out}
+    reset_counts()
+    t0 = time.perf_counter()
+    carry_ns, carry_x, carry_out = {}, {}, {}
+    for form in cc.FORMS:
+        for R in cc.R_OF[form]:
+            # words that wrap, so that the plain version's int32 wrap is
+            # held too
+            x = torch.randint(-2**31, 2**31, (ecm.N_BLOCKS, R, 8, 128),
+                              generator=g5, dtype=torch.int64,
+                              device=dev).to(torch.int32)
+            carry_ns[form, R], out = ecm.time_call(form, x, ecm.N_STEPS)
+            if R == 141:
+                carry_x[form], carry_out[form] = x, out
+            else:
+                p = cc._carry_plain(x, ecm.N_STEPS)
+                agree(f"carry_{form}_R{R}", f"{ecm.N_BLOCKS} blocks x "
+                      f"{ecm.N_STEPS} steps", out, p)
+                del p
+            del x, out
+    # a folded step loop takes the same time at any step count
+    half = ecm.N_STEPS // 2
+    ns_half, out_half = ecm.time_call("array", carry_x["array"], half)
+    stage_res = {(name, nb): dkc.compile_variant(
+        name, STAGE_STEPS, nb, state=st_in, seed=SEED, rebuild=False)
+        for name in cs.STAGES for nb, st_in in stage_in.items()}
+    sync()
+    probe_s = time.perf_counter() - t0
+    probe_launches = {**cc.LAUNCHES, **cs.LAUNCHES}
+    log(f"main path (the probes): {probe_s:.2f} s, launches "
+        f"{probe_launches}")
+    check(all(v > 0 for v in probe_launches.values()),
+          "every probe kernel launched")
+
+    carry_ms = {k: ns * 1e-6 * T_FULL * ecm.N_STEPS
+                for k, ns in carry_ns.items()}
+    for form in cc.FORMS:
+        key = f"carry_{form}_R141"
+        p, plain_ms[key] = timed(lambda: cc._carry_plain(carry_x[form],
+                                                         ecm.N_STEPS))
+        agree(key, f"{ecm.N_BLOCKS} blocks x {ecm.N_STEPS} steps",
+              carry_out[form], p)
+        del p
+    agree("carry_array_R141", f"{half} steps", out_half,
+          cc._carry_plain(carry_x["array"], half))
+    ratio = ns_half * half / (carry_ns["array", 141] * ecm.N_STEPS)
+    log(f"carry_array R = 141: {half} steps take {ratio:.4f} of "
+        f"{ecm.N_STEPS} steps' time")
+    check(0.4 <= ratio <= 0.6, "carry_array: the time follows the steps "
+          "(the step loop is not folded)")
+    sass = ecm.sass_check()
+    for name, loops in sorted(sass.items()):
+        m = re.search(r"mc_carry_(array|dict|ref)_kernelILi(\d+)E", name)
+        if not m:
+            continue
+        form, R = m.group(1), int(m.group(2))
+        step = max(loops, key=lambda c: c["adds"])  # the step loop
+        log(f"SASS {form} R = {R}: step loop {step}")
+        check(step["adds"] >= (1 if form == "dict" else R)
+              and (form != "ref" or step["ldg"] >= R <= step["stg"])
+              and (form != "dict" or step["ldl"] >= 1 <= step["stl"]),
+              f"SASS {form} R = {R}: the step loop keeps its adds and "
+              f"memory operations")
+    lib_x = carry_x["array"]
+    _, library_ms = timed(lambda: lib_x + ecm.N_STEPS)
+    log(f"library: x + {ecm.N_STEPS} (the output only, none of the "
+        f"carried steps) {library_ms:.3f} ms")
+    carry_rows = {f"{f}_R{R}": carry_ns[f, R] for f, R in carry_ns}
+    log(json.dumps({"carry_ns_per_table_step": carry_rows,
+                    "card": smi}))
+    spills = [R for R in cc.R_ARRAY if _build.ptxas_report(
+        (_build.carry_library_path().parent / "build.log").read_text())
+        [f"_Z21mc_carry_array_kernelILi{R}EEvPKiPiii"]["spill_stores"] > 0]
+    log(f"carry_array spills from R = {min(spills) if spills else None}")
+    del carry_x, carry_out, out_half, lib_x
+
+    k3_ns = times["K3"] * 1e6 / (T_FULL * DET_STEPS)
+    stage_rows = {}
+    for (name, nb), r in stage_res.items():
+        T = nb * 1024
+        key = f"stage_{name}_{nb}"
+        st_in = stage_in[nb]
+        p, plain_ms[key] = timed(lambda: cs._run_stage_plain(
+            name, st_in, lambda i: cs.stage_words(SEED, T, name, P, i, dev),
+            P, STAGE_STEPS, SB, BB))
+        agree(key, f"{nb} blocks x {STAGE_STEPS} steps", r["out"], p)
+        check(not torch.equal(r["out"], st_in), f"{key}: the stage changed "
+              f"the state")
+        stage_rows[key] = {k: r.get(k) for k in (
+            "nvcc_s", "registers", "stack", "spill_stores", "spill_loads",
+            "ms", "ns_per_table_step")}
+        del p
+    log(json.dumps({"stages": stage_rows, "card": smi}))
+    full_ns = stage_res["full", T_FULL // 1024]["ns_per_table_step"]
+    log(f"stage full {full_ns:.4f} ns/table-step against K3 reference "
+        f"{k3_ns:.4f} (x {full_ns / k3_ns:.2f})")
+    paid = field_sum(stage_res["settle", T_FULL // 1024]["out"], cfg,
+                     "stacks", P) - field_sum(det_out, cfg, "stacks", P)
+    log(f"stage settle: {int((paid != 0).sum())} of {T_FULL} tables paid "
+        f"out chips")
+    check(int((paid != 0).sum()) > 0, "stage settle paid out chips")
+
+    # bounds: carry R adds per table-step against the words once each way;
+    # a stage's operations per table-step (full: plus the hands it
+    # settled) against the state once each way
+    def stage_ops(name, out, st_in):
+        W = cs.words_per_step(name, P) / 4 * OPS["philox_block"]
+        per_step = {"carry": 1, "policy": OPS["policy"],
+                    "street": OPS["policy"] + 6, "deal": OPS["deal"],
+                    "settle": P * OPS["hand_key"] + 4 * 6 * P,
+                    "full": OPS["policy"] + OPS["deal"] + OPS["step"]}[name]
+        hands = int((ce.unpack_field(out, cfg, "hand_ct")
+                     - ce.unpack_field(st_in, cfg, "hand_ct")).sum()) \
+            if name == "full" else 0
+        return (W + per_step) * st_in.shape[0] * 1024 * STAGE_STEPS \
+            + hands * P * OPS["hand_key"]
+
+    for form in cc.FORMS:
+        key = f"carry_{form}_R141"
+        times[key] = carry_ms[form, 141]
+        work[key] = (T_FULL * ecm.N_STEPS, "table-steps",
+                     2 * 141 * 4 * T_FULL, 141 * ecm.N_STEPS * T_FULL, 0)
+        launches[key] = probe_launches[key]
+    for name in cs.STAGES:
+        nb = T_FULL // 1024
+        key = f"stage_{name}_{nb}"
+        r = stage_res[name, nb]
+        times[key] = r["ms"]
+        work[key] = (T_FULL * STAGE_STEPS, "table-steps",
+                     2 * stage_in[nb].numel() * 4,
+                     stage_ops(name, r["out"], stage_in[nb]), 0)
+        launches[key] = probe_launches[f"stage_{name}"]
+    bounds = {key: bound(*w[2:]) for key, w in work.items()}
+    for key in [k for k in work if k.startswith(("carry_", "stage_"))]:
+        log(f"{key}: kernel {times[key]:.3f} ms, plain {plain_ms[key]:.3f} "
+            f"ms, bound {bounds[key][0]:.3f} ms ({bounds[key][1]})")
+    check(times["carry_array_R141"] >= bounds["carry_array_R141"][0],
+          "carry_array R = 141 takes at least its operation bound")
+    del stage_res, stage_in
+    phase_done("5 probes")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 
@@ -1164,12 +1419,27 @@ def main() -> int:
         ("B3", "B3 equity_multiway (N = 3, preflop)", src + "equity.cu",
          "montecarlo_tpu/ops/pallas_equity.py:268"),
     ]
+    carry_script = "scripts/exp_carry_model.py:"
+    meta += [(f"carry_{form}_R141", f"B-1 {name} (R = 141, {where})",
+              src + "probe_carry.cu", carry_script + line)
+             for form, name, where, line in (
+                 ("array", "carry_array", "registers", "56"),
+                 ("dict", "carry_dict", "local memory", "75"),
+                 ("ref", "ref_resident", "global memory", "95"))]
+    meta += [(f"stage_{name}_{T_FULL // 1024}",
+              f"B-2 stage {name} ({T_FULL // 1024} blocks x {STAGE_STEPS} "
+              f"steps)",
+              src + "probe_stages.cu", "scripts/debug_kernel_compile.py:36")
+             for name in cs.STAGES]
+    # the carry rows: x + n_steps gives the output alone, not the carried
+    # steps the probe prices (timed above as library)
+    library = {f"carry_{form}_R141": library_ms for form in cc.FORMS}
     kernels = [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[key],
         "max_abs_err": err[key], "ms": times[key],
         "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
-        "bound_by": bounds[key][1], "library_ms": None,
+        "bound_by": bounds[key][1], "library_ms": library.get(key),
         "work": work[key][0], "unit": work[key][1],
         "plain_work": plain_work.get(key, work[key][0]),
     } for key, name, source, replaces in meta]

@@ -40,6 +40,20 @@ MC_HD int mc_add(int a, int b) { return (int)((uint32_t)a + (uint32_t)b); }
 MC_HD int mc_sub(int a, int b) { return (int)((uint32_t)a - (uint32_t)b); }
 MC_HD int mc_mul(int a, int b) { return (int)((uint32_t)a * (uint32_t)b); }
 
+// An empty volatile asm that reads x from a register and, as far as the
+// compiler knows, writes it back changed: nothing computed from x before
+// it is reused after it. The probe kernels (probe_carry.cuh,
+// probe_stages.cuh) put it in their step loops, so that a loop of adds
+// stays a loop of adds and a step's reads of unchanged state are not
+// hoisted out of the loop. It emits no instruction.
+MC_HD void mc_keep(int& x) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+r"(x));
+#else
+  (void)x;
+#endif
+}
+
 // Floor division and floor modulo (Python / jnp / torch semantics; C's
 // `/` and `%` truncate toward zero). b > 0.
 MC_HD int mc_floordiv(int a, int b) {

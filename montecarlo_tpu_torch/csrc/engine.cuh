@@ -295,14 +295,22 @@ MC_HD void mc_step_nosettle(MCTable<P, R>& s, int raw) {
 // `cards` [2P + 5]. With `reset_stacks` every hand starts from `ss` chips
 // a seat. A tournament table left with one player holding chips does not
 // redeal: it keeps its settled stacks and hand, and freezes.
-template <int P, int R>
+//
+// PAYOUT_ONLY (the stage probe's `settle`, probe_stages.cuh): the payout
+// half alone (_settle_payout), for any table, waiting or not: every pot
+// row's payout added to the stacks, nothing else changed, `cards` unread.
+// It is a template flag rather than a function of its own so that the
+// kernels' instantiation (false) is compiled from the same code as before
+// the probe existed.
+template <int P, int R, bool PAYOUT_ONLY = false>
 MC_HD void mc_settle_pass(MCTable<P, R>& s, const int* cards, int sb, int bb,
                           int ss = 0, bool reset_stacks = false) {
   constexpr int L = MCTable<P, R>::L;
   constexpr bool REF = R == MC_REFERENCE;
   constexpr bool TOUR = R == MC_TOURNAMENT;
   constexpr int full = (1 << P) - 1;
-  if (!s.wait) return;
+  if constexpr (!PAYOUT_ONLY)
+    if (!s.wait) return;
   uint32_t bm[4] = {0u, 0u, 0u, 0u};
   for (int i = 0; i < 5; ++i) mc_add_card(bm, s.board[i]);
   int values[P], pay[P];
@@ -335,6 +343,10 @@ MC_HD void mc_settle_pass(MCTable<P, R>& s, const int* cards, int sb, int bb,
     // odd chips to the first-position winner
     if constexpr (!REF)
       pay[first] = mc_add(pay[first], mc_floormod(total_pot, cnt));
+  }
+  if constexpr (PAYOUT_ONLY) {
+    for (int p = 0; p < P; ++p) s.stacks[p] = mc_add(s.stacks[p], pay[p]);
+    return;
   }
   int delta[P];
   for (int p = 0; p < P; ++p) {

@@ -7,9 +7,16 @@ plain C interface, which ``ctypes`` loads:
   ``philox.cu``);
 - ``library(P)``: the engine and net kernels (``SEAT_SOURCES``) for seat
   count P only, under each rule set they take (``-DMC_SEATS=P``). A run
-  builds the seat counts it uses, not all nine.
+  builds the seat counts it uses, not all nine;
+- ``carry_library()``: the carry probe (``probe_carry.cu``);
+- ``build_stage(stage)``: the stage probe (``probe_stages.cu``) for one
+  stage of the engine's step body. Its build is the measurement, so it is
+  never cached: every call compiles afresh, one nvcc, and reports the
+  seconds and ptxas's registers, stack frame and spills.
 
-A library is built at first use, from the package's own sources, into
+The probes (``PROBE_SOURCES``) stay out of the other libraries, so they add
+nothing to the main path's build. A library other than a stage's is built
+at first use, from the package's own sources, into
 ``montecarlo_tpu_torch/_build/<hash of the sources>/<name>/``, so an edited
 source rebuilds and an unchanged one loads the cached library. Nothing here
 runs at import time.
@@ -18,9 +25,11 @@ runs at import time.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,6 +45,8 @@ LIB_NAME = "libmc_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SEAT_SOURCES = ("engine.cu", "net.cu")
+PROBE_SOURCES = ("probe_carry.cu", "probe_stages.cu")
+STAGES = ("carry", "policy", "street", "deal", "settle", "full")
 MIN_SEATS, MAX_SEATS = 2, 10
 
 P_ = ctypes.c_void_p
@@ -60,6 +71,11 @@ SEAT_SIGNATURES = {
                     I_, I_, I_, I_, ULL_, P_, P_],
     "mc_net_probe": [P_, P_, P_, P_, I_, I_, I_, I_, P_],
 }
+CARRY_SIGNATURES = {"mc_probe_carry": [I_, I_, P_, P_, I_, I_, P_]}
+STAGE_SIGNATURES = {
+    "mc_probe_stage": [P_, I_, P_, I_, I_, I_, I_, I_, I_, I_, P_],
+    "mc_probe_stage_id": [],
+}
 
 
 def find_nvcc() -> str:
@@ -82,14 +98,19 @@ def sources_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _check_seats(seats):
+    if not MIN_SEATS <= seats <= MAX_SEATS:
+        raise ValueError(f"seats={seats}: expected {MIN_SEATS}..{MAX_SEATS}")
+
+
 def _sources(seats):
     seat = [CSRC / name for name in SEAT_SOURCES]
     if seats is not None:
-        if not MIN_SEATS <= seats <= MAX_SEATS:
-            raise ValueError(f"seats={seats}: expected {MIN_SEATS}.."
-                             f"{MAX_SEATS}")
+        _check_seats(seats)
         return seat, [f"-DMC_SEATS={seats}"]
-    return [f for f in sorted(CSRC.glob("*.cu")) if f not in seat], []
+    probe = [CSRC / name for name in PROBE_SOURCES]
+    return [f for f in sorted(CSRC.glob("*.cu"))
+            if f not in seat and f not in probe], []
 
 
 def build(seats: int | None = None) -> tuple[Path, float]:
@@ -100,8 +121,12 @@ def build(seats: int | None = None) -> tuple[Path, float]:
     nvcc runs per source, all at once. The ptxas report (registers, stack,
     spills per kernel) lands beside the library in ``build.log``."""
     sources, defines = _sources(seats)
-    out_dir = BUILD / sources_hash() / ("common" if seats is None
-                                        else f"p{seats}")
+    return _build_cached(sources, defines, "common" if seats is None
+                         else f"p{seats}")
+
+
+def _build_cached(sources, defines, name):
+    out_dir = BUILD / sources_hash() / name
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib, 0.0
@@ -134,18 +159,104 @@ def build(seats: int | None = None) -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
-@functools.lru_cache(maxsize=None)
-def library(seats: int | None = None) -> ctypes.CDLL:
-    """The loaded library without a seat count, or the one for ``seats``;
-    built on first call."""
-    lib_path, _ = build(seats)
+def _load(lib_path, signatures) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in (SIGNATURES if seats is None
-                           else SEAT_SIGNATURES).items():
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library(seats: int | None = None) -> ctypes.CDLL:
+    """The loaded library without a seat count, or the one for ``seats``;
+    built on first call."""
+    return _load(build(seats)[0], SIGNATURES if seats is None
+                 else SEAT_SIGNATURES)
+
+
+def carry_library_path() -> Path:
+    """The carry probe library (``probe_carry.cu``), built unless a build
+    of these sources exists."""
+    return _build_cached([CSRC / "probe_carry.cu"], [], "probe_carry")[0]
+
+
+@functools.lru_cache(maxsize=None)
+def carry_library() -> ctypes.CDLL:
+    """The loaded carry probe library; built on first call."""
+    return _load(carry_library_path(), CARRY_SIGNATURES)
+
+
+@dataclasses.dataclass(frozen=True)
+class StageBuild:
+    """One stage's build: the loaded library, nvcc's wall seconds, and
+    ptxas's report of the stage kernel (``ptxas_report``)."""
+    stage: str
+    lib: ctypes.CDLL
+    seconds: float
+    ptxas: dict
+
+
+def build_stage(stage: str, seats: int = 6) -> StageBuild:
+    """Compile the stage probe for ``stage`` (one of ``STAGES``) and
+    ``seats``, afresh: one nvcc (compile and link) into a new temporary
+    directory under ``_build/<hash>/stages/``, so the seconds are a real
+    compile of that stage alone. Raises when nvcc fails or ptxas reports
+    no kernel."""
+    if stage not in STAGES:
+        raise ValueError(f"stage={stage!r}: expected one of {STAGES}")
+    _check_seats(seats)
+    nvcc = find_nvcc()
+    parent = BUILD / sources_hash() / "stages"
+    parent.mkdir(parents=True, exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix=f"{stage}-p{seats}-", dir=parent))
+    lib_path = out_dir / LIB_NAME
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [nvcc, *NVCC_FLAGS, f"-DMC_SEATS={seats}",
+         f"-DMC_STAGE=MC_STAGE_{stage.upper()}", "-I", str(CSRC), "-shared",
+         str(CSRC / "probe_stages.cu"), "-o", str(lib_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"nvcc failed on stage {stage}:\n{run.stdout}")
+    (out_dir / "build.log").write_text(run.stdout)
+    report = ptxas_report(run.stdout)
+    if len(report) != 1:
+        raise RuntimeError(f"stage {stage}: expected one kernel in the ptxas "
+                           f"report, got {sorted(report)}")
+    lib = _load(lib_path, STAGE_SIGNATURES)
+    if lib.mc_probe_stage_id() != STAGES.index(stage):
+        raise RuntimeError(f"stage {stage}: the library reports stage "
+                           f"{lib.mc_probe_stage_id()}")
+    return StageBuild(stage, lib, seconds, next(iter(report.values())))
+
+
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel (mangled name) in ``nvcc -Xptxas -v`` output: registers,
+    stack frame bytes, spill store and spill load bytes. Functions that
+    ptxas did not report registers for (device functions) are left out."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = _STACK.search(line)
+        if m and name:
+            report.setdefault(name, {}).update(zip(
+                ("stack", "spill_stores", "spill_loads"),
+                map(int, m.groups())))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            report.setdefault(name, {})["registers"] = int(m.group(1))
+    return {k: v for k, v in report.items() if "registers" in v}
 
 
 def check(err: int, what: str) -> None:

@@ -526,15 +526,16 @@ def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
     hand_start = torch.where(redeal[None], rot, st["hand_start"])
     full = (1 << P) - 1
     if reference:
-        blinds = torch.where(seats == 0, sb, torch.where(seats == 1, bb, 0))
+        blinds = torch.where(seats == 0, sb,
+                             torch.where(seats == 1, bb, 0)).to(I32)
         stacks = torch.where(redeal[None], rot - blinds, stacks)
         b_lvl, b_ln = ([min(sb, bb), 0], [2, 0]) if sb == bb else \
             ([min(sb, bb), max(sb, bb)], [2, 1])
         rows = _iota(n_lvl, dev)
         blind_lvl = torch.where(rows == 0, b_lvl[0],
-                                torch.where(rows == 1, b_lvl[1], 0))
+                                torch.where(rows == 1, b_lvl[1], 0)).to(I32)
         blind_ln = torch.where(rows == 0, b_ln[0],
-                               torch.where(rows == 1, b_ln[1], 0))
+                               torch.where(rows == 1, b_ln[1], 0)).to(I32)
         lvl = torch.where(redeal[None], blind_lvl, st["lvl"])
         ln = torch.where(redeal[None], blind_ln, st["ln"])
         contrib = torch.where(redeal[None], blinds, st["contrib"])
@@ -861,9 +862,22 @@ def tournaments_to_completion(seed: int, cfg, n_tables: int,
     live tables."""
     if cfg.rules != "tournament":
         raise ValueError(f"rules={cfg.rules!r}: expected 'tournament'")
+    _check_config(cfg.num_seats, cfg.rules)
+    state = pack_state(cfg, first_deal(seed, n_tables, cfg.num_seats, device))
+    return run_to_completion(seed, state, cfg, steps_per_launch, max_steps)
+
+
+def run_to_completion(seed: int, state, cfg, steps_per_launch: int = 512,
+                      max_steps: int = 1 << 17):
+    """The loop of ``tournaments_to_completion`` on a given packed
+    tournament state (on its device): K4 relaunched with launch seeds
+    (seed + steps done * 7919) & 0x7FFFFFFF until every table has frozen.
+    Returns ``(state, steps_used)``; raises ``RuntimeError`` when
+    ``max_steps`` runs out with live tables."""
+    if cfg.rules != "tournament":
+        raise ValueError(f"rules={cfg.rules!r}: expected 'tournament'")
     P = cfg.num_seats
-    _check_config(P, cfg.rules)
-    state = pack_state(cfg, first_deal(seed, n_tables, P, device))
+    n_tables = state.shape[0] * TABLES_PER_BLOCK
     done = 0
     while done < max_steps:
         state = run_perpetual_prng((seed + done * 7919) & 0x7FFFFFFF, state,

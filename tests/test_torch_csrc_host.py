@@ -5,7 +5,8 @@ expands to ``inline`` outside nvcc). A small harness built with the host
 C++ compiler runs the kernels' per-thread bodies (one rollout of K1/K2/B3,
 one table of K3-K6, K3/K4 under every rule set; the net kernels with banks
 and, for K6, a grid of candidates at the kernel's state and weight
-offsets) in Philox mode, the
+offsets; one thread of each carry-probe form and one table of each
+stage-probe body) in Philox mode, the
 way the kernels key their streams, and the results must equal the plain
 versions fed ``ops/philox.py``'s words. This checks the device code's arithmetic before it meets a card;
 the launch geometry is checked on the card (``tests/test_torch_cuda.py``,
@@ -23,9 +24,11 @@ from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models import bots
 from montecarlo_tpu_torch.models import policy_net as tpn
 from montecarlo_tpu_torch.ops import _build
+from montecarlo_tpu_torch.ops import cuda_carry as cc
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
 from montecarlo_tpu_torch.ops import cuda_net as cn
+from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.ops import evaluator as tev
 from test_torch_philox import PHILOX_KAT
 
@@ -42,6 +45,8 @@ HARNESS = r"""
 #include "engine.cuh"
 #include "equity.cuh"
 #include "net.cuh"
+#include "probe_carry.cuh"
+#include "probe_stages.cuh"
 
 typedef std::vector<long long> Out;
 
@@ -118,6 +123,26 @@ static void k2(const int* in, Out& out) {
   }
   out.insert(out.end(), wins.begin(), wins.end());
   out.insert(out.end(), ties.begin(), ties.end());
+}
+
+// The carry probe: in = form, R, n_steps, n_blocks, then the words
+// [n_blocks, R, 8, 128]; out = the words after the steps.
+static void carry(const int* in, Out& out) {
+  int form = in[0], R = in[1], n_steps = in[2], nb = in[3];
+  const int* x = in + 4;
+  std::vector<int> res((size_t)nb * R * MC_CARRY_TABLES);
+  for (long long t = 0; t < (long long)nb * MC_CARRY_TABLES; ++t) {
+    switch (form * 1000 + R) {
+      case 16: mc_carry_array<16>(x, res.data(), t, n_steps); break;
+      case 141: mc_carry_array<141>(x, res.data(), t, n_steps); break;
+      case 1141: mc_carry_dict<141>(x, res.data(), t, n_steps); break;
+      case 1166: mc_carry_dict<166>(x, res.data(), t, n_steps); break;
+      case 2141: mc_carry_ref<141>(x, res.data(), t, n_steps); break;
+      case 2166: mc_carry_ref<166>(x, res.data(), t, n_steps); break;
+      default: exit(2);
+    }
+  }
+  out.insert(out.end(), res.begin(), res.end());
 }
 
 // rows: the packed state as [F, T] (row f of table t at f * T + t).
@@ -200,6 +225,31 @@ static void engine(const char* mode, const int* in, Out& out) {
       mc_run_prng(s, src, n_steps, defer, sb, bb, fold, raise);
       store_rows(s, res, T, t);
     }
+  } else if (!strcmp(mode, "stage")) {
+    // the stage probe in Philox mode: stage, seed, n_steps, sb, bb, fold,
+    // raise, T, rows
+    int stage = in[0], n_steps = in[2], sb = in[3], bb = in[4];
+    uint32_t seed = in[1], fold = in[5], raise = in[6];
+    T = in[7];
+    rows = in + 8;
+    res.resize((size_t)F * T);
+    for (int t = 0; t < T; ++t) {
+      MCTable<P, R> s;
+      load_rows(s, rows, T, t);
+      MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, MC_SUB_PROBE);
+      for (int i = 0; i < n_steps; ++i) {
+        switch (stage) {
+#define MC_STAGE_CASE(ID) \
+  case ID: mc_stage_step<ID>(s, src, sb, bb, fold, raise); break;
+          MC_STAGE_CASE(MC_STAGE_CARRY) MC_STAGE_CASE(MC_STAGE_POLICY)
+          MC_STAGE_CASE(MC_STAGE_STREET) MC_STAGE_CASE(MC_STAGE_DEAL)
+          MC_STAGE_CASE(MC_STAGE_SETTLE) MC_STAGE_CASE(MC_STAGE_FULL)
+#undef MC_STAGE_CASE
+          default: exit(2);
+        }
+      }
+      store_rows(s, res, T, t);
+    }
   } else if (!strcmp(mode, "k5")) {
     int n_steps = in[0], hmax = in[1], sb = in[2], bb = in[3];
     T = in[4];
@@ -275,6 +325,8 @@ int main(int argc, char** argv) {
     k2(in.data(), out);
   } else if (!strcmp(argv[1], "mw")) {
     mw(in.data(), out);
+  } else if (!strcmp(argv[1], "carry")) {
+    carry(in.data(), out);
   } else if (!strcmp(argv[1], "key")) {
     for (size_t i = 1; i + 4 <= in.size(); i += 4)
       out.push_back(mc_eval_key(in[i], in[i + 1], in[i + 2], in[i + 3]));
@@ -591,3 +643,50 @@ def test_net_probe_device_code_equals_plain(harness, es3):
     torch.testing.assert_close(got[-n:], want[-n:], rtol=4 * 2.0 ** -23,
                                atol=0)
     assert int(ce.unpack_field(state, cfg, "stage").ne(0).sum()) > 0
+
+
+@pytest.mark.parametrize("form,R", [("array", 16), ("array", 141),
+                                    ("dict", 141), ("dict", 166),
+                                    ("ref", 141), ("ref", 166)])
+def test_carry_device_code_equals_plain(harness, form, R):
+    """One thread of each carry form per table, words that wrap included."""
+    rng = np.random.default_rng(R)
+    x = rng.integers(-2**31, 2**31, (1, R, *ce.TILE)).astype(np.int32)
+    x[0, 0, 0, :4] = [2**31 - 1, 2**31 - 5, -1, -2**31]
+    got = harness("carry", [cc.FORMS.index(form), R, 9, 1, *x.reshape(-1)])
+    want = cc.carry(form, torch.from_numpy(x), 9)
+    np.testing.assert_array_equal(got.astype(np.int32), _flat(want))
+
+
+def _mid_hand_state(P, n_steps=20, seed=37):
+    """Reference-rules tables after ``n_steps`` K3 steps on the injected
+    stream: hands under way, pots on the table."""
+    T = ce.TABLES_PER_BLOCK
+    rng = np.random.default_rng(seed)
+    u = rng.random((n_steps, T))
+    acts = np.where(u < 0.2, -1, np.where(u < 0.92, 0, rng.integers(
+        1, 21, u.shape))).astype(np.int32)
+    deal = np.argsort(rng.random((T, 4, 52)), axis=-1)[..., :2 * P + 5]
+    cards = deal.transpose(1, 2, 0).reshape(1, 4, 2 * P + 5, *ce.TILE)
+    cfg = TableConfig(num_seats=P)
+    state = ce.pack_state(cfg, torch.from_numpy(deal[:, 0]))
+    state = ce.run_perpetual_det(
+        state, torch.from_numpy(acts.reshape(1, n_steps, *ce.TILE)),
+        torch.from_numpy(np.ascontiguousarray(cards).astype(np.int32)), P,
+        n_steps, 5, 10)
+    assert int(ce.unpack_field(state, cfg, "pot_amt", 0).ne(0).sum()) > 0
+    return state
+
+
+@pytest.mark.parametrize("stage", cs.STAGES)
+def test_stage_device_code_equals_plain(harness, stage):
+    """One table of each stage body (mc_stage_step) in Philox mode, from a
+    mid-hand state, against the plain stage on ops/philox.py's words."""
+    P = 6
+    state = _mid_hand_state(P)
+    got = harness("stage", [P, 0, cs.STAGES.index(stage), 41, 12, 5, 10,
+                            ce.FOLD_P_BITS, ce.RAISE_P_BITS,
+                            ce.TABLES_PER_BLOCK, *_flat(ce._to_rows(state))])
+    want = cs.run_stage(stage, 41, state, P, 12, 5, 10)
+    _check_rows(got, want, TableConfig(num_seats=P))
+    assert not torch.equal(want, state)

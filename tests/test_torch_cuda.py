@@ -12,9 +12,11 @@ import torch
 from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models import bots
 from montecarlo_tpu_torch.models import policy_net as tpn
+from montecarlo_tpu_torch.ops import cuda_carry as cc
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
 from montecarlo_tpu_torch.ops import cuda_net as cn
+from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.ops import philox
 from montecarlo_tpu_torch.rollout import equity as teq
 from test_torch_philox import PHILOX_KAT
@@ -381,3 +383,62 @@ def test_net_pop_kernel_equals_plain_and_singles(cuda, n_banks):
     for c in range(C):
         m, _, h = cn.seat_meters(k[c], cfg)
         assert np.array_equal(m, means[c]) and h == hands[c]
+
+
+@pytest.mark.parametrize("form,R", [(f, R) for f in cc.FORMS
+                                    for R in cc.R_OF[f]])
+def test_carry_kernel_equals_plain(cuda, form, R):
+    """Each carry form and R, words that wrap included."""
+    g = torch.Generator(device=cuda).manual_seed(R)
+    x = torch.randint(-2**31, 2**31, (2, R, *ce.TILE), generator=g,
+                      dtype=torch.int64, device=cuda).to(torch.int32)
+    x[0, 0, 0, :2] = torch.tensor([2**31 - 1, -2**31], dtype=torch.int32)
+    before = cc.LAUNCHES[f"carry_{form}_R{R}"]
+    k = cc.carry(form, x, 37)
+    assert cc.LAUNCHES[f"carry_{form}_R{R}"] == before + 1
+    assert torch.equal(k, cc._carry_plain(x, 37))
+
+
+def _stage_state(cuda):
+    """Reference-rules tables in mid-hand (pots on the table) after 24 K3
+    steps on an injected stream."""
+    P, nb, n_steps, hmax = 6, 2, 24, 4
+    rng = np.random.default_rng(3)
+    T = nb * ce.TABLES_PER_BLOCK
+    u = rng.random((nb, n_steps, 8, 128))
+    acts = np.where(u < 0.2, -1, np.where(u < 0.92, 0, rng.integers(
+        1, 21, u.shape))).astype(np.int32)
+    deal = np.argsort(rng.random((T, hmax, 52)), axis=-1)[..., :2 * P + 5]
+    cards = deal.reshape(nb, 1024, hmax, 2 * P + 5).transpose(0, 2, 3, 1) \
+        .reshape(nb, hmax, 2 * P + 5, 8, 128).astype(np.int32)
+    state = ce.pack_state(TableConfig(num_seats=P),
+                          torch.from_numpy(deal[:, 0]).to(cuda))
+    return ce.run_perpetual_det(
+        state, torch.from_numpy(acts).to(cuda),
+        torch.from_numpy(np.ascontiguousarray(cards)).to(cuda), P, n_steps,
+        5, 10)
+
+
+@pytest.mark.parametrize("stage", cs.STAGES)
+def test_stage_build_and_kernel_equal_plain(cuda, stage):
+    """A separate build of each stage (its id, one kernel in its ptxas
+    report), then the kernel on injected words and in Philox mode against
+    the plain version, from a mid-hand state."""
+    P, n_steps = 6, 16
+    build = cs.stage_library(stage, P, fresh=True)
+    assert build.lib.mc_probe_stage_id() == cs.STAGES.index(stage)
+    assert build.seconds > 0 and build.ptxas["registers"] > 0
+    state = _stage_state(cuda)
+    T = state.shape[0] * ce.TABLES_PER_BLOCK
+    g = torch.Generator(device=cuda).manual_seed(len(stage))
+    words = cq.random_words(g, cs.stage_words_shape(stage, T, P, n_steps),
+                            cuda)
+    before = cs.LAUNCHES[f"stage_{stage}"]
+    k = cs.run_stage(stage, 0, state, P, n_steps, 5, 10, words=words)
+    assert cs.LAUNCHES[f"stage_{stage}"] == before + 1
+    assert torch.equal(k, cs._run_stage_plain(
+        stage, state, lambda i: words[i], P, n_steps, 5, 10))
+    k = cs.run_stage(stage, 21, state, P, n_steps, 5, 10)
+    assert torch.equal(k.cpu(), cs.run_stage(stage, 21, state.cpu(), P,
+                                             n_steps, 5, 10))
+    assert not torch.equal(k, state)

@@ -22,12 +22,16 @@ from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models import bots, train_es
 from montecarlo_tpu_torch.models import features as tfeatures
 from montecarlo_tpu_torch.models import policy_net as tpolicy_net
+from montecarlo_tpu_torch.ops import cuda_carry as cc
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
 from montecarlo_tpu_torch.ops import cuda_net as cn
+from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.ops import evaluator as tev
 from montecarlo_tpu_torch.ops import philox
 from montecarlo_tpu_torch.rollout import equity as teq
+from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
+from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
 
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
@@ -42,16 +46,22 @@ MODULES = [
     "montecarlo_tpu_torch.ops.cuda_equity",
     "montecarlo_tpu_torch.ops.cuda_engine",
     "montecarlo_tpu_torch.ops.cuda_net",
+    "montecarlo_tpu_torch.ops.cuda_carry",
+    "montecarlo_tpu_torch.ops.cuda_stages",
     "montecarlo_tpu_torch.models.features",
     "montecarlo_tpu_torch.models.policy_net",
     "montecarlo_tpu_torch.models.bots",
     "montecarlo_tpu_torch.models.train_es",
     "montecarlo_tpu_torch.rollout.equity",
+    "montecarlo_tpu_torch.scripts",
+    "montecarlo_tpu_torch.scripts.exp_carry_model",
+    "montecarlo_tpu_torch.scripts.debug_kernel_compile",
 ]
 # Runs the port's CPU path (equity and multiway equity, the engine under
 # every rule set, tournaments to completion, net evaluation, an ES
-# generation on the population form with a rule bot's league) in a fresh
-# process, then lists what it loaded of JAX and of the JAX package.
+# generation on the population form with a rule bot's league, the two
+# ported probe scripts) in a fresh process, then lists what it loaded of
+# JAX and of the JAX package.
 CPU_PATH = """
 import json, sys
 import torch
@@ -82,6 +92,10 @@ pool = train_es.kernel_pool_eval_pop_fn(
     device="cpu")
 out = train_es.train_es(2, es3, eval_pop_fn=pool, generations=1, pop=1)
 assert out.hands_total > 0
+from montecarlo_tpu_torch.scripts import debug_kernel_compile, exp_carry_model
+assert len(exp_carry_model.main(device="cpu", n_blocks=1, n_steps=2)) == 19
+for stage in debug_kernel_compile.STAGES:
+    debug_kernel_compile.compile_variant(stage, 2, 1, device="cpu")
 print(json.dumps(sorted(k for k in sys.modules if k == "jax"
                         or k.startswith(("jax.", "montecarlo_tpu."))
                         or k == "montecarlo_tpu")))
@@ -212,6 +226,9 @@ ENTRY_POINTS = {
         eval_pop_fn=train_es.kernel_eval_pop_fn(STD, 1, 1024, 16)),
     "initial_packed_state": lambda: cn.initial_packed_state(0, STD, 1024),
     "deal_stash": lambda: cn.deal_stash(0, 1024, 6, 2),
+    "exp_carry_model.main": lambda: ecm.main(n_blocks=1, n_steps=2),
+    "debug_kernel_compile.compile_variant": lambda: dkc.compile_variant(
+        "full", 2, 1),
 }
 
 
@@ -224,20 +241,25 @@ def test_entry_points_default_to_the_card(name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ENTRY_POINTS[name]()
     assert all(v == 0 for v in {**cq.LAUNCHES, **ce.LAUNCHES, **cn.LAUNCHES,
-                                **philox.LAUNCHES}.values())
+                                **philox.LAUNCHES, **cc.LAUNCHES,
+                                **cs.LAUNCHES}.values())
 
 
 def test_build_splits_the_sources_by_seat_count():
-    """The library without a seat count and a seat count's library hold
-    every ``csrc/*.cu`` between them, once; a seat count's sources get its
-    MC_SEATS, and seat counts outside 2..10 are refused."""
+    """The library without a seat count, a seat count's library and the
+    probes' own builds hold every ``csrc/*.cu`` between them, once; a seat
+    count's sources get its MC_SEATS, and seat counts outside 2..10 are
+    refused."""
     from montecarlo_tpu_torch.ops import _build
 
     common, none = _build._sources(None)
     seat, defines = _build._sources(6)
+    probe = [_build.CSRC / name for name in _build.PROBE_SOURCES]
     assert none == [] and defines == ["-DMC_SEATS=6"]
-    assert sorted(common + seat) == sorted(_build.CSRC.glob("*.cu"))
+    assert all(f.is_file() for f in probe)
+    assert sorted(common + seat + probe) == sorted(_build.CSRC.glob("*.cu"))
     assert not set(common) & set(seat)
+    assert not (set(common) | set(seat)) & set(probe)
     for bad in (1, 11):
         with pytest.raises(ValueError):
             _build._sources(bad)

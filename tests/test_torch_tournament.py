@@ -168,3 +168,26 @@ def test_tournament_entry_points_take_tournament_rules_only():
     state = ce.pack_state(std, ce.first_deal(0, T, P, "cpu"))
     with pytest.raises(ValueError, match="tournament"):
         ce.tournament_results(state, std)
+
+
+def test_completion_from_a_rotated_button_relabels_the_seats():
+    """``run_to_completion`` is ``tournaments_to_completion``'s loop; with
+    the first button written to 3 the positions play the same hands on the
+    same words, so every table's winner is the button-0 winner's seat + 3
+    (the seat view of bust_at, stacks and tournament_results follows the
+    button). The card runs this at 2^20 tables in chip_smoke.py."""
+    _, cfg = _cfgs(SHORT)
+    state0 = ce.pack_state(cfg, ce.first_deal(2, T, P, "cpu"))
+    want, steps = ce.tournaments_to_completion(2, cfg, T, 64, device="cpu")
+    got, got_steps = ce.run_to_completion(2, state0, cfg, 64)
+    assert torch.equal(got, want) and got_steps == steps
+    layout, _ = ce._field_layout(P, "tournament")
+    rotated = state0.clone()
+    rotated[:, layout["button"][0]] = 3
+    state3, steps3 = ce.run_to_completion(2, rotated, cfg, 64)
+    assert steps3 == steps
+    win0 = np.argmin(ce.tournament_results(want, cfg)[0], axis=1)
+    win3 = np.argmin(ce.tournament_results(state3, cfg)[0], axis=1)
+    np.testing.assert_array_equal(win3, (win0 + 3) % P)
+    with pytest.raises(ValueError, match="tournament"):
+        ce.run_to_completion(2, state0, TableConfig(num_seats=P), 64)
