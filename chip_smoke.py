@@ -63,13 +63,15 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    its 32 candidates (the rest equal single K6 launches, phase 2); the
    net's float path (features, logits, Gumbel scores) bit for bit through
    the probe kernel; tournament K3; the first and last K4 launches of the
-   completion run, which is replayed launch by launch; B3's flop call, and
+   completion run, which is replayed launch by launch (every launch timed
+   with CUDA events, beside the tables still live); B3's flop call, and
    B3 preflop on 2^26 rollouts; then K1, K2, K4 and B3 on injected words
    (their ``words`` option);
 4. timing: each main-path kernel call again on the card (CUDA events),
-   ``net_eval_hands_per_sec`` and ``train_hands_per_sec`` as ``bench.py``
-   computes them, ``multiway_rollouts_per_sec`` and
-   ``tournaments_per_sec`` (port only);
+   each K3/K4 instantiation's ptxas registers, stack and spills (the P = 6
+   library's ``build.log``) beside its time, ``net_eval_hands_per_sec``
+   and ``train_hands_per_sec`` as ``bench.py`` computes them,
+   ``multiway_rollouts_per_sec`` and ``tournaments_per_sec`` (port only);
 5. the probes (path e, after the timing so that the main paths' numbers
    are taken as before): the ported ``scripts/exp_carry_model.py`` at its
    sizes (2^20 tables x 512 steps; every carry form at each R it is built
@@ -980,10 +982,17 @@ def main() -> int:
     n_tour = tour_steps // TOUR_LAUNCH
     st_tour0 = ce.pack_state(tour, ce.first_deal(SEED, T_FULL, P, dev))
     state = st_tour0
+    # every launch of the replay timed (CUDA events), with the tables
+    # still live when it starts
+    tour_launch_ms, tour_live = [], []
     for i in range(n_tour):
         seed = (SEED + i * TOUR_LAUNCH * 7919) & 0x7FFFFFFF
-        k = ce.run_perpetual_prng(seed, state, P, TOUR_LAUNCH, SB, BB,
-                                  rules="tournament")
+        tour_live.append(int(((ce.unpack_field(state, tour, "order") != 0)
+                              | (ce.unpack_field(state, tour, "wait") != 0))
+                             .sum()))
+        k, ms = timed(lambda: ce.run_perpetual_prng(
+            seed, state, P, TOUR_LAUNCH, SB, BB, rules="tournament"))
+        tour_launch_ms.append(ms)
         if i in (0, n_tour - 1):
             p, ms = timed(lambda: ce._run_prng_plain_philox(
                 seed, state, P, TOUR_LAUNCH, SB, BB, "tournament"))
@@ -998,6 +1007,10 @@ def main() -> int:
         state = k
     check(torch.equal(state, tour_state),
           "K4t: the launches replayed give the main path's final state")
+    log(f"K4t: the completion run's {n_tour} launches (CUDA events, ms): "
+        f"{[round(x, 3) for x in tour_launch_ms]}, sum "
+        f"{sum(tour_launch_ms):.3f} ms; live tables at each launch "
+        f"{tour_live}")
     del state, k
     mw_masks = {"preflop": cq._multiway_masks(MW_TRIO, (), dev),
                 "flop": cq._multiway_masks(MW_FLOP_HANDS, MW_FLOP, dev)}
@@ -1083,6 +1096,23 @@ def main() -> int:
         rules="tournament"))
     log(f"K4t: the completion run's last launch (most tables frozen) "
         f"{k4t_last_ms:.3f} ms against the first's {times['K4t']:.3f} ms")
+    # ptxas per instantiation of the engine kernels (the p6 library's
+    # build.log) beside the main path's time of the call
+    ptxas = _build.ptxas_report((builds[1][0].parent / "build.log")
+                                .read_text())
+    rule_key = {"0": "", "1": "s", "2": "t"}
+    for name, rep in sorted(ptxas.items()):
+        m = re.search(r"mc_engine_(det|prng)_kernelILi6ELi(\d)E(Lb(\d)E)?",
+                      name)
+        if not m:
+            continue
+        key = ("K3" if m.group(1) == "det" else "K4") + rule_key[m.group(2)]
+        form = "" if m.group(1) == "det" else (
+            " (injected words)" if m.group(4) == "1" else " (Philox)")
+        shown = f"{times[key]:.3f} ms" if m.group(4) != "1" else "-"
+        log(f"ptxas {key}{form}: {rep['registers']} registers, "
+            f"{rep['stack']} B stack, {rep['spill_stores']} B spill stores, "
+            f"{rep['spill_loads']} B spill loads; main-path call {shown}")
     t0 = time.perf_counter()
     cq.equity_sweep_kernel(SEED + 5, heroes, N_SWEEP, dev)
     sweep_warm_s = time.perf_counter() - t0

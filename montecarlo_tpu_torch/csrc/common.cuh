@@ -1,8 +1,10 @@
 // Shared definitions for the port's kernels.
 //
-// The device functions are also valid host C++ (MC_HD expands to nothing
+// The device functions are also valid host C++ (MC_HD expands to inline
 // outside nvcc), so their arithmetic can be compiled and checked by a host
-// compiler against the plain PyTorch versions.
+// compiler against the plain PyTorch versions. MC_HD_CALL marks the rare
+// device function kept a call of its own (its registers allocated apart
+// from its caller's).
 #pragma once
 
 #include <math.h>
@@ -10,8 +12,10 @@
 
 #ifdef __CUDACC__
 #define MC_HD __host__ __device__ __forceinline__
+#define MC_HD_CALL __host__ __device__ __noinline__
 #else
 #define MC_HD inline
+#define MC_HD_CALL inline
 #endif
 
 MC_HD int mc_popc(uint32_t x) {
@@ -28,6 +32,15 @@ MC_HD int mc_msb(uint32_t x) {
   return 31 - __clz(x);
 #else
   return x ? 31 - __builtin_clz(x) : -1;
+#endif
+}
+
+// Position of the lowest set bit; x != 0.
+MC_HD int mc_ffs(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
 #endif
 }
 
@@ -49,6 +62,29 @@ MC_HD int mc_mul(int a, int b) { return (int)((uint32_t)a * (uint32_t)b); }
 MC_HD void mc_keep(int& x) {
 #ifdef __CUDA_ARCH__
   asm volatile("" : "+r"(x));
+#else
+  (void)x;
+#endif
+}
+
+// The same for a pointer: the addresses computed from it, and so the loads
+// through it, are not reused across it.
+template <class T>
+MC_HD void mc_keep_ptr(T*& p) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+l"(p));
+#else
+  (void)p;
+#endif
+}
+
+// Takes x's address opaquely, so x lives in (local) memory for its whole
+// life, every access a load or a store, as a struct indexed at run time
+// does. Emits no instruction.
+template <class T>
+MC_HD void mc_pin_to_memory(T& x) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : : "l"(&x) : "memory");
 #else
   (void)x;
 #endif

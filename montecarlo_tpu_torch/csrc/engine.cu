@@ -5,59 +5,112 @@
 // step_table per step on injected raw actions, deals read from a per-hand
 // stash. K4 `mc_engine_prng_kernel` replaces `_make_kernel(mode="prng")`
 // via run_perpetual_prng: the random policy, `defer` betting slots per
-// settle pass and an in-kernel deal, on Philox words or injected words.
-// Both are instantiated per rule set (reference, standard, tournament) for
-// the one seat count MC_SEATS of the library being built, as the TPU
-// kernels are compiled per static configuration.
+// settle pass and an in-kernel deal, on Philox words or (a second
+// instantiation, INJECT) injected words. Both are instantiated per rule set
+// (reference, standard, tournament) for the one seat count MC_SEATS of the
+// library being built, as the TPU kernels are compiled per static
+// configuration.
 //
 // Layout: the packed state [n_blocks, F, 8, 128] int32 of the JAX engine,
 // 1024 tables per block. One thread runs one table: it reads the table's F
-// rows once, runs every step of the launch on its private copy (registers
-// and local memory, which the L1 caches), and writes the rows once.
-// Neighbouring threads hold neighbouring tables, so each row load and
-// store coalesces across the warp. The kernels are bound by integer and
-// local-memory work per step (the state is read and written once per
-// launch); this first form keeps the whole table in one struct and leaves
-// register allocation to the compiler.
+// rows once, runs every step of the launch, and writes the rows once;
+// neighbouring threads hold neighbouring tables, so each row load and store
+// coalesces across the warp. Where the table lives meanwhile (engine.cuh,
+// MCTable): the hot fields of the betting step (34 words at P = 6 under
+// reference rules, 43 under the others) in registers, every seat or layer
+// index a select; the cold rows (109 / 117 / 123 words: cards, meters, pot
+// rows) in a column of the block's dynamic shared memory, row r of thread
+// i at smem[r * MC_ENGINE_THREADS + i]. The kernels are bound by the
+// integer work of the step and the settle pass, not by memory: the state
+// crosses HBM once each way per launch. A table that is frozen (empty play
+// order, no settle pending: a won tournament) is a fixed point, so it is
+// neither loaded nor stored, and one that freezes during the launch leaves
+// its loop; a warp whose tables have all left retires.
+//
+// Occupancy (engine.cuh, mc_engine_blocks_per_sm): the shared rows bound
+// the blocks an SM holds, and __launch_bounds__ caps the registers so that
+// the register file holds as many.
 #include <cuda_runtime.h>
 
 #include "engine.cuh"
 
-#define MC_ENGINE_THREADS 128
-
 // actions: [n_blocks, n_steps, 8, 128]; cards: [n_blocks, hmax, 2P+5, 8,
 // 128]. Hand h > 0 of a table is dealt from stash row min(h, hmax - 1).
 template <int P, int R>
-__global__ void __launch_bounds__(MC_ENGINE_THREADS)
+__global__ void __launch_bounds__(MC_ENGINE_THREADS,
+                                  mc_engine_blocks_per_sm<P, R>())
     mc_engine_det_kernel(int* state, const int* actions, const int* cards,
                          int n_tables, int n_steps, int hmax, int sb,
                          int bb) {
+  extern __shared__ int mc_cold[];
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_tables) return;
+  int* rows = mc_table_rows<P, R>(state, t);
+  if (mc_frozen_rows<P, R>(rows, MC_TABLES_PER_BLOCK)) return;
   const long long blk = t / MC_TABLES_PER_BLOCK;
   const int lane = t % MC_TABLES_PER_BLOCK;
-  MCTable<P, R> s;
-  mc_load(s, state, t);
+  MCTable<P, R, MCEngineRows> s;
+  s.rows.col = mc_cold + threadIdx.x;
+  mc_load(s, rows, MC_TABLES_PER_BLOCK);
   mc_run_det(s, actions + blk * n_steps * MC_TABLES_PER_BLOCK + lane,
              cards + blk * hmax * (2 * P + 5) * MC_TABLES_PER_BLOCK + lane,
              MC_TABLES_PER_BLOCK, n_steps, hmax, sb, bb);
-  mc_store(s, state, t);
+  mc_store(s, rows, MC_TABLES_PER_BLOCK);
 }
 
-// Injected words: int32 [n_steps / defer, 2 * defer + 2P + 5, n_tables];
+// INJECT: words int32 [n_steps / defer, 2 * defer + 2P + 5, n_tables];
 // else Philox keyed by (seed, table).
-template <int P, int R>
-__global__ void __launch_bounds__(MC_ENGINE_THREADS)
+template <int P, int R, bool INJECT>
+__global__ void __launch_bounds__(MC_ENGINE_THREADS,
+                                  mc_engine_blocks_per_sm<P, R>())
     mc_engine_prng_kernel(int* state, uint32_t seed, const int* words,
                           int n_tables, int n_steps, int defer, int sb,
                           int bb, uint32_t fold_bits, uint32_t raise_bits) {
+  extern __shared__ int mc_cold[];
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_tables) return;
-  MCTable<P, R> s;
-  mc_load(s, state, t);
-  MCWords src(words, n_tables, t, seed, (uint32_t)t, 0u, 0u);
-  mc_run_prng(s, src, n_steps, defer, sb, bb, fold_bits, raise_bits);
-  mc_store(s, state, t);
+  int* rows = mc_table_rows<P, R>(state, t);
+  if (mc_frozen_rows<P, R>(rows, MC_TABLES_PER_BLOCK)) return;
+  MCTable<P, R, MCEngineRows> s;
+  s.rows.col = mc_cold + threadIdx.x;
+  mc_load(s, rows, MC_TABLES_PER_BLOCK);
+  if constexpr (INJECT) {
+    MCInjectedWords src(words + t, n_tables);
+    mc_run_prng(s, src, n_steps, defer, sb, bb, fold_bits, raise_bits);
+  } else {
+    MCPhiloxWords src(seed, (uint32_t)t, 0u, 0u);
+    mc_run_prng(s, src, n_steps, defer, sb, bb, fold_bits, raise_bits);
+  }
+  mc_store(s, rows, MC_TABLES_PER_BLOCK);
+}
+
+template <int P, int R>
+static int mc_launch_det(int* state, const int* actions, const int* cards,
+                         int n_tables, int n_steps, int hmax, int sb, int bb,
+                         cudaStream_t st) {
+  constexpr int smem = mc_engine_smem<P, R>();
+  cudaError_t err = mc_engine_attributes(mc_engine_det_kernel<P, R>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mc_engine_det_kernel<P, R><<<n_tables / MC_ENGINE_THREADS,
+                               MC_ENGINE_THREADS, smem, st>>>(
+      state, actions, cards, n_tables, n_steps, hmax, sb, bb);
+  return (int)cudaGetLastError();
+}
+
+template <int P, int R, bool INJECT>
+static int mc_launch_prng(int* state, uint32_t seed, const int* words,
+                          int n_tables, int n_steps, int defer, int sb,
+                          int bb, uint32_t fold_bits, uint32_t raise_bits,
+                          cudaStream_t st) {
+  constexpr int smem = mc_engine_smem<P, R>();
+  cudaError_t err =
+      mc_engine_attributes(mc_engine_prng_kernel<P, R, INJECT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mc_engine_prng_kernel<P, R, INJECT><<<n_tables / MC_ENGINE_THREADS,
+                                        MC_ENGINE_THREADS, smem, st>>>(
+      state, seed, words, n_tables, n_steps, defer, sb, bb, fold_bits,
+      raise_bits);
+  return (int)cudaGetLastError();
 }
 
 // In-place on `state`. rules: 0 reference, 1 standard, 2 tournament.
@@ -68,16 +121,13 @@ extern "C" int mc_engine_det(int* state, const int* actions,
                              int rules, int n_steps, int hmax, int sb, int bb,
                              void* stream) {
   int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
-  int grid = (n_tables + MC_ENGINE_THREADS - 1) / MC_ENGINE_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
 #define MC_CASE(N, R)                                                     \
   case R * 100 + N:                                                       \
-    mc_engine_det_kernel<N, R><<<grid, MC_ENGINE_THREADS, 0, st>>>(       \
-        state, actions, cards, n_tables, n_steps, hmax, sb, bb);          \
-    break;
+    return mc_launch_det<N, R>(state, actions, cards, n_tables, n_steps,  \
+                               hmax, sb, bb, st);
   MC_ENGINE_DISPATCH(MC_CASE)
 #undef MC_CASE
-  return (int)cudaGetLastError();
 }
 
 extern "C" int mc_engine_prng(int* state, int seed, const int* words,
@@ -86,15 +136,17 @@ extern "C" int mc_engine_prng(int* state, int seed, const int* words,
                               int raise_bits, void* stream) {
   if (defer < 1 || n_steps % defer != 0) return (int)cudaErrorInvalidValue;
   int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
-  int grid = (n_tables + MC_ENGINE_THREADS - 1) / MC_ENGINE_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
 #define MC_CASE(N, R)                                                     \
   case R * 100 + N:                                                       \
-    mc_engine_prng_kernel<N, R><<<grid, MC_ENGINE_THREADS, 0, st>>>(      \
-        state, (uint32_t)seed, words, n_tables, n_steps, defer, sb, bb,   \
-        (uint32_t)fold_bits, (uint32_t)raise_bits);                       \
-    break;
+    return words ? mc_launch_prng<N, R, true>(                            \
+                       state, (uint32_t)seed, words, n_tables, n_steps,   \
+                       defer, sb, bb, (uint32_t)fold_bits,                \
+                       (uint32_t)raise_bits, st)                          \
+                 : mc_launch_prng<N, R, false>(                           \
+                       state, (uint32_t)seed, words, n_tables, n_steps,   \
+                       defer, sb, bb, (uint32_t)fold_bits,                \
+                       (uint32_t)raise_bits, st);
   MC_ENGINE_DISPATCH(MC_CASE)
 #undef MC_CASE
-  return (int)cudaGetLastError();
 }

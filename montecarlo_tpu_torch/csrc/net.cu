@@ -11,12 +11,14 @@
 // settle pass, stacks reset every hand. One kernel body serves every form:
 // the single net is B = 1, C = 1.
 //
-// Layout and threads as the engine kernels (engine.cu): one thread runs one
-// table of the packed state, read and written once per launch. A block
-// copies its candidate's B banks of 6,020 floats (B x 24,080 bytes) into
-// dynamic shared memory once; a thread reads the bank of its acting seat,
-// a broadcast while the warp's acting seats share a bank. Features, hidden
-// activations and logits live in registers and local memory. A decision
+// Layout as the engine kernels (engine.cu): one thread runs one table of the
+// packed state, read and written once per launch, its hot fields in
+// registers. A block copies its candidate's B banks of 6,020 floats (B x
+// 24,080 bytes) into dynamic shared memory once, so the table's cold rows
+// stay a per-thread array (MCTableLocal, local memory) rather than a shared
+// column; a thread reads the bank of its acting seat, a broadcast while the
+// warp's acting seats share a bank. Features, hidden activations and
+// logits live in registers and local memory. A decision
 // costs 11,776 float operations (5,888 products, 5,888 sums, each rounded
 // once: no FMA, see net.cuh), so K6 is bound by float issue on the net
 // seats' decisions and by the engine's integer work elsewhere. The MLP on
@@ -31,6 +33,10 @@
 #include "net.cuh"
 
 #define MC_NET_THREADS 128
+// K6's blocks an SM (a cap of 128 registers a thread): B7's 2^16 tables,
+// 512 blocks, then run in one wave of 132 x 4 (at ptxas's own choice for
+// standard rules, 167 to 207 registers, they take two).
+#define MC_NET_EVAL_MIN_BLOCKS 4
 // The largest grid y dimension: candidates of one launch.
 #define MC_MAX_CANDIDATES 65535
 
@@ -59,12 +65,13 @@ __global__ void __launch_bounds__(MC_NET_THREADS)
   if (t >= n_tables) return;
   const long long blk = t / MC_TABLES_PER_BLOCK;
   const int lane = t % MC_TABLES_PER_BLOCK;
-  MCTable<P, R> s;
-  mc_load(s, state, t);
+  int* rows = mc_table_rows<P, R>(state, t);
+  MCTableLocal<P, R> s;
+  mc_load(s, rows, MC_TABLES_PER_BLOCK);
   mc_run_net_det(s,
                  cards + blk * hmax * (2 * P + 5) * MC_TABLES_PER_BLOCK + lane,
                  MC_TABLES_PER_BLOCK, n_steps, hmax, sb, bb, w, bank_map);
-  mc_store(s, state, t);
+  mc_store(s, rows, MC_TABLES_PER_BLOCK);
 }
 
 // state: [n_cand, n_blocks, F, 8, 128]; weights: [n_cand, n_banks, 6020].
@@ -72,7 +79,7 @@ __global__ void __launch_bounds__(MC_NET_THREADS)
 // same for every candidate; else Philox keyed by (seed, table). With
 // n_net, the launch adds its count of net decisions there.
 template <int P, int R>
-__global__ void __launch_bounds__(MC_NET_THREADS)
+__global__ void __launch_bounds__(MC_NET_THREADS, MC_NET_EVAL_MIN_BLOCKS)
     mc_net_eval_kernel(int* state, uint32_t seed, const int* words,
                        const float* weights, int n_tables, int n_steps,
                        int defer, int sb, int bb, int ss, int net_seats,
@@ -86,14 +93,20 @@ __global__ void __launch_bounds__(MC_NET_THREADS)
                   n_banks * MC_NET_WEIGHTS);
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_tables) return;
-  int* cand = state + mc_candidate_state<P, R>(c, n_tables);
-  MCTable<P, R> s;
-  mc_load(s, cand, t);
+  int* rows =
+      mc_table_rows<P, R>(state + mc_candidate_state<P, R>(c, n_tables), t);
+  MCTableLocal<P, R> s;
+  mc_load(s, rows, MC_TABLES_PER_BLOCK);
+  // the whole table in local memory, as in the engine's first form: with
+  // its hot fields in registers K6 took twice its time at every register
+  // cap tried (96 to 205), and 1.5x with the MLP a call of its own
+  // (scripts/ab_engine.py)
+  mc_pin_to_memory(s);
   MCWords src(words, n_tables, t, seed, (uint32_t)t, 0u, 0u);
   int n = mc_run_net_eval(s, src, n_steps, defer, sb, bb, ss, net_seats,
                           reset_stacks != 0, fold_bits, raise_bits, w,
                           bank_map);
-  mc_store(s, cand, t);
+  mc_store(s, rows, MC_TABLES_PER_BLOCK);
   if (n_net) atomicAdd(n_net, (unsigned long long)n);
 }
 
@@ -109,10 +122,11 @@ __global__ void __launch_bounds__(MC_NET_THREADS)
   mc_load_weights(w, weights, MC_NET_WEIGHTS);
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_tables) return;
-  MCTable<P, R> s;
-  mc_load(s, state, t);
+  MCTableLocal<P, R> s;
+  mc_load(s, mc_table_rows<P, R>(state, t),
+          MC_TABLES_PER_BLOCK);
   float f[MC_NUM_FEATURES], lg[MC_NUM_ACTIONS];
-  mc_net_scores(s, mc_head(s), bb, w, nullptr, f, lg);
+  mc_net_scores(s, mc_head<P>(s.order, s.cursor), bb, w, nullptr, f, lg);
   float* o = out + t;
   for (int i = 0; i < MC_NUM_FEATURES; ++i) o[(long long)i * n_tables] = f[i];
   for (int a = 0; a < MC_NUM_ACTIONS; ++a) {

@@ -46,10 +46,11 @@ static_assert(MC_NET_WEIGHTS == 6020, "weights of the 24-64-64-4 MLP");
 // The weights of the bank that plays the seat acting at play-order
 // position `head`: seat (button + head) mod P plays bank
 // (bank_map >> 4 seat) & 15 (seat_to_bank, four bits a seat).
-template <int P, int R>
-MC_HD const float* mc_bank(const MCTable<P, R>& s, int head, const float* w,
-                           unsigned long long bank_map) {
-  const int seat = mc_floormod(s.button + head, P);
+template <int P, int R, class Rows>
+MC_HD const float* mc_bank(const MCTable<P, R, Rows>& s, int head,
+                           const float* w, unsigned long long bank_map) {
+  const int seat =
+      mc_floormod(s.rows.get(MCCold<P, R>::BUTTON) + head, P);
   return w + (int)((bank_map >> (4 * seat)) & 15u) * MC_NET_WEIGHTS;
 }
 
@@ -65,22 +66,26 @@ MC_HD long long mc_candidate_weights(long long c, int n_banks) {
 }
 
 // The 24 decision features of position `head` (_features), into f.
-template <int P, int R>
-MC_HD void mc_features(const MCTable<P, R>& s, int head, int bb, float* f) {
-  constexpr int L = MCTable<P, R>::L;
+template <int P, int R, class Rows>
+MC_HD void mc_features(const MCTable<P, R, Rows>& s, int head, int bb,
+                       float* f) {
+  constexpr int L = MCTable<P, R, Rows>::L;
+  using C = MCCold<P, R>;
   const int total = mc_street_total<L>(s.lvl);
   int pot = total;
-  for (int row = 0; row < 4 * L; ++row) pot = mc_add(pot, s.pot_amt[row]);
-  const int needed = mc_sub(total, s.contrib[head]);
+  for (int row = 0; row < 4 * L; ++row)
+    pot = mc_add(pot, s.rows.get(C::POT_AMT + row));
+  const int needed = mc_sub(total, mc_sel<P>(s.contrib, head));
   const int stage = s.stage;
   const int n_comm = stage == 0 ? 0 : stage == 1 ? 3 : stage == 2 ? 4 : 5;
 
   // made-hand key of the hole cards and the revealed board
-  const int hole0 = s.hole0[head], hole1 = s.hole1[head];
+  const int hole0 = s.rows.get(C::HOLE0 + head),
+            hole1 = s.rows.get(C::HOLE1 + head);
   uint32_t m[4] = {0u, 0u, 0u, 0u};
   mc_add_card(m, hole0);
   mc_add_card(m, hole1);
-  for (int i = 0; i < n_comm; ++i) mc_add_card(m, s.board[i]);
+  for (int i = 0; i < n_comm; ++i) mc_add_card(m, s.rows.get(C::BOARD + i));
   const int key = mc_eval_key(m[0], m[1], m[2], m[3]);
 
   const float fP = (float)P;
@@ -91,7 +96,7 @@ MC_HD void mc_features(const MCTable<P, R>& s, int head, int bb, float* f) {
   f[4] = mc_fdiv((float)n_comm, 5.f);
   f[5] = mc_fdiv(pot_f, 100.f * fP);
   f[6] = mc_fdiv(needed_f, 100.f);
-  f[7] = mc_fdiv((float)s.stacks[head], 100.f);
+  f[7] = mc_fdiv((float)mc_sel<P>(s.stacks, head), 100.f);
   f[8] = needed == 0 ? 1.f : 0.f;
   f[9] = mc_fdiv((float)mc_popc((uint32_t)(s.in_hand & full)), fP);
   f[10] = mc_fdiv((float)mc_popc((uint32_t)(s.to_act & full)), fP);
@@ -127,8 +132,11 @@ MC_HD void mc_dense(const float* w, const float* b, const float* x,
   }
 }
 
-// The MLP (_mlp_logits): 24 -> 64 -> 64 -> 4, ReLU.
-MC_HD void mc_mlp_logits(const float* w, const float* x, float* logits) {
+// The MLP (_mlp_logits): 24 -> 64 -> 64 -> 4, ReLU. A call of its own on
+// the card: inlined, its float chains and the engine's state share one
+// register allocation, and K6 ran 1.20x slower (B8 1.21x, with two banks
+// 1.30x; an A/B on an H100, scripts/ab_engine.py).
+MC_HD_CALL void mc_mlp_logits(const float* w, const float* x, float* logits) {
   float h1[MC_HIDDEN], h2[MC_HIDDEN];
   mc_dense<MC_NUM_FEATURES, MC_HIDDEN, true>(w + MC_W1, w + MC_B1, x, h1);
   mc_dense<MC_HIDDEN, MC_HIDDEN, true>(w + MC_W2, w + MC_B2, h1, h2);
@@ -145,15 +153,15 @@ MC_HD float mc_neg_gumbel(uint32_t bits) {
 
 // Features and masked logits of the acting position; with `gbits`, the
 // Gumbel scores logits + g in place of the logits.
-template <int P, int R>
-MC_HD void mc_net_scores(const MCTable<P, R>& s, int head, int bb,
+template <int P, int R, class Rows>
+MC_HD void mc_net_scores(const MCTable<P, R, Rows>& s, int head, int bb,
                          const float* w, const uint32_t* gbits, float* f,
                          float* lg) {
   mc_features(s, head, bb, f);
   mc_mlp_logits(w, f, lg);
   // folding with nothing owed is masked (policy_net.py:80-81)
-  const int needed =
-      mc_sub(mc_street_total<MCTable<P, R>::L>(s.lvl), s.contrib[head]);
+  const int needed = mc_sub(mc_street_total<MCTable<P, R, Rows>::L>(s.lvl),
+                            mc_sel<P>(s.contrib, head));
   lg[0] = mc_fadd(lg[0], needed == 0 ? -1e9f : 0.f);
   if (gbits)
     for (int a = 0; a < MC_NUM_ACTIONS; ++a)
@@ -163,10 +171,11 @@ MC_HD void mc_net_scores(const MCTable<P, R>& s, int head, int bb,
 // The net's raw action (_net_action): argmax of the masked logits, or the
 // Gumbel pick on `gbits`; the first index attaining the max; menu fold /
 // call / 2bb / max(pot + needed, 2bb).
-template <int P, int R>
-MC_HD int mc_net_action(const MCTable<P, R>& s, int head, int bb,
+template <int P, int R, class Rows>
+MC_HD int mc_net_action(const MCTable<P, R, Rows>& s, int head, int bb,
                         const float* w, const uint32_t* gbits) {
-  constexpr int L = MCTable<P, R>::L;
+  constexpr int L = MCTable<P, R, Rows>::L;
+  using C = MCCold<P, R>;
   float f[MC_NUM_FEATURES], lg[MC_NUM_ACTIONS];
   mc_net_scores(s, head, bb, w, gbits, f, lg);
   int idx = 0;
@@ -178,31 +187,32 @@ MC_HD int mc_net_action(const MCTable<P, R>& s, int head, int bb,
   if (idx == 2) return small;
   const int total = mc_street_total<L>(s.lvl);
   int pot = total;
-  for (int row = 0; row < 4 * L; ++row) pot = mc_add(pot, s.pot_amt[row]);
-  return mc_max(mc_add(pot, mc_sub(total, s.contrib[head])), small);
+  for (int row = 0; row < 4 * L; ++row)
+    pot = mc_add(pot, s.rows.get(C::POT_AMT + row));
+  return mc_max(mc_add(pot, mc_sub(total, mc_sel<P>(s.contrib, head))),
+                small);
 }
 
 // K5's work for one table: n_steps fused steps, every seat playing its
 // bank's net by argmax; hand h > 0 is dealt from stash row min(h, hmax - 1).
-template <int P, int R>
-MC_HD void mc_run_net_det(MCTable<P, R>& s, const int* stash,
+template <int P, int R, class Rows>
+MC_HD void mc_run_net_det(MCTable<P, R, Rows>& s, const int* stash,
                           long long stride, int n_steps, int hmax, int sb,
                           int bb, const float* w,
                           unsigned long long bank_map) {
+  constexpr int L = MCTable<P, R, Rows>::L;
+  using C = MCCold<P, R>;
   for (int i = 0; i < n_steps; ++i) {
-    int hand_ptr = mc_min(s.hand_ct + 1, hmax - 1);
     // a table with no head is a no-op this step, whatever it would play
-    int raw = 0;
     if (s.order) {
-      const int head = mc_head(s);
-      raw = mc_net_action(s, head, bb, mc_bank(s, head, w, bank_map),
-                          nullptr);
+      const int head = mc_head<P>(s.order, s.cursor);
+      const int raw = mc_net_action(s, head, bb,
+                                    mc_bank(s, head, w, bank_map), nullptr);
+      mc_step_nosettle(s, raw, head, mc_street_total<L>(s.lvl));
     }
-    mc_step_nosettle(s, raw);
     if (s.wait) {
-      int deal[2 * P + 5];
-      mc_stash_deal<P>(stash, stride, hand_ptr, deal);
-      mc_settle_pass(s, deal, sb, bb);
+      const int hand_ptr = mc_min(s.rows.get(C::HAND_CT) + 1, hmax - 1);
+      mc_settle_pass(s, MCDealStash{stash, stride, hand_ptr}, sb, bb);
     }
   }
 }
@@ -212,32 +222,35 @@ MC_HD void mc_run_net_det(MCTable<P, R>& s, const int* stash,
 // words and a settle pass. Seats whose bit is set in net_seats play their
 // bank's net, the others the random policy. Returns the count of net
 // decisions.
-template <int P, int R>
-MC_HD int mc_run_net_eval(MCTable<P, R>& s, MCWords& src, int n_steps,
+template <int P, int R, class Rows>
+MC_HD int mc_run_net_eval(MCTable<P, R, Rows>& s, MCWords& src, int n_steps,
                           int defer, int sb, int bb, int ss, int net_seats,
                           bool reset_stacks, uint32_t fold_bits,
                           uint32_t raise_bits, const float* w,
                           unsigned long long bank_map) {
   constexpr int NC = 2 * P + 5;
+  constexpr int L = MCTable<P, R, Rows>::L;
+  using C = MCCold<P, R>;
   int n_net = 0;
   for (int it = 0; it < n_steps / defer; ++it) {
     for (int k = 0; k < defer; ++k) {
       uint32_t words[MC_NET_SLOT_WORDS];
       for (int i = 0; i < MC_NET_SLOT_WORDS; ++i) words[i] = src.next();
-      int raw = mc_policy(s, words[0], words[1], fold_bits, raise_bits);
-      if (s.order) {
-        const int head = mc_head(s);
-        if ((net_seats >> mc_floormod(s.button + head, P)) & 1) {
-          raw = mc_net_action(s, head, bb, mc_bank(s, head, w, bank_map),
-                              words + 2);
-          ++n_net;
-        }
+      if (!s.order) continue;  // no head: the slot is a no-op
+      const int head = mc_head<P>(s.order, s.cursor);
+      const int total = mc_street_total<L>(s.lvl);
+      int raw = mc_policy(s, head, total, words[0], words[1], fold_bits,
+                          raise_bits);
+      if ((net_seats >> mc_floormod(s.rows.get(C::BUTTON) + head, P)) & 1) {
+        raw = mc_net_action(s, head, bb, mc_bank(s, head, w, bank_map),
+                            words + 2);
+        ++n_net;
       }
-      mc_step_nosettle(s, raw);
+      mc_step_nosettle(s, raw, head, total);
     }
     int deal[NC];
     mc_sample_cards<NC>(src, nullptr, 0, deal);
-    mc_settle_pass(s, deal, sb, bb, ss, reset_stacks);
+    mc_settle_pass(s, MCDealArray{deal}, sb, bb, ss, reset_stacks);
   }
   return n_net;
 }

@@ -74,11 +74,64 @@ struct MCWords {
   }
 };
 
+// The engine kernels' word sources (engine.cuh): word i of a table's stream
+// by `at(i)`, or the next word by `next()` from a position set by `seek`.
+// The injected form is a template parameter of the kernels, not a branch
+// on every word as in MCWords.
+//
+// Philox, register-resident: the last block drawn is kept as four scalars
+// and a word is picked from them by selects, so that no array is indexed
+// at run time and the source never touches local memory. A draw from the
+// cached block costs three selects; a new block, one Philox4x32-10.
+struct MCPhiloxWords {
+  uint32_t k0, k1, c1, c2;  // key: seed, low stream word; counter words
+  uint32_t blk;             // the block held in w0..w3
+  uint32_t w0, w1, w2, w3;
+  uint32_t pos;             // next word of next()
+
+  MC_HD MCPhiloxWords(uint32_t seed, uint32_t stream_lo, uint32_t stream_hi,
+                      uint32_t sub)
+      : k0(seed), k1(stream_lo), c1(stream_hi), c2(sub), blk(0xFFFFFFFFu),
+        w0(0u), w1(0u), w2(0u), w3(0u), pos(0u) {}
+
+  MC_HD uint32_t at(uint32_t i) {
+    const uint32_t b = i >> 2;
+    if (b != blk) {
+      uint32_t x[4] = {b, c1, c2, 0u};
+      mc_philox4x32_10(x, k0, k1);
+      w0 = x[0]; w1 = x[1]; w2 = x[2]; w3 = x[3];
+      blk = b;
+    }
+    const uint32_t j = i & 3u;
+    return j == 0u ? w0 : j == 1u ? w1 : j == 2u ? w2 : w3;
+  }
+  MC_HD void seek(uint32_t i) { pos = i; }
+  MC_HD uint32_t next() { return at(pos++); }
+};
+
+// Injected words: word i at words[i * stride] (`words` already offset to
+// the table).
+struct MCInjectedWords {
+  const int* words;
+  long long stride;
+  uint32_t pos;
+
+  MC_HD MCInjectedWords(const int* w, long long stride_)
+      : words(w), stride(stride_), pos(0u) {}
+  MC_HD uint32_t at(uint32_t i) const {
+    return (uint32_t)words[(long long)i * stride];
+  }
+  MC_HD void seek(uint32_t i) { pos = i; }
+  MC_HD uint32_t next() { return at(pos++); }
+};
+
 // Draw K distinct live cards (pallas_equity.py:65-93): draw t is one word
 // mod (live - t), made distinct by bubble insertion into the ascending
 // list of earlier draws, then shifted past the n_dead ascending dead cards.
-template <int K>
-MC_HD void mc_sample_cards(MCWords& src, const int* dead, int n_dead,
+// Src: any word source with next() (MCWords, MCPhiloxWords,
+// MCInjectedWords).
+template <int K, class Src>
+MC_HD void mc_sample_cards(Src& src, const int* dead, int n_dead,
                            int* cards) {
   int n_live = 52 - n_dead;
   int sorted_chosen[K];

@@ -7,10 +7,13 @@
 // compiles this file once per stage, with -DMC_SEATS=P and
 // -DMC_STAGE=MC_STAGE_<name> (ops/_build.py:build_stage), into a library
 // of its own, so each build's seconds and ptxas report (registers, stack
-// frame, spills) belong to that stage alone. The kernel is K3/K4's shape:
-// one thread per table of the packed state [n_blocks, F, 8, 128] (reference
-// rules, as the script's), the table's F rows read into an MCTable once,
-// n_steps applications of the stage, the rows written once. Bound: the
+// frame, spills) belong to that stage alone; the report's kernel is the
+// Philox instantiation, the one the measurement runs (the injected one
+// serves the tests). The kernel is K4's shape: one thread per table of the
+// packed state [n_blocks, F, 8, 128] (reference rules, as the script's),
+// the table's F rows read once into K4's form (hot fields in registers,
+// cold rows in the block's shared memory), n_steps applications of the
+// stage, the rows written once. Bound: the
 // stage's integer work per table-step, or at least the state's bytes once
 // each way; the probe's use is to compare the stages with each other and
 // with K3, not to reach a bound.
@@ -25,23 +28,47 @@
 #error "build with -DMC_STAGE=MC_STAGE_<name> (ops/_build.py)"
 #endif
 
-#define MC_STAGE_THREADS 128
-
-// Injected words: int32 [n_steps, W, n_tables] (W the stage's words per
+// INJECT: words int32 [n_steps, W, n_tables] (W the stage's words per
 // step); else Philox keyed by (seed, table) on sub-stream MC_SUB_PROBE.
-template <int P>
-__global__ void __launch_bounds__(MC_STAGE_THREADS)
+// K4's block and cold-row column (engine.cuh, MC_ENGINE_THREADS).
+template <int P, bool INJECT>
+__global__ void __launch_bounds__(MC_ENGINE_THREADS,
+                                  mc_engine_blocks_per_sm<P, MC_REFERENCE>())
     mc_stage_kernel(int* state, uint32_t seed, const int* words,
                     int n_tables, int n_steps, int sb, int bb,
                     uint32_t fold_bits, uint32_t raise_bits) {
+  extern __shared__ int mc_cold[];
   int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_tables) return;
-  MCTable<P, MC_REFERENCE> s;
-  mc_load(s, state, t);
-  MCWords src(words, n_tables, t, seed, (uint32_t)t, 0u, MC_SUB_PROBE);
-  for (int i = 0; i < n_steps; ++i)
-    mc_stage_step<MC_STAGE>(s, src, sb, bb, fold_bits, raise_bits);
-  mc_store(s, state, t);
+  int* rows = mc_table_rows<P, MC_REFERENCE>(state, t);
+  MCTable<P, MC_REFERENCE, MCEngineRows> s;
+  s.rows.col = mc_cold + threadIdx.x;
+  mc_load(s, rows, MC_TABLES_PER_BLOCK);
+  if constexpr (INJECT) {
+    MCInjectedWords src(words + t, n_tables);
+    for (int i = 0; i < n_steps; ++i)
+      mc_stage_step<MC_STAGE>(s, src, sb, bb, fold_bits, raise_bits);
+  } else {
+    MCPhiloxWords src(seed, (uint32_t)t, 0u, MC_SUB_PROBE);
+    for (int i = 0; i < n_steps; ++i)
+      mc_stage_step<MC_STAGE>(s, src, sb, bb, fold_bits, raise_bits);
+  }
+  mc_store(s, rows, MC_TABLES_PER_BLOCK);
+}
+
+template <bool INJECT>
+static int mc_launch_stage(int* state, uint32_t seed, const int* words,
+                           int n_tables, int n_steps, int sb, int bb,
+                           uint32_t fold_bits, uint32_t raise_bits,
+                           cudaStream_t st) {
+  constexpr int smem = mc_engine_smem<MC_SEATS, MC_REFERENCE>();
+  cudaError_t err =
+      mc_engine_attributes(mc_stage_kernel<MC_SEATS, INJECT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  mc_stage_kernel<MC_SEATS, INJECT><<<n_tables / MC_ENGINE_THREADS,
+                                      MC_ENGINE_THREADS, smem, st>>>(
+      state, seed, words, n_tables, n_steps, sb, bb, fold_bits, raise_bits);
+  return (int)cudaGetLastError();
 }
 
 // In place on `state`. Returns cudaError_t (cudaErrorInvalidValue for a
@@ -52,12 +79,15 @@ extern "C" int mc_probe_stage(int* state, int seed, const int* words,
                               void* stream) {
   if (P != MC_SEATS) return (int)cudaErrorInvalidValue;
   int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
-  int grid = (n_tables + MC_STAGE_THREADS - 1) / MC_STAGE_THREADS;
-  mc_stage_kernel<MC_SEATS><<<grid, MC_STAGE_THREADS, 0,
-                              (cudaStream_t)stream>>>(
-      state, (uint32_t)seed, words, n_tables, n_steps, sb, bb,
-      (uint32_t)fold_bits, (uint32_t)raise_bits);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return words ? mc_launch_stage<true>(state, (uint32_t)seed, words,
+                                       n_tables, n_steps, sb, bb,
+                                       (uint32_t)fold_bits,
+                                       (uint32_t)raise_bits, st)
+               : mc_launch_stage<false>(state, (uint32_t)seed, words,
+                                        n_tables, n_steps, sb, bb,
+                                        (uint32_t)fold_bits,
+                                        (uint32_t)raise_bits, st);
 }
 
 // The stage this library was built for (an MC_STAGE_* value).

@@ -3,12 +3,15 @@
 // v_deal :94, v_settle :103, v_full :127), each built from the engine's own
 // device functions (engine.cuh), for one table.
 //
-// Words are drawn as the JAX bodies draw them: _policy_prng's u, then
-// amt_bits; then _sample_cards' 2P + 5. A stage that reads state it does
-// not change first passes those fields through mc_keep, so that every step
-// reads them again, as an engine step does when the step before may have
-// changed them (otherwise the compiler computes the head scan or the hand
-// values once, before the step loop).
+// The table is K4's (engine.cuh, MCTable): hot fields in registers, cold
+// rows in the storage class Rows (the kernel's shared-memory column, the
+// host harness's per-thread array). Words are drawn as the JAX bodies draw
+// them: _policy_prng's u, then amt_bits; then _sample_cards' 2P + 5. A
+// stage that reads state it does not change first passes those fields
+// through mc_keep (a cold row in shared memory: its column address through
+// mc_keep_ptr), so that every step reads them again, as an engine step does
+// when the step before may have changed them (otherwise the compiler
+// computes the head scan or the hand values once, before the step loop).
 #pragma once
 
 #include "engine.cuh"
@@ -31,30 +34,47 @@ MC_HD void mc_keep_rows(int* rows) {
   for (int i = 0; i < N; ++i) mc_keep(rows[i]);
 }
 
+// Every cold row read afresh: the shared column's address is made opaque
+// (its rows cannot be hoisted out of the step loop), a per-thread array's
+// rows each pass through mc_keep.
+template <int T>
+MC_HD void mc_keep_cold(MCRowsShared<T>& rows) {
+  mc_keep_ptr(rows.col);
+}
+template <int N>
+MC_HD void mc_keep_cold(MCRowsLocal<N>& rows) {
+  mc_keep_rows<N>(rows.v);
+}
+
 // _policy_prng on the next two words, with the head scan and the amount
 // owed read afresh.
-template <int P, int R>
-MC_HD int mc_stage_policy_raw(MCTable<P, R>& s, MCWords& src,
+template <int P, int R, class Rows, class Src>
+MC_HD int mc_stage_policy_raw(MCTable<P, R, Rows>& s, Src& src,
                               uint32_t fold_bits, uint32_t raise_bits) {
+  constexpr int L = MCTable<P, R, Rows>::L;
   mc_keep(s.order);
   mc_keep(s.cursor);
-  mc_keep_rows<MCTable<P, R>::L>(s.lvl);
+  mc_keep_rows<L>(s.lvl);
   mc_keep_rows<P>(s.contrib);
   const uint32_t u = src.next();
   const uint32_t amt_bits = src.next();
-  return mc_policy(s, u, amt_bits, fold_bits, raise_bits);
+  return mc_policy(s, mc_head<P>(s.order, s.cursor),
+                   mc_street_total<L>(s.lvl), u, amt_bits, fold_bits,
+                   raise_bits);
 }
 
 // One step of stage STAGE (an MC_STAGE_* value). Only that stage's code is
 // instantiated, so a build of one stage compiles that stage alone.
-template <int STAGE, int P, int R>
-MC_HD void mc_stage_step(MCTable<P, R>& s, MCWords& src, int sb, int bb,
+template <int STAGE, int P, int R, class Rows, class Src>
+MC_HD void mc_stage_step(MCTable<P, R, Rows>& s, Src& src, int sb, int bb,
                          uint32_t fold_bits, uint32_t raise_bits) {
-  constexpr int L = MCTable<P, R>::L;
+  constexpr int L = MCTable<P, R, Rows>::L;
   constexpr int NC = 2 * P + 5;
+  using C = MCCold<P, R>;
   if constexpr (STAGE == MC_STAGE_CARRY) {
-    mc_keep(s.hand_ct);
-    s.hand_ct = mc_add(s.hand_ct, 1);
+    int hand_ct = s.rows.get(C::HAND_CT);
+    mc_keep(hand_ct);
+    s.rows.set(C::HAND_CT, mc_add(hand_ct, 1));
   } else if constexpr (STAGE == MC_STAGE_POLICY) {
     const int raw = mc_stage_policy_raw(s, src, fold_bits, raise_bits);
     s.street_raises = mc_add(s.street_raises, raw > 0);
@@ -71,22 +91,19 @@ MC_HD void mc_stage_step(MCTable<P, R>& s, MCWords& src, int sb, int bb,
   } else if constexpr (STAGE == MC_STAGE_DEAL) {
     int cards[NC];
     mc_sample_cards<NC>(src, nullptr, 0, cards);
+#pragma unroll
     for (int p = 0; p < P; ++p) {
-      s.hole0[p] = cards[p];
-      s.hole1[p] = cards[P + p];
+      s.rows.set(C::HOLE0 + p, cards[p]);
+      s.rows.set(C::HOLE1 + p, cards[P + p]);
     }
-    for (int i = 0; i < 5; ++i) s.board[i] = cards[2 * P + i];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) s.rows.set(C::BOARD + i, cards[2 * P + i]);
   } else if constexpr (STAGE == MC_STAGE_SETTLE) {
     // the payout of every pot row added to the stacks, pots kept (no
     // clearing): the settle pass's payout half
-    mc_keep_rows<5>(s.board);
-    mc_keep_rows<P>(s.hole0);
-    mc_keep_rows<P>(s.hole1);
+    mc_keep_cold(s.rows);
     mc_keep(s.in_hand);
-    mc_keep_rows<4 * L>(s.pot_amt);
-    mc_keep_rows<4 * L>(s.pot_set);
-    if constexpr (R == MC_REFERENCE) mc_keep_rows<4 * L>(s.rr.pot_n);
-    mc_settle_pass<P, R, true>(s, nullptr, sb, bb);
+    mc_settle_pass<P, R, true>(s, MCDealArray{nullptr}, sb, bb);
   } else {
     static_assert(STAGE == MC_STAGE_FULL, "stage");
     // _engine_step at DEFER = 1: two policy words and 2P + 5 card words
@@ -95,7 +112,13 @@ MC_HD void mc_stage_step(MCTable<P, R>& s, MCWords& src, int sb, int bb,
     const uint32_t amt_bits = src.next();
     int cards[NC];
     mc_sample_cards<NC>(src, nullptr, 0, cards);
-    mc_step_nosettle(s, mc_policy(s, u, amt_bits, fold_bits, raise_bits));
-    mc_settle_pass(s, cards, sb, bb);
+    if (s.order) {
+      const int head = mc_head<P>(s.order, s.cursor);
+      const int total = mc_street_total<L>(s.lvl);
+      mc_step_nosettle(
+          s, mc_policy(s, head, total, u, amt_bits, fold_bits, raise_bits),
+          head, total);
+    }
+    mc_settle_pass(s, MCDealArray{cards}, sb, bb);
   }
 }

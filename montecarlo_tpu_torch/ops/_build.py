@@ -9,10 +9,14 @@ plain C interface, which ``ctypes`` loads:
   count P only, under each rule set they take (``-DMC_SEATS=P``). A run
   builds the seat counts it uses, not all nine;
 - ``carry_library()``: the carry probe (``probe_carry.cu``);
+- ``compile_library(...)``: the same nvcc build of any source tree into a
+  given directory (``scripts/ab_engine.py`` builds another commit's
+  ``csrc/`` with it);
 - ``build_stage(stage)``: the stage probe (``probe_stages.cu``) for one
   stage of the engine's step body. Its build is the measurement, so it is
   never cached: every call compiles afresh, one nvcc, and reports the
-  seconds and ptxas's registers, stack frame and spills.
+  seconds and ptxas's registers, stack frame and spills of the stage's
+  Philox kernel.
 
 The probes (``PROBE_SOURCES``) stay out of the other libraries, so they add
 nothing to the main path's build. A library other than a stage's is built
@@ -130,8 +134,17 @@ def _build_cached(sources, defines, name):
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return lib, 0.0
+    return compile_library(sources, defines, out_dir, CSRC)
+
+
+def compile_library(sources, defines, out_dir: Path,
+                    include: Path) -> tuple[Path, float]:
+    """Compile ``sources`` (one nvcc each, all at once, ``-I include``) and
+    link them into ``out_dir/libmc_kernels.so``, with ``build.log`` (the
+    ptxas report) beside it. Returns (library path, seconds)."""
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / LIB_NAME
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs, procs = [], []
@@ -139,7 +152,7 @@ def _build_cached(sources, defines, name):
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, *defines, "-I", str(CSRC), "-c",
+                [nvcc, *NVCC_FLAGS, *defines, "-I", str(include), "-c",
                  str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         outs = [(src, p.communicate()[0], p.returncode) for src, p in procs]
@@ -159,7 +172,9 @@ def _build_cached(sources, defines, name):
     return lib, time.perf_counter() - t0
 
 
-def _load(lib_path, signatures) -> ctypes.CDLL:
+def load_library(lib_path, signatures) -> ctypes.CDLL:
+    """Load a library, its C entries given their argument types
+    (``SIGNATURES``, ``SEAT_SIGNATURES``, ...)."""
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -172,7 +187,7 @@ def _load(lib_path, signatures) -> ctypes.CDLL:
 def library(seats: int | None = None) -> ctypes.CDLL:
     """The loaded library without a seat count, or the one for ``seats``;
     built on first call."""
-    return _load(build(seats)[0], SIGNATURES if seats is None
+    return load_library(build(seats)[0], SIGNATURES if seats is None
                  else SEAT_SIGNATURES)
 
 
@@ -185,7 +200,7 @@ def carry_library_path() -> Path:
 @functools.lru_cache(maxsize=None)
 def carry_library() -> ctypes.CDLL:
     """The loaded carry probe library; built on first call."""
-    return _load(carry_library_path(), CARRY_SIGNATURES)
+    return load_library(carry_library_path(), CARRY_SIGNATURES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,11 +237,13 @@ def build_stage(stage: str, seats: int = 6) -> StageBuild:
     if run.returncode != 0:
         raise RuntimeError(f"nvcc failed on stage {stage}:\n{run.stdout}")
     (out_dir / "build.log").write_text(run.stdout)
-    report = ptxas_report(run.stdout)
+    # the Philox instantiation (INJECT false), the one the probe measures
+    report = {k: v for k, v in ptxas_report(run.stdout).items()
+              if "mc_stage_kernel" in k and "Lb0E" in k}
     if len(report) != 1:
-        raise RuntimeError(f"stage {stage}: expected one kernel in the ptxas "
-                           f"report, got {sorted(report)}")
-    lib = _load(lib_path, STAGE_SIGNATURES)
+        raise RuntimeError(f"stage {stage}: expected one Philox stage kernel "
+                           f"in the ptxas report, got {sorted(report)}")
+    lib = load_library(lib_path, STAGE_SIGNATURES)
     if lib.mc_probe_stage_id() != STAGES.index(stage):
         raise RuntimeError(f"stage {stage}: the library reports stage "
                            f"{lib.mc_probe_stage_id()}")

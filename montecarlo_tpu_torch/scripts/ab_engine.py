@@ -1,0 +1,351 @@
+"""A/B of the port's kernels against another build of ``csrc/``.
+
+Run from the repository root on a machine with a card, with another
+commit's sources unpacked somewhere (``git archive <commit>
+montecarlo_tpu_torch/csrc | tar -x -C DIR``):
+
+    python -m montecarlo_tpu_torch.scripts.ab_engine \\
+        --parent DIR/montecarlo_tpu_torch/csrc [--runs 5] [--also DIR2] \\
+        [--variants MC_ENGINE_THREADS=128,MC_NET_EVAL_MIN_BLOCKS=3]
+
+Each source tree is built with ``_build.NVCC_FLAGS`` into a temporary
+directory (the six-seat library of ``engine.cu`` and ``net.cu``, the one
+of ``equity.cu`` and ``philox.cu``, and one stage-probe library a stage;
+one nvcc per source), and every build is loaded into this process. Each
+kernel call of the main paths runs on every tree in turn, ``runs``
+times, the order reversed every other run (parent, this tree, this tree,
+parent, ...), each call timed with CUDA events; the medians and their
+ratios are printed, and the trees' outputs must be equal bit for bit.
+The calls, at ``chip_smoke.py``'s sizes: K1 (AKs vs QQ preflop, 2^30
+rollouts), K2 (169 hands x 10^7 rollouts), B3 (AA/KK/76o preflop, 2^30
+rollouts), K4 under reference and standard rules (2^20 tables x 512
+slots) and tournament rules (2^20 6-max tournaments, the completion
+run's first, fifth and last launches of 1024 slots), K3 under each rule
+set (2^20 x 64 injected steps; tournament with 20-chip stacks), the stage
+probe's six stages (2^20 tables x 256 steps from K3's output state), K5
+(2^18 x 64, one bot and two banks), K6 (2^18 x 256, es3 at seat 0), B7
+(2^16 x 256, two banks) and B8 (32 candidates x 2^14 x 256, one and two
+banks).
+
+``--also DIR2`` adds a further source tree to the same turns.
+``--variants`` builds this tree again once per ``NAME=VALUE``, with the
+``#define NAME`` of ``csrc/`` set to VALUE (``MC_ENGINE_THREADS``, the
+engine kernels' block size in ``engine.cuh``; ``MC_NET_EVAL_MIN_BLOCKS``,
+K6's launch bound in ``net.cu``), and times every call on each against
+this tree: the measurement behind those constants.
+
+Each library's ptxas report (registers, stack frame and spills per kernel)
+is printed first. The last line is one JSON object with every median; with
+``--out FILE`` the whole report is written there too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import re
+import shutil
+import subprocess
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from montecarlo_tpu_torch.device import cuda_device
+from montecarlo_tpu_torch.engine.state import TableConfig
+from montecarlo_tpu_torch.models import bots
+from montecarlo_tpu_torch.models import policy_net as tpn
+from montecarlo_tpu_torch.ops import _build
+from montecarlo_tpu_torch.ops import cuda_engine as ce
+from montecarlo_tpu_torch.ops import cuda_equity as cq
+from montecarlo_tpu_torch.ops import cuda_net as cn
+from montecarlo_tpu_torch.ops import cuda_stages as cs
+from montecarlo_tpu_torch.rollout import equity as teq
+
+P, SB, BB, SS = 6, 5, 10, 100
+SEED = 20261016
+T_FULL = 1 << 20
+SP_SLOTS = 512
+DET_STEPS, HMAX = 64, 12
+TOUR_LAUNCH, TOUR_STACK = 1024, 20
+TOUR_TIMED = (0, 4, -1)   # completion launches timed (the last: -1)
+T_NET, NET_DET_STEPS, NET_HMAX, NET_LAUNCH = 1 << 18, 64, 16, 256
+T_LEAGUE = 1 << 16
+TRAIN_POP, T_TRAIN, TRAIN_SLOTS, TRAIN_SEED = 32, 1 << 14, 256, 13
+N_EQUITY, N_SWEEP = 1 << 30, 10_000_000
+STAGE_STEPS = 256
+COMMON_SOURCES = ("equity.cu", "philox.cu")
+
+
+def build(csrc: Path, out_dir: Path):
+    """Build ``csrc``'s seat library (P = 6) and its library without a seat
+    count into ``out_dir``; returns the loaded pair, the ptxas report of
+    both and the seconds of the seat library."""
+    seat_path, seconds = _build.compile_library(
+        [csrc / name for name in _build.SEAT_SOURCES], [f"-DMC_SEATS={P}"],
+        out_dir / "p6", csrc)
+    common_path, _ = _build.compile_library(
+        [csrc / name for name in COMMON_SOURCES], [], out_dir / "common",
+        csrc)
+    stage_paths = {stage: _build.compile_library(
+        [csrc / "probe_stages.cu"],
+        [f"-DMC_SEATS={P}", f"-DMC_STAGE=MC_STAGE_{stage.upper()}"],
+        out_dir / f"stage-{stage}", csrc)[0] for stage in cs.STAGES}
+    report = {}
+    for lib_path in (seat_path, common_path):
+        report.update(_build.ptxas_report(
+            (lib_path.parent / "build.log").read_text()))
+    libs = (_build.load_library(seat_path, _build.SEAT_SIGNATURES),
+            _build.load_library(common_path, _build.SIGNATURES),
+            {stage: _build.StageBuild(stage, _build.load_library(
+                path, _build.STAGE_SIGNATURES), 0.0, {})
+             for stage, path in stage_paths.items()})
+    return libs, report, seconds
+
+
+@contextlib.contextmanager
+def using(libs):
+    """The wrappers of ``ops/`` launch on ``libs`` (the seat library, the
+    one without a seat count, the stage probe's builds) inside the block."""
+    saved = _build.library, cs.stage_library
+    _build.library = lambda seats=None: libs[0] if seats else libs[1]
+    cs.stage_library = lambda stage, seats=P, fresh=False: libs[2][stage]
+    try:
+        yield
+    finally:
+        _build.library, cs.stage_library = saved
+
+
+def inputs(dev, libs):
+    """The main-path calls as (name, thunk) pairs, on inputs made once
+    (the completion run's launch states by ``libs``)."""
+    cfg = TableConfig(num_seats=P)
+    std = TableConfig(num_seats=P, rules="standard")
+    tour = TableConfig(num_seats=P, rules="tournament")
+    tour_short = TableConfig(num_seats=P, rules="tournament",
+                             starting_stack=TOUR_STACK)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.rand((DET_STEPS, T_FULL), generator=g, device=dev)
+    raises = torch.randint(1, 21, (DET_STEPS, T_FULL), generator=g,
+                           device=dev)
+    acts = torch.where(u < 0.20, -1, torch.where(u < 0.92, 0, raises)) \
+        .to(torch.int32).reshape(DET_STEPS, T_FULL // 1024, 8, 128) \
+        .permute(1, 0, 2, 3).contiguous()
+    del u, raises
+    deal = torch.rand((T_FULL, HMAX, 52), generator=g, device=dev) \
+        .argsort(dim=-1)[..., :2 * P + 5].to(torch.int32)
+    cards = deal.reshape(T_FULL // 1024, 1024, HMAX, 2 * P + 5) \
+        .permute(0, 2, 3, 1).reshape(T_FULL // 1024, HMAX, 2 * P + 5, 8,
+                                     128).contiguous()
+    det_in = {rules: ce.pack_state(c, deal[:, 0]) for rules, c in
+              (("reference", cfg), ("standard", std),
+               ("tournament", tour_short))}
+    del deal
+    fd = ce.first_deal(SEED, T_FULL, P, dev)
+    sp_in = {"reference": ce.pack_state(cfg, fd),
+             "standard": ce.pack_state(std, fd)}
+    # the completion run's launch states (this tree's kernels; every
+    # launch's state is the same on both, which the A/B checks)
+    tour_states, state, done = [], ce.pack_state(tour, fd), 0
+    while True:
+        tour_states.append(((SEED + done * 7919) & 0x7FFFFFFF, state))
+        with using(libs):
+            state = ce.run_perpetual_prng(tour_states[-1][0], state, P,
+                                          TOUR_LAUNCH, SB, BB, "tournament")
+        done += TOUR_LAUNCH
+        if int((ce.unpack_field(state, tour, "order") == 0).sum()) == T_FULL:
+            break
+    del state, fd
+    es3 = tpn.load_params("data/policy_6max_es3.npz")
+    p200 = tpn.load_params("data/policy_6max_200.npz")
+    panel = bots.panel()
+    w_es3 = cn.net_weights(es3, dev)
+    w_bot = cn.net_weights(panel["fof_raise"], dev)
+    w_det_banks = cn.bank_weights([panel["jam_tight"], panel["fof_call"]],
+                                  dev)
+    stash = cn.deal_stash(SEED, T_NET, P, NET_HMAX, dev)
+    st_net_det = ce.pack_state(std, ce._stash_rows(stash)[0].T)
+    st_net0 = cn.initial_packed_state(SEED, std, T_NET, dev)
+    st_league0 = cn.initial_packed_state(SEED, std, T_LEAGUE, dev)
+    w7 = cn.bank_weights([es3, p200], dev)
+    rng = np.random.default_rng(0)
+    cands = [tpn.params_from_numpy([
+        x.numpy() + 0.05 * rng.standard_normal(x.shape).astype(np.float32)
+        for x in es3]) for _ in range(TRAIN_POP)]
+    st_train0 = cn.initial_packed_state(TRAIN_SEED, std, T_TRAIN, dev)
+    pop0 = st_train0[None].expand(TRAIN_POP, *st_train0.shape).contiguous()
+    w8 = cn.pop_weights(cands, dev)
+    w8l = cn.pop_weights(cands, dev, es3)
+    all_seats = (1 << P) - 1
+    parity = tuple(k % 2 for k in range(P))
+    seat0 = (0,) + (1,) * (P - 1)
+
+    aks = [teq.make_card(0, 14), teq.make_card(0, 13)]
+    qq = [teq.make_card(1, 12), teq.make_card(2, 12)]
+    dead, hm, vm = cq._hand_masks(aks, qq, (), dev)
+    heroes = torch.tensor([list(c) for _, c in teq.canonical_hands()],
+                          dtype=torch.int32)
+    sdead = torch.sort(heroes, dim=1).values.to(dev)
+    smask = torch.stack(cq.suit_masks_from_cards(heroes), dim=1).to(dev)
+    mk = teq.make_card
+    mw_dead, mw_hm = cq._multiway_masks(
+        [[mk(0, 14), mk(1, 14)], [mk(2, 13), mk(3, 13)], [mk(0, 7), mk(1, 6)]],
+        (), dev)
+    calls = {
+        "K1": lambda: cq.equity_counts(SEED, dead, hm, vm, N_EQUITY),
+        "K2": lambda: cq.sweep_counts(SEED + 2, sdead, smask, N_SWEEP),
+        "B3": lambda: cq.multiway_shares(SEED + 3, mw_dead, mw_hm, N_EQUITY),
+        "K4": lambda: ce.run_perpetual_prng(
+            SEED, sp_in["reference"], P, SP_SLOTS, SB, BB),
+        "K4s": lambda: ce.run_perpetual_prng(
+            SEED, sp_in["standard"], P, SP_SLOTS, SB, BB, "standard"),
+    }
+    n_tour = len(tour_states)
+    for i in TOUR_TIMED:
+        seed, st = tour_states[i]
+        calls[f"K4t launch {i % n_tour + 1}/{n_tour}"] = (
+            lambda seed=seed, st=st: ce.run_perpetual_prng(
+                seed, st, P, TOUR_LAUNCH, SB, BB, "tournament"))
+    for key, rules in (("K3", "reference"), ("K3s", "standard"),
+                       ("K3t", "tournament")):
+        calls[key] = lambda rules=rules: ce.run_perpetual_det(
+            det_in[rules], acts, cards, P, DET_STEPS, SB, BB, rules)
+    with using(libs):  # the stages start from K3's mid-hand state
+        stage_in = ce.run_perpetual_det(det_in["reference"], acts, cards, P,
+                                        DET_STEPS, SB, BB)
+    for stage in cs.STAGES:
+        calls[f"stage {stage}"] = lambda stage=stage: cs.run_stage(
+            stage, SEED, stage_in, P, STAGE_STEPS, SB, BB)
+    calls.update({
+        "K5": lambda: cn.run_net_det(st_net_det, stash, w_bot, P,
+                                     NET_DET_STEPS, SB, BB, "standard"),
+        "K5b": lambda: cn.run_net_det(st_net_det, stash, w_det_banks, P,
+                                      NET_DET_STEPS, SB, BB, "standard",
+                                      seat0),
+        "K6": lambda: cn.run_net_eval(SEED, st_net0, w_es3, P, NET_LAUNCH,
+                                      SB, BB, SS, "standard", 1),
+        "B7": lambda: cn.run_net_league(SEED, st_league0, w7, P, NET_LAUNCH,
+                                        SB, BB, SS, "standard", all_seats,
+                                        parity),
+        "B8": lambda: cn.run_net_eval_pop(TRAIN_SEED, pop0, w8, P,
+                                          TRAIN_SLOTS, SB, BB, SS,
+                                          "standard", 1),
+        "B8l": lambda: cn.run_net_eval_pop(TRAIN_SEED, pop0, w8l, P,
+                                           TRAIN_SLOTS, SB, BB, SS,
+                                           "standard", all_seats, seat0),
+    })
+    return calls
+
+
+def timed(fn):
+    """(output, ms) of one call of ``fn`` on the card (CUDA events)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def ab(calls, libs, runs, log):
+    """Per call, the median ms on each library over ``runs`` alternating
+    runs; the libraries' outputs must be equal."""
+    result = {}
+    names = list(libs)
+    for key, fn in calls.items():
+        ms = {name: [] for name in names}
+        outs = {}
+        for name in names:  # warm-up, and the output
+            with using(libs[name]):
+                outs[name] = fn()
+        torch.cuda.synchronize()
+        ref = outs[names[0]]
+        for name in names[1:]:
+            if not torch.equal(outs[name], ref):
+                raise RuntimeError(f"{key}: {name} differs from "
+                                   f"{names[0]}")
+        del outs, ref
+        for r in range(runs):
+            order = names if r % 2 == 0 else names[::-1]
+            for name in order:
+                with using(libs[name]):
+                    ms[name].append(timed(fn)[1])
+        result[key] = {name: float(np.median(v)) for name, v in ms.items()}
+        log(json.dumps({"call": key, "median_ms": result[key],
+                        "runs_ms": ms}))
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, required=True,
+                    help="another commit's montecarlo_tpu_torch/csrc")
+    ap.add_argument("--also", type=Path, action="append", default=[],
+                    help="a further csrc/ tree, timed in the same turns")
+    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--variants", default="",
+                    help="comma-separated NAME=VALUE defines of csrc/")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args(argv)
+    dev = cuda_device()
+    lines = []
+
+    def log(line):
+        print(line, flush=True)
+        lines.append(line)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(f"{smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    variants = [v.split("=") for v in args.variants.split(",") if v]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        trees = {"parent": args.parent.resolve(), "this": _build.CSRC,
+                 **{f"also:{d}": d.resolve() for d in args.also}}
+        for name, value in variants:
+            tree = tmp / f"src-{name}={value}"
+            shutil.copytree(_build.CSRC, tree)
+            define = re.compile(rf"^#define {name} \d+$", re.M)
+            hits = 0
+            for f in tree.iterdir():
+                text, k = define.subn(f"#define {name} {value}",
+                                      f.read_text())
+                f.write_text(text)
+                hits += k
+            if hits != 1:
+                raise RuntimeError(f"csrc/: {hits} definitions of {name}")
+            trees[f"{name}={value}"] = tree
+        libs = {}
+        with ThreadPoolExecutor(len(trees)) as pool:
+            builds = pool.map(lambda kv: build(kv[1], tmp / kv[0]),
+                              trees.items())
+            for name, (lib, report, seconds) in zip(trees, builds):
+                libs[name] = lib
+                log(json.dumps({"build": name, "nvcc_s": seconds,
+                                "ptxas": report}))
+        calls = inputs(dev, libs["this"])
+        main_libs = {k: v for k, v in libs.items() if k in ("parent", "this")
+                     or k.startswith("also:")}
+        res = ab(calls, main_libs, args.runs, log)
+        res_v = ab(calls, {k: v for k, v in libs.items()
+                           if k == "this" or "=" in k},
+                   args.runs, log) if variants else {}
+    summary = {"card": smi, "runs": args.runs, "median_ms": res,
+               "variants_median_ms": res_v,
+               "ratio_over_this": {
+                   k: {name: ms / v["this"] for name, ms in v.items()}
+                   for k, v in res.items()}}
+    log(json.dumps(summary))
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

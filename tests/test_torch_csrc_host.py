@@ -3,7 +3,10 @@
 The headers in ``montecarlo_tpu_torch/csrc`` are host C++ as well (``MC_HD``
 expands to ``inline`` outside nvcc). A small harness built with the host
 C++ compiler runs the kernels' per-thread bodies (one rollout of K1/K2/B3,
-one table of K3-K6, K3/K4 under every rule set; the net kernels with banks
+one table of K3-K6, K3/K4 under every rule set, the table's cold rows in
+the per-thread form and, for K4, also in the kernel's shared-column form
+over a host buffer; the play-order head of every (order, cursor); the net
+kernels with banks
 and, for K6, a grid of candidates at the kernel's state and weight
 offsets; one thread of each carry-probe form and one table of each
 stage-probe body) in Philox mode, the
@@ -146,17 +149,22 @@ static void carry(const int* in, Out& out) {
 }
 
 // rows: the packed state as [F, T] (row f of table t at f * T + t).
-template <int P, int R>
-static void load_rows(MCTable<P, R>& s, const int* rows, int T, int t) {
-  int* v = reinterpret_cast<int*>(&s);
-  for (int f = 0; f < mc_fields<P, R>(); ++f) v[f] = rows[(size_t)f * T + t];
+template <int P, int R, class Rows>
+static void load_rows(MCTable<P, R, Rows>& s, const int* rows, int T, int t) {
+  mc_load(s, rows + t, T);
 }
 
-template <int P, int R>
-static void store_rows(const MCTable<P, R>& s, std::vector<int>& res, int T,
-                       int t) {
-  const int* v = reinterpret_cast<const int*>(&s);
-  for (int f = 0; f < mc_fields<P, R>(); ++f) res[(size_t)f * T + t] = v[f];
+template <int P, int R, class Rows>
+static void store_rows(const MCTable<P, R, Rows>& s, std::vector<int>& res,
+                       int T, int t) {
+  mc_store(s, res.data() + t, T);
+}
+
+// The first unmasked position (mc_head) of every (order, cursor) pair:
+// in = P, then the pairs.
+template <int P>
+static void head(const int* in, size_t n, Out& out) {
+  for (size_t i = 1; i + 2 <= n; i += 2) out.push_back(mc_head<P>(in[i], in[i + 1]));
 }
 
 static const float* as_floats(const int* p) {
@@ -175,10 +183,10 @@ static void engine(const char* mode, const int* in, Out& out) {
     const int* words = rows + (size_t)F * T;
     std::vector<long long> res((size_t)MC_PROBE_ROWS * T);
     for (int t = 0; t < T; ++t) {
-      MCTable<P, R> s;
+      MCTableLocal<P, R> s;
       load_rows(s, rows, T, t);
       float f[MC_NUM_FEATURES], lg[MC_NUM_ACTIONS];
-      mc_net_scores(s, mc_head(s), bb, w, nullptr, f, lg);
+      mc_net_scores(s, mc_head<P>(s.order, s.cursor), bb, w, nullptr, f, lg);
       float o[MC_PROBE_ROWS];
       for (int i = 0; i < MC_NUM_FEATURES; ++i) o[i] = f[i];
       for (int a = 0; a < MC_NUM_ACTIONS; ++a) {
@@ -207,23 +215,34 @@ static void engine(const char* mode, const int* in, Out& out) {
     const int* stash = acts + (size_t)n_steps * T;
     res.resize((size_t)F * T);
     for (int t = 0; t < T; ++t) {
-      MCTable<P, R> s;
+      MCTableLocal<P, R> s;
       load_rows(s, rows, T, t);
       mc_run_det(s, acts + t, stash + t, T, n_steps, hmax, sb, bb);
       store_rows(s, res, T, t);
     }
-  } else if (!strcmp(mode, "k4")) {
+  } else if (!strcmp(mode, "k4") || !strcmp(mode, "k4shared")) {
+    // K4 in Philox mode; k4shared keeps the cold rows as the kernel does,
+    // in columns of a block's buffer (MCRowsShared, 64 tables a block)
     uint32_t seed = in[0], fold = in[5], raise = in[6];
     int n_steps = in[1], defer = in[2], sb = in[3], bb = in[4];
     T = in[7];
     rows = in + 8;
     res.resize((size_t)F * T);
+    std::vector<int> block((size_t)MCCold<P, R>::N * 64);
     for (int t = 0; t < T; ++t) {
-      MCTable<P, R> s;
-      load_rows(s, rows, T, t);
-      MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, 0u);
-      mc_run_prng(s, src, n_steps, defer, sb, bb, fold, raise);
-      store_rows(s, res, T, t);
+      MCPhiloxWords src(seed, (uint32_t)t, 0u, 0u);
+      if (!strcmp(mode, "k4")) {
+        MCTableLocal<P, R> s;
+        load_rows(s, rows, T, t);
+        mc_run_prng(s, src, n_steps, defer, sb, bb, fold, raise);
+        store_rows(s, res, T, t);
+      } else {
+        MCTable<P, R, MCRowsShared<64>> s;
+        s.rows.col = block.data() + t % 64;
+        load_rows(s, rows, T, t);
+        mc_run_prng(s, src, n_steps, defer, sb, bb, fold, raise);
+        store_rows(s, res, T, t);
+      }
     }
   } else if (!strcmp(mode, "stage")) {
     // the stage probe in Philox mode: stage, seed, n_steps, sb, bb, fold,
@@ -234,9 +253,9 @@ static void engine(const char* mode, const int* in, Out& out) {
     rows = in + 8;
     res.resize((size_t)F * T);
     for (int t = 0; t < T; ++t) {
-      MCTable<P, R> s;
+      MCTableLocal<P, R> s;
       load_rows(s, rows, T, t);
-      MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, MC_SUB_PROBE);
+      MCPhiloxWords src(seed, (uint32_t)t, 0u, MC_SUB_PROBE);
       for (int i = 0; i < n_steps; ++i) {
         switch (stage) {
 #define MC_STAGE_CASE(ID) \
@@ -261,7 +280,7 @@ static void engine(const char* mode, const int* in, Out& out) {
     const int* stash = rows + (size_t)F * T;
     res.resize((size_t)F * T);
     for (int t = 0; t < T; ++t) {
-      MCTable<P, R> s;
+      MCTableLocal<P, R> s;
       load_rows(s, rows, T, t);
       mc_run_net_det(s, stash + t, T, n_steps, hmax, sb, bb, w, bank_map);
       store_rows(s, res, T, t);
@@ -286,12 +305,13 @@ static void engine(const char* mode, const int* in, Out& out) {
       int* cand = res.data() + mc_candidate_state<P, R>(c, T);
       const float* w = weights + mc_candidate_weights(c, n_banks);
       for (int t = 0; t < T; ++t) {
-        MCTable<P, R> s;
-        mc_load(s, cand, t);
+        MCTableLocal<P, R> s;
+        int* table = mc_table_rows<P, R>(cand, t);
+        mc_load(s, table, MC_TABLES_PER_BLOCK);
         MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, 0u);
         n_net += mc_run_net_eval(s, src, n_steps, defer, sb, bb, ss,
                                  net_seats, reset, fold, raise, w, bank_map);
-        mc_store(s, cand, t);
+        mc_store(s, table, MC_TABLES_PER_BLOCK);
       }
     }
     out.insert(out.end(), res.begin(), res.end());
@@ -327,16 +347,28 @@ int main(int argc, char** argv) {
     mw(in.data(), out);
   } else if (!strcmp(argv[1], "carry")) {
     carry(in.data(), out);
+  } else if (!strcmp(argv[1], "head")) {
+    switch (in[0]) {
+      case 2: head<2>(in.data(), in.size(), out); break;
+      case 3: head<3>(in.data(), in.size(), out); break;
+      case 4: head<4>(in.data(), in.size(), out); break;
+      case 5: head<5>(in.data(), in.size(), out); break;
+      case 6: head<6>(in.data(), in.size(), out); break;
+      default: return 2;
+    }
   } else if (!strcmp(argv[1], "key")) {
     for (size_t i = 1; i + 4 <= in.size(); i += 4)
       out.push_back(mc_eval_key(in[i], in[i + 1], in[i + 2], in[i + 3]));
   } else {
     switch (in[1] * 100 + in[0]) {
       case 2: engine<2, MC_REFERENCE>(argv[1], in.data(), out); break;
+      case 3: engine<3, MC_REFERENCE>(argv[1], in.data(), out); break;
       case 6: engine<6, MC_REFERENCE>(argv[1], in.data(), out); break;
       case 102: engine<2, MC_STANDARD>(argv[1], in.data(), out); break;
+      case 103: engine<3, MC_STANDARD>(argv[1], in.data(), out); break;
       case 106: engine<6, MC_STANDARD>(argv[1], in.data(), out); break;
       case 202: engine<2, MC_TOURNAMENT>(argv[1], in.data(), out); break;
+      case 203: engine<3, MC_TOURNAMENT>(argv[1], in.data(), out); break;
       case 206: engine<6, MC_TOURNAMENT>(argv[1], in.data(), out); break;
       default: return 2;
     }
@@ -458,6 +490,93 @@ def test_engine_prng_device_code_equals_plain_tournament_rules(
     _check_rows(got, want, cfg)
     assert int((ce.unpack_field(want, cfg, "order") == 0).sum()) > 0
     assert int((ce.unpack_field(want, cfg, "bust_at", 1) >= 0).sum()) > 0
+
+
+def _freeze(state, cfg, every):
+    """Every ``every``-th table frozen before the launch: an empty play
+    order and no settle pending, a fixed point under every rule set."""
+    layout = ce._field_layout(cfg.num_seats, cfg.rules)[0]
+    rows = ce._to_rows(state).clone()
+    for name in ("order", "wait"):
+        rows[layout[name][0], ::every] = 0
+    return ce._to_blocks(rows)
+
+
+def _k4_harness(harness, mode, state, cfg, seed, n_steps):
+    return harness(mode, [cfg.num_seats, ce.RULES.index(cfg.rules), seed,
+                          n_steps, ce._defer_for(n_steps), 5, 10,
+                          ce.FOLD_P_BITS, ce.RAISE_P_BITS,
+                          state.shape[0] * ce.TABLES_PER_BLOCK,
+                          *_flat(ce._to_rows(state))])
+
+
+@pytest.mark.parametrize("mode", ["k4", "k4shared"])
+@pytest.mark.parametrize("rules", ce.RULES)
+def test_engine_prng_freezing_tables_device_code_equals_plain(harness, mode,
+                                                              rules):
+    """K4 where some tables are frozen before the launch (every 7th) and,
+    under tournament rules, whole blocks of 12- and 20-chip stacks end
+    their tournaments within it while the others play on; a frozen table
+    leaves the loop (mc_frozen). ``k4shared`` keeps the cold rows in
+    columns of a block buffer, as the kernel's shared memory does."""
+    P, n_steps = 6, 64
+    T = ce.TABLES_PER_BLOCK
+    fd = ce.first_deal(6, 2 * T, P, "cpu")
+    cfgs = [TableConfig(num_seats=P, rules=rules,
+                        starting_stack=12 if rules == "tournament" else 100),
+            TableConfig(num_seats=P, rules=rules,
+                        starting_stack=20 if rules == "tournament" else 100)]
+    state = _freeze(torch.cat([ce.pack_state(c, fd[k * T:(k + 1) * T])
+                               for k, c in enumerate(cfgs)]), cfgs[0], 7)
+    got = _k4_harness(harness, mode, state, cfgs[0], 34, n_steps)
+    want = ce.run_perpetual_prng(34, state, P, n_steps, 5, 10, rules=rules)
+    _check_rows(got, want, cfgs[0])
+
+    def frozen(st):
+        return ((ce.unpack_field(st, cfgs[0], "order") == 0)
+                & (ce.unpack_field(st, cfgs[0], "wait") == 0))
+    before, after = frozen(state), frozen(want)
+    assert bool(after[before].all()) and int(before.sum()) > 0
+    froze = after & ~before
+    if rules == "tournament":  # more of the 12-chip block, and not all
+        assert int(froze[:T].sum()) > int(froze[T:].sum()) > 0
+        assert int((~after).sum()) > 0
+    else:
+        assert int(froze.sum()) == 0
+
+
+@pytest.mark.parametrize("rules,P,n_steps", [
+    ("reference", 6, 64), ("standard", 3, 64), ("tournament", 6, 8),
+    ("standard", 2, 12)])
+def test_engine_prng_word_offsets_device_code_equals_plain(harness, rules, P,
+                                                           n_steps):
+    """K4's iterations start their 2 defer + 2P + 5 words on each of the
+    four word offsets of a Philox block (defer 16 and defer 1), so slot and
+    deal words straddle blocks in every phase (MCPhiloxWords)."""
+    W = ce.prng_words_shape(1, P, n_steps)[1]
+    assert {it * W % 4 for it in range(n_steps // ce._defer_for(n_steps))} \
+        == {0, 1, 2, 3}
+    cfg = TableConfig(num_seats=P, rules=rules)
+    state = ce.pack_state(cfg, ce.first_deal(7, ce.TABLES_PER_BLOCK, P,
+                                             "cpu"))
+    got = _k4_harness(harness, "k4", state, cfg, 35, n_steps)
+    _check_rows(got, ce.run_perpetual_prng(35, state, P, n_steps, 5, 10,
+                                           rules=rules), cfg)
+
+
+@pytest.mark.parametrize("P", [2, 3, 4, 5, 6])
+def test_head_device_code_equals_scan(harness, P):
+    """mc_head (the order mask rotated by the cursor, its lowest set bit)
+    against the plain scan (_head_info: min over set bits of (p - cursor)
+    mod P) for every order mask and cursors in [-P, 2P)."""
+    order, cursor = np.meshgrid(np.arange(1 << P), np.arange(-P, 2 * P),
+                                indexing="ij")
+    order, cursor = order.reshape(-1), cursor.reshape(-1)
+    got = harness("head", [P, *np.stack([order, cursor], 1).reshape(-1)])
+    want = ce._head_info({"order": torch.from_numpy(order).to(torch.int32),
+                          "cursor": torch.from_numpy(cursor)
+                          .to(torch.int32)}, P)[0]
+    assert got.tolist() == want.tolist()
 
 
 @pytest.mark.parametrize("n_hands,board,start", [

@@ -198,6 +198,45 @@ def test_engine_prng_kernel_equals_plain_tournament_rules(cuda, P, n_steps):
     assert int((ce.unpack_field(k, cfg, "order") == 0).sum()) > 0
 
 
+def test_engine_prng_kernel_freezing_blocks_equal_plain(cuda):
+    """K4 under tournament rules on four 1024-table blocks that freeze at
+    different slots: 12-chip and 20-chip stacks (most tournaments end
+    within the launch), 100-chip stacks with every 37th table frozen before
+    it, and a block frozen whole before it (run to completion), so warps
+    and blocks leave their loops at different times. Injected words and
+    Philox mode, against the plain version."""
+    P, n_steps = 6, 256
+    T = ce.TABLES_PER_BLOCK
+    cfgs = [TableConfig(num_seats=P, rules="tournament", starting_stack=s)
+            for s in (12, 20, 100)]
+    fd = ce.first_deal(8, 3 * T, P, cuda)
+    blocks = [ce.pack_state(c, fd[k * T:(k + 1) * T])
+              for k, c in enumerate(cfgs)]
+    layout = ce._field_layout(P, "tournament")[0]
+    for name in ("order", "wait"):
+        blocks[2][:, layout[name][0]].view(-1)[::37] = 0
+    blocks.append(ce.tournaments_to_completion(9, cfgs[0], T, 64,
+                                               device=cuda)[0])
+    state = torch.cat(blocks)
+
+    def frozen(st):
+        return ((ce.unpack_field(st, cfgs[0], "order") == 0)
+                & (ce.unpack_field(st, cfgs[0], "wait") == 0)).view(4, T)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    words = cq.random_words(g, ce.prng_words_shape(4 * T, P, n_steps), cuda)
+    k = ce.run_perpetual_prng(0, state, P, n_steps, 5, 10,
+                              rules="tournament", words=words)
+    assert torch.equal(k, ce._run_prng_plain(state, words, P, n_steps, 5, 10,
+                                             "tournament"))
+    k = ce.run_perpetual_prng(13, state, P, n_steps, 5, 10,
+                              rules="tournament")
+    assert torch.equal(k, ce._run_prng_plain_philox(13, state, P, n_steps, 5,
+                                                    10, "tournament"))
+    froze = (frozen(k) & ~frozen(state)).sum(1).tolist()
+    assert froze[0] > froze[1] > froze[2] >= 0 and froze[3] == 0
+    assert bool(frozen(state)[3].all()) and torch.equal(k[3], state[3])
+
+
 def test_tournaments_to_completion_kernel_equals_cpu(cuda):
     cfg = TableConfig(num_seats=6, rules="tournament", starting_stack=20)
     T = 2 * ce.TABLES_PER_BLOCK
