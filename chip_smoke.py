@@ -69,8 +69,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    (their ``words`` option);
 4. timing: each main-path kernel call again on the card (CUDA events),
    each K3/K4 instantiation's ptxas registers, stack and spills (the P = 6
-   library's ``build.log``) beside its time, ``net_eval_hands_per_sec``
-   and ``train_hands_per_sec`` as ``bench.py`` computes them,
+   library's ``build.log``) beside its time, those of each net kernel
+   instantiation, and per net form (K5, K5b, K6, B7, B8, B8l, the probe)
+   the shared bytes a block and the blocks an SM that
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports;
+   ``net_eval_hands_per_sec`` and ``train_hands_per_sec`` as ``bench.py``
+   computes them,
    ``multiway_rollouts_per_sec`` and ``tournaments_per_sec`` (port only);
 5. the probes (path e, after the timing so that the main paths' numbers
    are taken as before): the ported ``scripts/exp_carry_model.py`` at its
@@ -1113,6 +1117,23 @@ def main() -> int:
         log(f"ptxas {key}{form}: {rep['registers']} registers, "
             f"{rep['stack']} B stack, {rep['spill_stores']} B spill stores, "
             f"{rep['spill_loads']} B spill loads; main-path call {shown}")
+    # the net kernels' block phase: ptxas per instantiation, and per form
+    # the shared bytes a block and the blocks an SM
+    for name, rep in sorted(ptxas.items()):
+        m = re.search(r"mc_net_(det|eval|probe)_kernelILi6ELi(\d)E", name)
+        if m:
+            log(f"ptxas net_{m.group(1)} ({cn.RULES[int(m.group(2))]} "
+                f"rules): {rep['registers']} registers, {rep['stack']} B "
+                f"stack, {rep['spill_stores']} B spill stores, "
+                f"{rep['spill_loads']} B spill loads")
+    for key, kernel, n_banks, n_cand in (
+            ("K5", "det", 1, 1), ("K5b", "det", 2, 1), ("K6", "eval", 1, 1),
+            ("B7", "eval", 2, 1), ("B8", "eval", 1, TRAIN_POP),
+            ("B8l", "eval", 2, TRAIN_POP), ("probe", "probe", 1, 1)):
+        smem, blocks = cn.net_occupancy(kernel, P, "standard", n_banks)
+        shown = f"{times[key]:.3f} ms" if key in times else "-"
+        log(f"{key} (B = {n_banks}, C = {n_cand}): {smem} B of shared "
+            f"memory a block, {blocks} blocks an SM; main-path call {shown}")
     t0 = time.perf_counter()
     cq.equity_sweep_kernel(SEED + 5, heroes, N_SWEEP, dev)
     sweep_warm_s = time.perf_counter() - t0

@@ -2,9 +2,7 @@
 //
 // The device functions are also valid host C++ (MC_HD expands to inline
 // outside nvcc), so their arithmetic can be compiled and checked by a host
-// compiler against the plain PyTorch versions. MC_HD_CALL marks the rare
-// device function kept a call of its own (its registers allocated apart
-// from its caller's).
+// compiler against the plain PyTorch versions.
 #pragma once
 
 #include <math.h>
@@ -12,10 +10,8 @@
 
 #ifdef __CUDACC__
 #define MC_HD __host__ __device__ __forceinline__
-#define MC_HD_CALL __host__ __device__ __noinline__
 #else
 #define MC_HD inline
-#define MC_HD_CALL inline
 #endif
 
 MC_HD int mc_popc(uint32_t x) {
@@ -75,18 +71,6 @@ MC_HD void mc_keep_ptr(T*& p) {
   asm volatile("" : "+l"(p));
 #else
   (void)p;
-#endif
-}
-
-// Takes x's address opaquely, so x lives in (local) memory for its whole
-// life, every access a load or a store, as a struct indexed at run time
-// does. Emits no instruction.
-template <class T>
-MC_HD void mc_pin_to_memory(T& x) {
-#ifdef __CUDA_ARCH__
-  asm volatile("" : : "l"(&x) : "memory");
-#else
-  (void)x;
 #endif
 }
 

@@ -11,18 +11,31 @@
 // settle pass, stacks reset every hand. One kernel body serves every form:
 // the single net is B = 1, C = 1.
 //
-// Layout as the engine kernels (engine.cu): one thread runs one table of the
-// packed state, read and written once per launch, its hot fields in
-// registers. A block copies its candidate's B banks of 6,020 floats (B x
-// 24,080 bytes) into dynamic shared memory once, so the table's cold rows
-// stay a per-thread array (MCTableLocal, local memory) rather than a shared
-// column; a thread reads the bank of its acting seat, a broadcast while the
-// warp's acting seats share a bank. Features, hidden activations and
-// logits live in registers and local memory. A decision
-// costs 11,776 float operations (5,888 products, 5,888 sums, each rounded
-// once: no FMA, see net.cuh), so K6 is bound by float issue on the net
-// seats' decisions and by the engine's integer work elsewhere. The MLP on
-// tensor cores (128 tables x 24 features as an mma tile) is later work.
+// Layout: one thread runs one table of the packed state, read and written
+// once per launch, as in the engine kernels (engine.cu). A block of
+// MC_NET_THREADS tables copies its candidate's B banks of 6,020 floats
+// (the first MC_SMEM_BANKS of them; the rest are read from global memory)
+// into dynamic shared memory once, beside the staging area of the block phase
+// (net.cuh): each slot, the tables that play a net write their features to
+// rows grouped by bank, all its threads run the MLP densely over those rows
+// from the shared weights, and each net table reads back its logits. A
+// decision costs 11,776 float operations (5,888 products and 5,888 sums,
+// each rounded once: no FMA, see net.cuh); in the dense phase a product is
+// one multiply and one add, its weight and input loads shared over a
+// 4-output x MC_NET_TILE-row tile, and no warp runs the MLP for one lane's
+// decision (a per-thread MLP would, in nearly every warp and slot: es3 at
+// one seat gives a decision to ~15% of the table-slots). K6 is bound by
+// float issue on the net decisions and by the engine's integer work
+// elsewhere. Shared memory per block: min(B, 7) x 24,080 bytes of weights
+// and mc_net_smem_floats' staging (46,368 bytes: 256 rows of features, two
+// hidden chunks of 32 rows, the row counts); the blocks an SM follow from
+// it and from the registers (mc_net_occupancy reports them).
+//
+// K6's table, as K5's: the hot fields in registers, the cold rows in a
+// per-thread array (chosen on the card with scripts/ab_engine.py: the
+// whole table pinned to local memory took 2-6% longer, and K4's form, the
+// cold rows in a shared column, 1.4-1.7x: its 59,904 bytes a 128-table
+// block beside the weights left 1-2 blocks an SM).
 //
 // Population grid (B8): the candidate is blockIdx.y. Table t of every
 // candidate reads Philox stream (seed, t), so all candidates play the same
@@ -32,16 +45,24 @@
 
 #include "net.cuh"
 
-#define MC_NET_THREADS 128
-// K6's blocks an SM (a cap of 128 registers a thread): B7's 2^16 tables,
-// 512 blocks, then run in one wave of 132 x 4 (at ptxas's own choice for
-// standard rules, 167 to 207 registers, they take two).
-#define MC_NET_EVAL_MIN_BLOCKS 4
+// K5's and K6's blocks an SM (a cap of 128 registers a thread): B7's 2^16
+// tables, 256 blocks, then run in one wave of 132 x 2 (with 128-table
+// blocks, a cap of 168 took 3-5% longer than one of 128; uncapped, K5 and
+// K6 took 165-202 registers, one block an SM, and 1.11-1.18x as long).
+#define MC_NET_MIN_BLOCKS 2
 // The largest grid y dimension: candidates of one launch.
 #define MC_MAX_CANDIDATES 65535
 
-__device__ void mc_load_weights(float* w, const float* weights, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) w[i] = weights[i];
+// Dynamic shared bytes of a net kernel's block: the banks and the staging
+// area.
+static int mc_net_smem_bytes(int n_banks) {
+  return mc_net_smem_floats(n_banks) * (int)sizeof(float);
+}
+
+// The block's shared banks from the launch's weights.
+__device__ void mc_load_weights(const MCNetShared& sh, int n_banks) {
+  const int n = mc_smem_banks(n_banks) * MC_NET_WEIGHTS;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) sh.w[i] = sh.gw[i];
   __syncthreads();
 }
 
@@ -54,24 +75,27 @@ static cudaError_t mc_opt_in_smem(Kernel kernel, int bytes) {
 }
 
 // cards: [n_blocks, hmax, 2P+5, 8, 128]; weights: [n_banks, 6020].
+// n_tables is a whole number of CUDA blocks (the 1024-table tile), so every
+// thread of a block holds a table and reaches every barrier.
 template <int P, int R>
-__global__ void __launch_bounds__(MC_NET_THREADS)
+__global__ void __launch_bounds__(MC_NET_THREADS, MC_NET_MIN_BLOCKS)
     mc_net_det_kernel(int* state, const int* cards, const float* weights,
                       int n_tables, int n_steps, int hmax, int sb, int bb,
                       int n_banks, unsigned long long bank_map) {
-  extern __shared__ float w[];
-  mc_load_weights(w, weights, n_banks * MC_NET_WEIGHTS);
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_tables) return;
+  extern __shared__ __align__(16) float mc_net_smem[];
+  const MCNetShared sh = mc_net_shared(mc_net_smem, n_banks, weights);
+  mc_load_weights(sh, n_banks);
+  const int t = blockIdx.x * MC_NET_THREADS + threadIdx.x;
   const long long blk = t / MC_TABLES_PER_BLOCK;
-  const int lane = t % MC_TABLES_PER_BLOCK;
   int* rows = mc_table_rows<P, R>(state, t);
-  MCTableLocal<P, R> s;
-  mc_load(s, rows, MC_TABLES_PER_BLOCK);
-  mc_run_net_det(s,
-                 cards + blk * hmax * (2 * P + 5) * MC_TABLES_PER_BLOCK + lane,
-                 MC_TABLES_PER_BLOCK, n_steps, hmax, sb, bb, w, bank_map);
-  mc_store(s, rows, MC_TABLES_PER_BLOCK);
+  MCNetLane<MCTableLocal<P, R>, const int*> lane(
+      cards + blk * hmax * (2 * P + 5) * MC_TABLES_PER_BLOCK +
+      t % MC_TABLES_PER_BLOCK);
+  mc_load(lane.s, rows, MC_TABLES_PER_BLOCK);
+  mc_run_net_det<P, R>(MCLanes<decltype(lane)>{&lane}, sh,
+                       MC_TABLES_PER_BLOCK, n_steps, hmax, sb, bb, n_banks,
+                       bank_map);
+  mc_store(lane.s, rows, MC_TABLES_PER_BLOCK);
 }
 
 // state: [n_cand, n_blocks, F, 8, 128]; weights: [n_cand, n_banks, 6020].
@@ -79,7 +103,7 @@ __global__ void __launch_bounds__(MC_NET_THREADS)
 // same for every candidate; else Philox keyed by (seed, table). With
 // n_net, the launch adds its count of net decisions there.
 template <int P, int R>
-__global__ void __launch_bounds__(MC_NET_THREADS, MC_NET_EVAL_MIN_BLOCKS)
+__global__ void __launch_bounds__(MC_NET_THREADS, MC_NET_MIN_BLOCKS)
     mc_net_eval_kernel(int* state, uint32_t seed, const int* words,
                        const float* weights, int n_tables, int n_steps,
                        int defer, int sb, int bb, int ss, int net_seats,
@@ -87,54 +111,41 @@ __global__ void __launch_bounds__(MC_NET_THREADS, MC_NET_EVAL_MIN_BLOCKS)
                        uint32_t raise_bits, int n_banks,
                        unsigned long long bank_map,
                        unsigned long long* n_net) {
-  extern __shared__ float w[];
+  extern __shared__ __align__(16) float mc_net_smem[];
   const long long c = blockIdx.y;
-  mc_load_weights(w, weights + mc_candidate_weights(c, n_banks),
-                  n_banks * MC_NET_WEIGHTS);
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_tables) return;
+  const MCNetShared sh = mc_net_shared(
+      mc_net_smem, n_banks, weights + mc_candidate_weights(c, n_banks));
+  mc_load_weights(sh, n_banks);
+  const int t = blockIdx.x * MC_NET_THREADS + threadIdx.x;
   int* rows =
       mc_table_rows<P, R>(state + mc_candidate_state<P, R>(c, n_tables), t);
-  MCTableLocal<P, R> s;
-  mc_load(s, rows, MC_TABLES_PER_BLOCK);
-  // the whole table in local memory, as in the engine's first form: with
-  // its hot fields in registers K6 took twice its time at every register
-  // cap tried (96 to 205), and 1.5x with the MLP a call of its own
-  // (scripts/ab_engine.py)
-  mc_pin_to_memory(s);
-  MCWords src(words, n_tables, t, seed, (uint32_t)t, 0u, 0u);
-  int n = mc_run_net_eval(s, src, n_steps, defer, sb, bb, ss, net_seats,
-                          reset_stacks != 0, fold_bits, raise_bits, w,
-                          bank_map);
-  mc_store(s, rows, MC_TABLES_PER_BLOCK);
-  if (n_net) atomicAdd(n_net, (unsigned long long)n);
+  MCNetLane<MCTableLocal<P, R>, MCWords> lane(
+      MCWords(words, n_tables, t, seed, (uint32_t)t, 0u, 0u));
+  mc_load(lane.s, rows, MC_TABLES_PER_BLOCK);
+  mc_run_net_eval<P, R>(MCLanes<decltype(lane)>{&lane}, sh, n_steps, defer,
+                        sb, bb, ss, net_seats, reset_stacks != 0, fold_bits,
+                        raise_bits, n_banks, bank_map);
+  mc_store(lane.s, rows, MC_TABLES_PER_BLOCK);
+  if (n_net) atomicAdd(n_net, (unsigned long long)lane.n_net);
 }
 
 // A probe, on no main path: per table, the features, the masked logits
 // and the Gumbel scores on `words` [4, n_tables] of the acting position,
-// into out [MC_PROBE_ROWS, n_tables].
+// into out [MC_PROBE_ROWS, n_tables], the logits through the block phase.
 template <int P, int R>
 __global__ void __launch_bounds__(MC_NET_THREADS)
     mc_net_probe_kernel(const int* state, const int* words,
                         const float* weights, float* out, int n_tables,
                         int bb) {
-  __shared__ float w[MC_NET_WEIGHTS];
-  mc_load_weights(w, weights, MC_NET_WEIGHTS);
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_tables) return;
-  MCTableLocal<P, R> s;
-  mc_load(s, mc_table_rows<P, R>(state, t),
-          MC_TABLES_PER_BLOCK);
-  float f[MC_NUM_FEATURES], lg[MC_NUM_ACTIONS];
-  mc_net_scores(s, mc_head<P>(s.order, s.cursor), bb, w, nullptr, f, lg);
-  float* o = out + t;
-  for (int i = 0; i < MC_NUM_FEATURES; ++i) o[(long long)i * n_tables] = f[i];
-  for (int a = 0; a < MC_NUM_ACTIONS; ++a) {
-    uint32_t g = (uint32_t)words[(long long)a * n_tables + t];
-    o[(long long)(MC_NUM_FEATURES + a) * n_tables] = lg[a];
-    o[(long long)(MC_NUM_FEATURES + MC_NUM_ACTIONS + a) * n_tables] =
-        mc_fsub(lg[a], mc_neg_gumbel(g));
-  }
+  extern __shared__ __align__(16) float mc_net_smem[];
+  const MCNetShared sh = mc_net_shared(mc_net_smem, 1, weights);
+  mc_load_weights(sh, 1);
+  const int t = blockIdx.x * MC_NET_THREADS + threadIdx.x;
+  MCNetLane<MCTableLocal<P, R>, int> lane(0);
+  mc_load(lane.s, mc_table_rows<P, R>(state, t), MC_TABLES_PER_BLOCK);
+  mc_run_net_probe<P, R>(MCLanes<decltype(lane)>{&lane}, sh, words, out,
+                         (long long)blockIdx.x * MC_NET_THREADS, n_tables,
+                         bb);
 }
 
 // In-place on `state`. rules: 0 reference, 1 standard. Returns
@@ -147,18 +158,19 @@ extern "C" int mc_net_det(int* state, const int* cards, const float* weights,
                           unsigned long long bank_map, void* stream) {
   if (n_banks < 1 || n_banks > MC_MAX_BANKS) return (int)cudaErrorInvalidValue;
   int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
-  int grid = (n_tables + MC_NET_THREADS - 1) / MC_NET_THREADS;
-  int smem = n_banks * MC_NET_WEIGHTS * (int)sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
 #define MC_CASE(N, R)                                                     \
-  case R * 100 + N:                                                       \
+  case R * 100 + N: {                                                     \
+    const int smem = mc_net_smem_bytes(n_banks);             \
     err = mc_opt_in_smem(mc_net_det_kernel<N, R>, smem);                  \
     if (err != cudaSuccess) return (int)err;                              \
-    mc_net_det_kernel<N, R><<<grid, MC_NET_THREADS, smem, st>>>(          \
-        state, cards, weights, n_tables, n_steps, hmax, sb, bb, n_banks,  \
-        bank_map);                                                        \
-    break;
+    mc_net_det_kernel<N, R><<<n_tables / MC_NET_THREADS, MC_NET_THREADS,  \
+                              smem, st>>>(state, cards, weights,          \
+                                          n_tables, n_steps, hmax, sb,    \
+                                          bb, n_banks, bank_map);         \
+    break;                                                                \
+  }
   MC_DISPATCH(MC_CASE)
 #undef MC_CASE
   return (int)cudaGetLastError();
@@ -175,19 +187,20 @@ extern "C" int mc_net_eval(int* state, int seed, const int* words,
       n_banks > MC_MAX_BANKS || n_cand < 1 || n_cand > MC_MAX_CANDIDATES)
     return (int)cudaErrorInvalidValue;
   int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
-  dim3 grid((n_tables + MC_NET_THREADS - 1) / MC_NET_THREADS, n_cand);
-  int smem = n_banks * MC_NET_WEIGHTS * (int)sizeof(float);
+  dim3 grid(n_tables / MC_NET_THREADS, n_cand);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
 #define MC_CASE(N, R)                                                     \
-  case R * 100 + N:                                                       \
+  case R * 100 + N: {                                                     \
+    const int smem = mc_net_smem_bytes(n_banks);              \
     err = mc_opt_in_smem(mc_net_eval_kernel<N, R>, smem);                 \
     if (err != cudaSuccess) return (int)err;                              \
     mc_net_eval_kernel<N, R><<<grid, MC_NET_THREADS, smem, st>>>(         \
         state, (uint32_t)seed, words, weights, n_tables, n_steps, defer,  \
         sb, bb, ss, net_seats, reset_stacks, (uint32_t)fold_bits,         \
         (uint32_t)raise_bits, n_banks, bank_map, n_net);                  \
-    break;
+    break;                                                                \
+  }
   MC_DISPATCH(MC_CASE)
 #undef MC_CASE
   return (int)cudaGetLastError();
@@ -197,14 +210,48 @@ extern "C" int mc_net_probe(const int* state, const int* words,
                             const float* weights, float* out, int n_blocks,
                             int P, int rules, int bb, void* stream) {
   int n_tables = n_blocks * MC_TABLES_PER_BLOCK;
-  int grid = (n_tables + MC_NET_THREADS - 1) / MC_NET_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
 #define MC_CASE(N, R)                                                     \
-  case R * 100 + N:                                                       \
-    mc_net_probe_kernel<N, R><<<grid, MC_NET_THREADS, 0, st>>>(           \
+  case R * 100 + N: {                                                     \
+    const int smem = mc_net_smem_bytes(1);                   \
+    err = mc_opt_in_smem(mc_net_probe_kernel<N, R>, smem);                \
+    if (err != cudaSuccess) return (int)err;                              \
+    mc_net_probe_kernel<N, R><<<n_tables / MC_NET_THREADS,                \
+                                MC_NET_THREADS, smem, st>>>(              \
         state, words, weights, out, n_tables, bb);                        \
-    break;
+    break;                                                                \
+  }
   MC_DISPATCH(MC_CASE)
 #undef MC_CASE
   return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+static int mc_occupancy(Kernel kernel, int smem, int* out) {
+  cudaError_t err = mc_opt_in_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out + 1, kernel, MC_NET_THREADS, smem);
+}
+
+// The launch of a net kernel (0 K5, 1 K6, 2 the probe: one net) with
+// n_banks banks:
+// out[0] its dynamic shared bytes per block, out[1] the blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int mc_net_occupancy(int kernel, int P, int rules, int n_banks,
+                                int* out) {
+  if (n_banks < 1 || n_banks > MC_MAX_BANKS || kernel < 0 || kernel > 2)
+    return (int)cudaErrorInvalidValue;
+#define MC_CASE(N, R)                                                     \
+  case R * 100 + N: {                                                     \
+    const int smem = mc_net_smem_bytes(kernel == 2 ? 1 : n_banks);        \
+    return kernel == 0   ? mc_occupancy(mc_net_det_kernel<N, R>, smem, out) \
+           : kernel == 1 ? mc_occupancy(mc_net_eval_kernel<N, R>, smem, out) \
+                         : mc_occupancy(mc_net_probe_kernel<N, R>, smem,  \
+                                        out);                             \
+  }
+  MC_DISPATCH(MC_CASE)
+#undef MC_CASE
 }

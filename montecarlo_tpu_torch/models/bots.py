@@ -3,7 +3,7 @@
 The counterpart of ``montecarlo_tpu/models/bots.py``. Each bot is an
 ``MLPParams`` of float32 tensors whose forward pass
 (``models/policy_net.py:policy_logits``, and the net kernels'
-``csrc/net.cuh:mc_mlp_logits``) produces logits with a dominant gap that
+``csrc/net.cuh:mc_mlp_rows``) produces logits with a dominant gap that
 implements a fixed decision rule. Any path that takes a net (net
 evaluation, the banked league kernel, a population's opponent bank) plays a
 bot with no code of its own.

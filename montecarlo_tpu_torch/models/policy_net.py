@@ -6,7 +6,7 @@ carry across unchanged. The menu is fold / call / raise 2bb / raise pot.
 
 ``policy_logits`` sums in one fixed order, bias first and then the
 products of input 0, 1, ... each rounded once (no fused multiply-add).
-The net kernels (``csrc/net.cuh:mc_mlp_logits``) sum in the same order
+The net kernels (``csrc/net.cuh:mc_mlp_rows``) sum in the same order
 with ``__fmul_rn``/``__fadd_rn``, so the kernel and this function give the
 same logits bit for bit. JAX's matmul sums in another order: the two
 agree within float32 rounding, not bit for bit.

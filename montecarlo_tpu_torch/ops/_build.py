@@ -74,6 +74,7 @@ SEAT_SIGNATURES = {
     "mc_net_eval": [P_, I_, P_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, I_,
                     I_, I_, I_, I_, ULL_, P_, P_],
     "mc_net_probe": [P_, P_, P_, P_, I_, I_, I_, I_, P_],
+    "mc_net_occupancy": [I_, I_, I_, I_, P_],
 }
 CARRY_SIGNATURES = {"mc_probe_carry": [I_, I_, P_, P_, I_, I_, P_]}
 STAGE_SIGNATURES = {

@@ -40,6 +40,8 @@ candidate reads the same words.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -68,9 +70,12 @@ SLOT_WORDS = 2 + NUM_ACTIONS  # random policy (u, amt_bits) + Gumbel
 PROBE_ROWS = NUM_FEATURES + 2 * NUM_ACTIONS
 FOLD_MASK = -1e9
 
-# Banks a launch may carry: B x 24,080 bytes of weights in a block's shared
-# memory, whose 227 KB (232,448 bytes) hold 9.
+# Banks a launch may carry, and those a block holds in shared memory: 7 x
+# 24,080 bytes of weights beside the block phase's staging rows (46,368
+# bytes, csrc/net.cuh) fill most of the 227 KB (232,448 bytes) a block may
+# use, and the kernels read banks 7 and 8 from global memory.
 MAX_BANKS = 9
+SHARED_BANKS = 7
 # Candidates of a population launch: the grid's y dimension.
 MAX_CANDIDATES = 65535
 # Launch counts by form: K5 with one net or with banks; K6 with one net
@@ -343,9 +348,8 @@ def _banks(seat_to_bank, P, n_banks):
     """(seat_to_bank as a tuple, packed four bits a seat for the kernel),
     after checking it maps each of the P seats to one of ``n_banks``."""
     if not 1 <= n_banks <= MAX_BANKS:
-        raise ValueError(f"{n_banks} banks: a block holds at most {MAX_BANKS}"
-                         f" (24,080 bytes each in the 227 KB of shared memory "
-                         f"a block may use)")
+        raise ValueError(f"{n_banks} banks: a launch takes at most "
+                         f"{MAX_BANKS}")
     stb = (0,) * P if seat_to_bank is None else \
         tuple(int(b) for b in seat_to_bank)
     if len(stb) != P or not all(0 <= b < n_banks for b in stb):
@@ -500,6 +504,27 @@ def net_probe(state, words, weights, P: int, bb: int, rules: str):
         _build.stream_ptr(state.device)), "mc_net_probe")
     LAUNCHES["net_probe"] += 1
     return out
+
+
+# The net kernels, as ``net_occupancy`` names them (C entry order).
+KERNELS = ("det", "eval", "probe")
+
+
+def net_occupancy(kernel: str, P: int, rules: str, n_banks: int = 1):
+    """(dynamic shared bytes per block, blocks an SM holds) of a launch of
+    the net kernel ``kernel`` (one of ``KERNELS``: K5, K6, the probe, which
+    takes one net) with ``n_banks`` banks, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports it on the
+    current card. Needs a card."""
+    if kernel not in KERNELS or rules not in RULES:
+        raise ValueError(f"kernel={kernel!r}, rules={rules!r}: expected "
+                         f"{KERNELS} and {RULES}")
+    _banks(None, P, n_banks)
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.library(P).mc_net_occupancy(
+        KERNELS.index(kernel), P, RULES.index(rules), n_banks, out),
+        "mc_net_occupancy")
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------

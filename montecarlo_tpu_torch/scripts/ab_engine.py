@@ -6,7 +6,7 @@ montecarlo_tpu_torch/csrc | tar -x -C DIR``):
 
     python -m montecarlo_tpu_torch.scripts.ab_engine \\
         --parent DIR/montecarlo_tpu_torch/csrc [--runs 5] [--also DIR2] \\
-        [--variants MC_ENGINE_THREADS=128,MC_NET_EVAL_MIN_BLOCKS=3]
+        [--variants MC_ENGINE_THREADS=128,MC_NET_CHUNK=16]
 
 Each source tree is built with ``_build.NVCC_FLAGS`` into a temporary
 directory (the six-seat library of ``engine.cu`` and ``net.cu``, the one
@@ -24,15 +24,19 @@ run's first, fifth and last launches of 1024 slots), K3 under each rule
 set (2^20 x 64 injected steps; tournament with 20-chip stacks), the stage
 probe's six stages (2^20 tables x 256 steps from K3's output state), K5
 (2^18 x 64, one bot and two banks), K6 (2^18 x 256, es3 at seat 0), B7
-(2^16 x 256, two banks) and B8 (32 candidates x 2^14 x 256, one and two
-banks).
+(2^16 x 256, two banks), B8 (32 candidates x 2^14 x 256, one and two
+banks) and the net probe (2^18 tables, es3).
 
 ``--also DIR2`` adds a further source tree to the same turns.
 ``--variants`` builds this tree again once per ``NAME=VALUE``, with the
 ``#define NAME`` of ``csrc/`` set to VALUE (``MC_ENGINE_THREADS``, the
-engine kernels' block size in ``engine.cuh``; ``MC_NET_EVAL_MIN_BLOCKS``,
-K6's launch bound in ``net.cu``), and times every call on each against
-this tree: the measurement behind those constants.
+engine kernels' block size in ``engine.cuh``; ``MC_NET_CHUNK``, the net
+kernels' hidden rows a chunk, in ``net.cuh``; ``MC_NET_MIN_BLOCKS``,
+K5's and K6's launch bound, in ``net.cu``), and times every call on each
+against this tree: the measurement behind those constants. Constants that
+must change together (``MC_NET_THREADS`` with the net launch bound) take a
+copy of ``csrc/`` edited by hand, through ``--also``. A library that lacks
+a C entry of this tree (an older commit's) is loaded without it.
 
 Each library's ptxas report (registers, stack frame and spills per kernel)
 is printed first. The last line is one JSON object with every median; with
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import re
 import shutil
@@ -80,10 +85,18 @@ STAGE_STEPS = 256
 COMMON_SOURCES = ("equity.cu", "philox.cu")
 
 
+def _load(path, signatures):
+    """``_build.load_library`` with the entries the library has."""
+    lib = ctypes.CDLL(str(path))
+    return _build.load_library(path, {k: v for k, v in signatures.items()
+                                      if hasattr(lib, k)})
+
+
 def build(csrc: Path, out_dir: Path):
-    """Build ``csrc``'s seat library (P = 6) and its library without a seat
-    count into ``out_dir``; returns the loaded pair, the ptxas report of
-    both and the seconds of the seat library."""
+    """Build ``csrc``'s seat library (P = 6), its library without a seat
+    count and the stage probe's into ``out_dir``; returns the loaded
+    libraries, the ptxas report of the first two and the seconds of the
+    seat library."""
     seat_path, seconds = _build.compile_library(
         [csrc / name for name in _build.SEAT_SOURCES], [f"-DMC_SEATS={P}"],
         out_dir / "p6", csrc)
@@ -98,9 +111,9 @@ def build(csrc: Path, out_dir: Path):
     for lib_path in (seat_path, common_path):
         report.update(_build.ptxas_report(
             (lib_path.parent / "build.log").read_text()))
-    libs = (_build.load_library(seat_path, _build.SEAT_SIGNATURES),
-            _build.load_library(common_path, _build.SIGNATURES),
-            {stage: _build.StageBuild(stage, _build.load_library(
+    libs = (_load(seat_path, _build.SEAT_SIGNATURES),
+            _load(common_path, _build.SIGNATURES),
+            {stage: _build.StageBuild(stage, _load(
                 path, _build.STAGE_SIGNATURES), 0.0, {})
              for stage, path in stage_paths.items()})
     return libs, report, seconds
@@ -170,6 +183,7 @@ def inputs(dev, libs):
     st_net_det = ce.pack_state(std, ce._stash_rows(stash)[0].T)
     st_net0 = cn.initial_packed_state(SEED, std, T_NET, dev)
     st_league0 = cn.initial_packed_state(SEED, std, T_LEAGUE, dev)
+    probe_words = ce.table_words(SEED + 9, T_NET, 0, 4, dev)
     w7 = cn.bank_weights([es3, p200], dev)
     rng = np.random.default_rng(0)
     cands = [tpn.params_from_numpy([
@@ -236,6 +250,8 @@ def inputs(dev, libs):
         "B8l": lambda: cn.run_net_eval_pop(TRAIN_SEED, pop0, w8l, P,
                                            TRAIN_SLOTS, SB, BB, SS,
                                            "standard", all_seats, seat0),
+        "probe": lambda: cn.net_probe(st_net0, probe_words, w_es3, P, BB,
+                                      "standard"),
     })
     return calls
 

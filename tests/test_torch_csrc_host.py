@@ -2,17 +2,18 @@
 
 The headers in ``montecarlo_tpu_torch/csrc`` are host C++ as well (``MC_HD``
 expands to ``inline`` outside nvcc). A small harness built with the host
-C++ compiler runs the kernels' per-thread bodies (one rollout of K1/K2/B3,
-one table of K3-K6, K3/K4 under every rule set, the table's cold rows in
-the per-thread form and, for K4, also in the kernel's shared-column form
-over a host buffer; the play-order head of every (order, cursor); the net
-kernels with banks
-and, for K6, a grid of candidates at the kernel's state and weight
-offsets; one thread of each carry-probe form and one table of each
-stage-probe body) in Philox mode, the
-way the kernels key their streams, and the results must equal the plain
-versions fed ``ops/philox.py``'s words. This checks the device code's arithmetic before it meets a card;
-the launch geometry is checked on the card (``tests/test_torch_cuda.py``,
+C++ compiler runs the kernels' bodies (one rollout of K1/K2/B3, one table
+of K3/K4 under every rule set, the table's cold rows in the per-thread
+form and, for K4, also in the kernel's shared-column form over a host
+buffer; the play-order head of every (order, cursor); whole blocks of the
+net kernels K5, K6 and the probe, their block phase run as loops over the
+block's lanes, with banks and, for K6, a grid of candidates at the
+kernel's state and weight offsets; the dense MLP phase alone; one thread
+of each carry-probe form and one table of each stage-probe body) in
+Philox mode, the way the kernels key their streams, and the results must
+equal the plain versions fed ``ops/philox.py``'s words. This checks the
+device code's arithmetic before it meets a card; the launch geometry is
+checked on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). Skips without a host C++ compiler.
 """
 
@@ -171,36 +172,77 @@ static const float* as_floats(const int* p) {
   return reinterpret_cast<const float*>(p);
 }
 
+// One block of the net kernels on the host: its lanes and its shared
+// memory (zeroed), the shared banks' weights copied in as mc_load_weights
+// does; banks past them are read from w.
+template <class Lane>
+struct Block {
+  std::vector<Lane> lanes;
+  float* smem;
+  MCNetShared sh;
+  Block(int n_banks, const float* w)
+      : smem((float*)calloc(mc_net_smem_floats(n_banks), sizeof(float))),
+        sh(mc_net_shared(smem, n_banks, w)) {
+    lanes.reserve(MC_NET_THREADS);
+    memcpy(sh.w, w, sizeof(float) * mc_smem_banks(n_banks) * MC_NET_WEIGHTS);
+  }
+  ~Block() { free(smem); }
+  MCLanes<Lane> view() { return MCLanes<Lane>{lanes.data()}; }
+};
+
+// Phase (b) alone: in = n_banks, the rows of each bank, the weights, then
+// the staged features [n, 24] grouped by bank; out = the logits [n, 4].
+// The counts go to the warps in turn, bank b's rows split over them.
+static void mlp(const int* in, Out& out) {
+  int n_banks = in[0];
+  const int* per_bank = in + 1;
+  const float* w = as_floats(in + 1 + n_banks);
+  const float* feats = w + (size_t)n_banks * MC_NET_WEIGHTS;
+  Block<MCNetLane<MCTableLocal<6, MC_STANDARD>, int>> blk(n_banks, w);
+  int n = 0;
+  for (int b = 0; b < n_banks; ++b) {
+    for (int k = 0; k < MC_NET_WARPS; ++k)
+      blk.sh.cnt[k * MC_MAX_BANKS + b] =
+          per_bank[b] / MC_NET_WARPS + (k < per_bank[b] % MC_NET_WARPS);
+    n += per_bank[b];
+  }
+  for (int r = 0; r < n; ++r)
+    for (int i = 0; i < MC_NUM_FEATURES; ++i)
+      blk.sh.x[r * MC_NET_X_STRIDE + i] = feats[r * MC_NUM_FEATURES + i];
+  mc_mlp_rows(blk.sh, n_banks);
+  for (int r = 0; r < n; ++r)
+    for (int a = 0; a < MC_NUM_ACTIONS; ++a) {
+      int32_t bits;
+      memcpy(&bits, &blk.sh.x[r * MC_NET_X_STRIDE + a], 4);
+      out.push_back(bits);
+    }
+}
+
 // in: P, rules, then the mode's arguments (see the Python side).
 template <int P, int R>
 static void engine(const char* mode, const int* in, Out& out) {
   constexpr int F = mc_fields<P, R>(), NC = 2 * P + 5;
   in += 2;
   if (!strcmp(mode, "probe")) {
+    // the probe kernel's blocks: the logits through the block phase
     int bb = in[0], T = in[1];
     const float* w = as_floats(in + 2);
     const int* rows = in + 2 + MC_NET_WEIGHTS;
     const int* words = rows + (size_t)F * T;
-    std::vector<long long> res((size_t)MC_PROBE_ROWS * T);
-    for (int t = 0; t < T; ++t) {
-      MCTableLocal<P, R> s;
-      load_rows(s, rows, T, t);
-      float f[MC_NUM_FEATURES], lg[MC_NUM_ACTIONS];
-      mc_net_scores(s, mc_head<P>(s.order, s.cursor), bb, w, nullptr, f, lg);
-      float o[MC_PROBE_ROWS];
-      for (int i = 0; i < MC_NUM_FEATURES; ++i) o[i] = f[i];
-      for (int a = 0; a < MC_NUM_ACTIONS; ++a) {
-        o[MC_NUM_FEATURES + a] = lg[a];
-        o[MC_NUM_FEATURES + MC_NUM_ACTIONS + a] = mc_fsub(
-            lg[a], mc_neg_gumbel((uint32_t)words[(size_t)a * T + t]));
+    std::vector<float> o((size_t)MC_PROBE_ROWS * T);
+    for (int t0 = 0; t0 < T; t0 += MC_NET_THREADS) {
+      Block<MCNetLane<MCTableLocal<P, R>, int>> blk(1, w);
+      for (int t = 0; t < MC_NET_THREADS; ++t) {
+        blk.lanes.emplace_back(0);
+        load_rows(blk.lanes[t].s, rows, T, t0 + t);
       }
-      for (int i = 0; i < MC_PROBE_ROWS; ++i) {
-        int32_t bits;
-        memcpy(&bits, &o[i], 4);
-        res[(size_t)i * T + t] = bits;
-      }
+      mc_run_net_probe<P, R>(blk.view(), blk.sh, words, o.data(), t0, T, bb);
     }
-    out.insert(out.end(), res.begin(), res.end());
+    for (float x : o) {
+      int32_t bits;
+      memcpy(&bits, &x, 4);
+      out.push_back(bits);
+    }
     return;
   }
   // the engine modes return the final rows
@@ -270,6 +312,7 @@ static void engine(const char* mode, const int* in, Out& out) {
       store_rows(s, res, T, t);
     }
   } else if (!strcmp(mode, "k5")) {
+    // K5's blocks of MC_NET_THREADS tables
     int n_steps = in[0], hmax = in[1], sb = in[2], bb = in[3];
     T = in[4];
     int n_banks = in[5];
@@ -279,16 +322,21 @@ static void engine(const char* mode, const int* in, Out& out) {
     rows = in + 8 + (size_t)n_banks * MC_NET_WEIGHTS;
     const int* stash = rows + (size_t)F * T;
     res.resize((size_t)F * T);
-    for (int t = 0; t < T; ++t) {
-      MCTableLocal<P, R> s;
-      load_rows(s, rows, T, t);
-      mc_run_net_det(s, stash + t, T, n_steps, hmax, sb, bb, w, bank_map);
-      store_rows(s, res, T, t);
+    for (int t0 = 0; t0 < T; t0 += MC_NET_THREADS) {
+      Block<MCNetLane<MCTableLocal<P, R>, const int*>> blk(n_banks, w);
+      for (int t = 0; t < MC_NET_THREADS; ++t) {
+        blk.lanes.emplace_back(stash + t0 + t);
+        load_rows(blk.lanes[t].s, rows, T, t0 + t);
+      }
+      mc_run_net_det<P, R>(blk.view(), blk.sh, T, n_steps, hmax, sb, bb,
+                           n_banks, bank_map);
+      for (int t = 0; t < MC_NET_THREADS; ++t)
+        store_rows(blk.lanes[t].s, res, T, t0 + t);
     }
   } else if (!strcmp(mode, "k6")) {
-    // a population launch, grid (candidates, tables), on the packed state
-    // [C, n_blocks, F, 8, 128] at the kernel's offsets: the final state,
-    // then the count of net decisions
+    // a population launch, grid (candidates, blocks of MC_NET_THREADS
+    // tables), on the packed state [C, n_blocks, F, 8, 128] at the
+    // kernel's offsets: the final state, then the count of net decisions
     uint32_t seed = in[0], fold = in[8], raise = in[9];
     int n_steps = in[1], defer = in[2], sb = in[3], bb = in[4], ss = in[5];
     int net_seats = in[6];
@@ -303,15 +351,23 @@ static void engine(const char* mode, const int* in, Out& out) {
     long long n_net = 0;
     for (long long c = 0; c < C; ++c) {
       int* cand = res.data() + mc_candidate_state<P, R>(c, T);
-      const float* w = weights + mc_candidate_weights(c, n_banks);
-      for (int t = 0; t < T; ++t) {
-        MCTableLocal<P, R> s;
-        int* table = mc_table_rows<P, R>(cand, t);
-        mc_load(s, table, MC_TABLES_PER_BLOCK);
-        MCWords src(nullptr, T, t, seed, (uint32_t)t, 0u, 0u);
-        n_net += mc_run_net_eval(s, src, n_steps, defer, sb, bb, ss,
-                                 net_seats, reset, fold, raise, w, bank_map);
-        mc_store(s, table, MC_TABLES_PER_BLOCK);
+      for (int t0 = 0; t0 < T; t0 += MC_NET_THREADS) {
+        Block<MCNetLane<MCTableLocal<P, R>, MCWords>> blk(
+            n_banks, weights + mc_candidate_weights(c, n_banks));
+        for (int t = 0; t < MC_NET_THREADS; ++t) {
+          blk.lanes.emplace_back(MCWords(nullptr, T, t0 + t, seed,
+                                         (uint32_t)(t0 + t), 0u, 0u));
+          mc_load(blk.lanes[t].s, mc_table_rows<P, R>(cand, t0 + t),
+                  MC_TABLES_PER_BLOCK);
+        }
+        mc_run_net_eval<P, R>(blk.view(), blk.sh, n_steps, defer, sb, bb,
+                              ss, net_seats, reset, fold, raise, n_banks,
+                              bank_map);
+        for (int t = 0; t < MC_NET_THREADS; ++t) {
+          mc_store(blk.lanes[t].s, mc_table_rows<P, R>(cand, t0 + t),
+                   MC_TABLES_PER_BLOCK);
+          n_net += blk.lanes[t].n_net;
+        }
       }
     }
     out.insert(out.end(), res.begin(), res.end());
@@ -347,6 +403,8 @@ int main(int argc, char** argv) {
     mw(in.data(), out);
   } else if (!strcmp(argv[1], "carry")) {
     carry(in.data(), out);
+  } else if (!strcmp(argv[1], "mlp")) {
+    mlp(in.data(), out);
   } else if (!strcmp(argv[1], "head")) {
     switch (in[0]) {
       case 2: head<2>(in.data(), in.size(), out); break;
@@ -647,12 +705,29 @@ def _bank_map_ints(seat_to_bank, P, n_banks):
     return [bank_map & 0xFFFFFFFF, bank_map >> 32]
 
 
-def _net_det_harness(harness, weights, seat_to_bank, rules, P):
+# Tables of a CUDA block of the net kernels (csrc/net.cuh MC_NET_THREADS).
+NET_BLOCK = 256
+
+
+def _block_buttons(state, cfg):
+    """``state`` with the button of every table at (its CUDA block) mod P:
+    at the first decision every table of a block has the same seat acting,
+    so a bank's segment is empty in some blocks and full in others."""
+    rows = ce._to_rows(state).clone()
+    off = ce._field_layout(cfg.num_seats, cfg.rules)[0]["button"][0]
+    rows[off] = (torch.arange(rows.shape[1]) // NET_BLOCK) % cfg.num_seats
+    return ce._to_blocks(rows)
+
+
+def _net_det_harness(harness, weights, seat_to_bank, rules, P,
+                     block_buttons=False):
     n_steps, hmax = 40, 16
     T = ce.TABLES_PER_BLOCK
     cfg = TableConfig(num_seats=P, rules=rules)
     stash = cn.deal_stash(5, T, P, hmax, "cpu")
     state = ce.pack_state(cfg, ce._stash_rows(stash)[0].T)
+    if block_buttons:
+        state = _block_buttons(state, cfg)
     banks = weights.reshape(-1, cn.NUM_WEIGHTS)
     got = harness("k5", [P, ce.RULES.index(rules), n_steps, hmax, 5, 10, T,
                          len(banks),
@@ -670,21 +745,25 @@ def test_net_det_device_code_equals_plain(harness, es3, rules, P):
     _net_det_harness(harness, es3, None, rules, P)
 
 
-@pytest.mark.parametrize("stb", [(0, 1, 1, 1, 1, 1), (1, 0, 2, 0, 2, 1)])
+@pytest.mark.parametrize("stb", [(0, 1, 1, 1, 1, 1), (1, 0, 2, 0, 2, 1),
+                                 (7, 1, 2, 8, 4, 0)])
 def test_net_det_banked_device_code_equals_plain(harness, stb):
-    """The banked decision (mc_bank: seat -> bank, four bits a seat) on
-    distinct banks, so a wrong bank changes the play."""
+    """The banked decision (seat -> bank, four bits a seat) on distinct
+    banks, so a wrong bank changes the play; with nine banks, seats 0 and 3
+    play the two that the kernel reads from global memory."""
     panel = bots.panel()
-    nets = [panel["jam_tight"], panel["fof_call"], tpn.load_params(ES3)]
+    nets = [panel["jam_tight"], panel["fof_call"], tpn.load_params(ES3),
+            *(panel[k] for k in ("fof_raise", "nit_ladder", "made_ladder",
+                                 "jam_loose", "minraisebot", "potraisebot"))]
     weights = cn.bank_weights(nets[:1 + max(stb)], "cpu")
     _net_det_harness(harness, weights, stb, "standard", 6)
 
 
 def _net_eval_harness(harness, state, weights, rules, P, net_seats,
                       reset_stacks, seat_to_bank=None):
-    """The device code of a K6 launch (every form) against the plain
-    version in Philox mode: the final state and the count of net
-    decisions."""
+    """The device code of a K6 launch (every form, whole blocks of the
+    block phase) against the plain version in Philox mode: the final state
+    and the count of net decisions (> 0 when a seat plays a net)."""
     n_steps = 32
     grid, w3 = cn._grid(state, weights)
     C, nb = grid.shape[:2]
@@ -702,7 +781,8 @@ def _net_eval_harness(harness, state, weights, rules, P, net_seats,
                                          decisions)
     np.testing.assert_array_equal(got[:-1].astype(np.int32),
                                   _flat(want))
-    assert got[-1] == int(decisions) > 0
+    assert got[-1] == int(decisions)
+    assert (int(decisions) > 0) == (net_seats != 0)
     return want
 
 
@@ -809,3 +889,157 @@ def test_stage_device_code_equals_plain(harness, stage):
     want = cs.run_stage(stage, 41, state, P, 12, 5, 10)
     _check_rows(got, want, TableConfig(num_seats=P))
     assert not torch.equal(want, state)
+
+
+# The block phase (net.cuh): whole blocks of 256 tables, the net decisions
+# of a slot staged in rows grouped by bank and run through the dense MLP.
+
+@pytest.mark.parametrize("net_seats", [0b000001, 0b010101, 0b111111, 0])
+@pytest.mark.parametrize("rules", cn.RULES)
+def test_net_eval_block_phase_equals_plain(harness, es3, rules, net_seats):
+    """K6's blocks with one net seat, alternate seats, every seat, and no
+    net seat (the MLP phase never runs; the random policy alone)."""
+    P = 6
+    cfg = TableConfig(num_seats=P, rules=rules)
+    state = cn.initial_packed_state(12, cfg, ce.TABLES_PER_BLOCK, "cpu")
+    want = _net_eval_harness(harness, state, es3, rules, P, net_seats,
+                             True)
+    assert int(ce.unpack_field(want, cfg, "hand_ct").sum()) > 0
+
+
+@pytest.mark.parametrize("stb,net_seats", [
+    ((0, 1, 0, 1, 0, 1), 0b111111), ((0, 1, 1, 1, 1, 1), 0b000001),
+    ((1, 1, 1, 1, 1, 1), 0b100110)])
+def test_net_league_block_phase_equals_plain(harness, es3, stb, net_seats):
+    """Two banks (es3, policy_6max_200): both staged in every slot, bank 1
+    absent from every slot (its seats play the random policy), and bank 0
+    absent (every net seat plays bank 1, whose segment then starts at row
+    0)."""
+    P = 6
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = cn.initial_packed_state(13, cfg, ce.TABLES_PER_BLOCK, "cpu")
+    weights = cn.bank_weights([tpn.load_params(ES3),
+                               tpn.load_params("data/policy_6max_200.npz")],
+                              "cpu")
+    _net_eval_harness(harness, state, weights, "standard", P, net_seats,
+                      True, stb)
+
+
+def test_net_pop_block_phase_equals_plain(harness):
+    """A three-candidate grid with two banks each, the candidate at seat 0
+    and the opponent elsewhere: every seat's decision staged, bank 0's
+    segment one row in six."""
+    P, C = 6, 3
+    cfg = TableConfig(num_seats=P, rules="standard")
+    first = cn.initial_packed_state(14, cfg, ce.TABLES_PER_BLOCK, "cpu")
+    state = first[None].expand(C, *first.shape).contiguous()
+    panel = list(bots.panel().values())
+    weights = cn.pop_weights(panel[:C], "cpu", tpn.load_params(ES3))
+    _net_eval_harness(harness, state, weights, "standard", P, 0b111111,
+                      True, (0, 1, 1, 1, 1, 1))
+
+
+@pytest.mark.parametrize("rules", cn.RULES)
+def test_net_det_block_phase_bank_absent_equals_plain(harness, rules):
+    """K5's blocks with two banks of which only bank 1 plays (bank 0's
+    segment is empty in every step): argmax, a settle every step."""
+    panel = bots.panel()
+    weights = cn.bank_weights([panel["jam_tight"], panel["fof_call"]], "cpu")
+    _net_det_harness(harness, weights, (1,) * 6, rules, 6)
+
+
+@pytest.mark.parametrize("n,n_bank0", [(0, 0), (1, 0), (17, 5), (128, 77),
+                                       (256, 200)])
+def test_mlp_rows_device_code_equals_plain(harness, es3, n, n_bank0):
+    """The dense MLP phase alone (mc_mlp_rows) on seeded features, n rows
+    split over two banks (bank 0's rows first), against the plain
+    ``_bank_logits`` bit for bit: chunks of the hidden rows, tiles that
+    straddle a bank's end, a bank with no row."""
+    rng = np.random.default_rng(n)
+    feats = rng.uniform(-1.5, 1.5, (n, tpn.NUM_FEATURES)).astype(np.float32)
+    weights = torch.stack([es3, cn.net_weights(bots.panel()["fof_raise"],
+                                               "cpu")])
+    got = harness("mlp", [2, n_bank0, n - n_bank0,
+                          *_weights_as_ints(weights),
+                          *_flat(torch.from_numpy(feats).view(torch.int32))])
+    bank = torch.tensor([0] * n_bank0 + [1] * (n - n_bank0),
+                        dtype=torch.int32)
+    want = cn._bank_logits(torch.from_numpy(feats.T.copy()), weights[None],
+                           bank)
+    assert got.astype(np.int32).tolist() == \
+        _flat(want.T.contiguous().view(torch.int32))
+
+
+def _nine_banks():
+    """Nine distinct nets as banks: the seventh on in shared memory, the
+    last two read from global memory."""
+    panel = bots.panel()
+    return cn.bank_weights(
+        [tpn.load_params(ES3), tpn.load_params("data/policy_6max_200.npz")]
+        + [panel[k] for k in ("jam_tight", "fof_call", "fof_raise",
+                              "nit_ladder", "made_ladder", "jam_loose",
+                              "minraisebot")], "cpu")
+
+
+@pytest.mark.parametrize("per_bank", [
+    (3, 0, 5, 1, 0, 2, 7, 4, 9), (0, 0, 0, 0, 0, 0, 0, 20, 0),
+    (0, 0, 0, 0, 0, 0, 0, 0, 33), (30, 25, 20, 35, 28, 22, 31, 40, 25)])
+def test_mlp_rows_nine_banks_device_code_equals_plain(harness, per_bank):
+    """The dense phase over nine banks of seeded weights, banks 7 and 8
+    read from the launch's weights rather than the block's shared copy,
+    against ``_bank_logits`` bit for bit."""
+    rng = np.random.default_rng(sum(per_bank))
+    n = sum(per_bank)
+    feats = rng.uniform(-1.5, 1.5, (n, tpn.NUM_FEATURES)).astype(np.float32)
+    weights = torch.from_numpy(
+        rng.normal(0, 0.4, (9, cn.NUM_WEIGHTS)).astype(np.float32))
+    got = harness("mlp", [9, *per_bank, *_weights_as_ints(weights),
+                          *_flat(torch.from_numpy(feats).view(torch.int32))])
+    bank = torch.tensor([b for b, k in enumerate(per_bank) for _ in range(k)],
+                        dtype=torch.int32)
+    want = cn._bank_logits(torch.from_numpy(feats.T.copy()), weights[None],
+                           bank)
+    assert got.astype(np.int32).tolist() == \
+        _flat(want.T.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("stb,net_seats", [
+    ((8, 7, 6, 5, 4, 3), 0b111111), ((7, 8, 0, 8, 7, 1), 0b110011)])
+def test_net_league_nine_banks_block_phase_equals_plain(harness, stb,
+                                                        net_seats):
+    """B7 with the most banks a launch takes: the seats of banks 7 and 8
+    play nets read from global memory."""
+    P = 6
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = cn.initial_packed_state(15, cfg, ce.TABLES_PER_BLOCK, "cpu")
+    _net_eval_harness(harness, state, _nine_banks(), "standard", P,
+                      net_seats, True, stb)
+
+
+@pytest.mark.parametrize("stb,net_seats", [
+    ((0, 1, 1, 1, 1, 1), 0b000011), ((1, 0, 1, 0, 1, 0), 0b111111)])
+def test_net_league_block_buttons_equals_plain(harness, es3, stb,
+                                               net_seats):
+    """B7 on blocks whose tables share a button: in the first slots a
+    bank's segment is empty in some blocks of the launch and full in
+    others."""
+    P = 6
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = _block_buttons(
+        cn.initial_packed_state(16, cfg, ce.TABLES_PER_BLOCK, "cpu"), cfg)
+    weights = cn.bank_weights([tpn.load_params(ES3),
+                               tpn.load_params("data/policy_6max_200.npz")],
+                              "cpu")
+    _net_eval_harness(harness, state, weights, "standard", P, net_seats,
+                      True, stb)
+
+
+@pytest.mark.parametrize("rules", cn.RULES)
+def test_net_det_block_buttons_equals_plain(harness, rules):
+    """Banked K5 on blocks whose tables share a button, bank 0 at seat 0
+    alone: its segment is empty in some blocks of a step and full in
+    others."""
+    panel = bots.panel()
+    weights = cn.bank_weights([panel["jam_tight"], panel["fof_call"]], "cpu")
+    _net_det_harness(harness, weights, (0, 1, 1, 1, 1, 1), rules, 6,
+                     block_buttons=True)

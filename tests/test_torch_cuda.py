@@ -355,13 +355,33 @@ def test_net_det_banked_kernel_equals_plain(cuda, rules):
     assert int(ce.unpack_field(k, cfg, "hand_ct").sum()) > 0
 
 
+@pytest.mark.parametrize("rules", cn.RULES)
+def test_net_det_nine_banks_kernel_equals_plain(cuda, rules):
+    """Banked K5 with the most banks a launch takes: seats 0 and 3 play
+    banks 7 and 8, which the kernel reads from global memory."""
+    P, n_steps, hmax = 6, 40, 16
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules=rules)
+    stash = cn.deal_stash(8, T, P, hmax, cuda)
+    state = ce.pack_state(cfg, ce._stash_rows(stash)[0].T)
+    weights = _banks(cuda, ["es3", "jam_tight", "fof_call", "fof_raise",
+                            "nit_ladder", "made_ladder", "jam_loose",
+                            "minraisebot", "potraisebot"])
+    stb = (7, 1, 2, 8, 4, 0)
+    k = cn.run_net_det(state, stash, weights, P, n_steps, 5, 10, rules, stb)
+    p = cn._run_net_det_plain(state, stash, weights, P, n_steps, 5, 10, rules,
+                              stb)
+    assert torch.equal(k, p)
+
+
 @pytest.mark.parametrize("rules,n_banks,stb", [
     ("standard", 2, (0, 1, 1, 1, 1, 1)), ("reference", 3, (2, 0, 1, 1, 0, 2)),
-    ("standard", 9, (8, 7, 6, 5, 4, 3))])
+    ("standard", 9, (8, 7, 6, 5, 4, 3)), ("reference", 8, (7, 0, 7, 1, 7, 2))])
 def test_net_league_kernel_equals_plain(cuda, rules, n_banks, stb):
     """B7 on injected words and in Philox mode, with the decisions the
-    kernel counts; nine banks take 216,720 bytes of dynamic shared
-    memory (the opt-in above 48 KB)."""
+    kernel counts; seven banks and the staging rows take 214,928 bytes of
+    dynamic shared memory (the opt-in above 48 KB), and banks 7 and 8 are
+    read from global memory."""
     P, n_steps = 6, 32
     T = 2 * ce.TABLES_PER_BLOCK
     cfg = TableConfig(num_seats=P, rules=rules)
@@ -422,6 +442,122 @@ def test_net_pop_kernel_equals_plain_and_singles(cuda, n_banks):
     for c in range(C):
         m, _, h = cn.seat_meters(k[c], cfg)
         assert np.array_equal(m, means[c]) and h == hands[c]
+
+
+@pytest.mark.parametrize("net_seats", [0b111111, 0b000100])
+def test_net_eval_block_phase_kernel_equals_plain(cuda, es3, net_seats):
+    """K6's block phase with every seat a net (nearly every table staged
+    each slot) and with one net seat (a few rows a slot), and the count of
+    net decisions."""
+    P, n_steps = 6, 32
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = cn.initial_packed_state(21, cfg, T, cuda)
+    dk, dp = (torch.zeros(1, dtype=torch.int64, device=cuda) for _ in "kp")
+    k = cn.run_net_eval(17, state, es3, P, n_steps, 5, 10, 100, "standard",
+                        net_seats, decisions=dk)
+    p = cn._run_net_eval_plain_philox(17, state, es3, P, n_steps, 5, 10,
+                                      100, "standard", net_seats, True,
+                                      decisions=dp)
+    assert torch.equal(k, p) and int(dk) == int(dp) > 0
+
+
+@pytest.mark.parametrize("stb,net_seats", [
+    ((0, 1, 1, 1, 1, 1), 0b000001), ((1, 1, 1, 1, 1, 1), 0b011010)])
+def test_net_bank_absent_kernel_equals_plain(cuda, stb, net_seats):
+    """B7 and B8 with two banks of which one has no row in any block: bank
+    1's seats play the random policy, or bank 0 plays no seat (bank 1's
+    segment starts at row 0)."""
+    P, n_steps, C = 6, 32, 3
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules="standard")
+    first = cn.initial_packed_state(22, cfg, T, cuda)
+    weights = _banks(cuda, ["es3", "fof_raise"])
+    k = cn.run_net_league(5, first, weights, P, n_steps, 5, 10, 100,
+                          "standard", net_seats, stb)
+    p = cn._run_net_eval_plain_philox(5, first, weights, P, n_steps, 5, 10,
+                                      100, "standard", net_seats, True, stb)
+    assert torch.equal(k, p)
+    state = first[None].expand(C, *first.shape).contiguous()
+    pw = weights[None].expand(C, *weights.shape).contiguous()
+    k = cn.run_net_eval_pop(5, state, pw, P, n_steps, 5, 10, 100,
+                            "standard", net_seats, stb)
+    assert all(torch.equal(k[c], p) for c in range(C))
+
+
+def test_net_det_banked_bank_absent_kernel_equals_plain(cuda):
+    """Banked K5 where bank 0 plays no seat: its segment is empty in every
+    block and step."""
+    P, n_steps, hmax = 6, 40, 16
+    T = 2 * ce.TABLES_PER_BLOCK
+    cfg = TableConfig(num_seats=P, rules="standard")
+    stash = cn.deal_stash(6, T, P, hmax, cuda)
+    state = ce.pack_state(cfg, ce._stash_rows(stash)[0].T)
+    weights = _banks(cuda, ["jam_tight", "fof_call"])
+    k = cn.run_net_det(state, stash, weights, P, n_steps, 5, 10, "standard",
+                       (1,) * P)
+    p = cn._run_net_det_plain(state, stash, weights, P, n_steps, 5, 10,
+                              "standard", (1,) * P)
+    assert torch.equal(k, p)
+
+
+def _block_buttons(state, cfg):
+    """``state`` with the button of every table at (its CUDA block of 256
+    tables) mod P: in the first slots every table of a block has the same
+    seat acting, so a bank's segment is empty in some blocks of a launch
+    and full in others."""
+    rows = ce._to_rows(state).clone()
+    off = ce._field_layout(cfg.num_seats, cfg.rules)[0]["button"][0]
+    rows[off] = (torch.arange(rows.shape[1], device=rows.device) // 256) \
+        % cfg.num_seats
+    return ce._to_blocks(rows)
+
+
+@pytest.mark.parametrize("form", ["K5b", "B7", "B8"])
+def test_net_block_buttons_kernel_equals_plain(cuda, form):
+    """Banked K5, B7 and B8 (two banks, bank 0 at seat 0 alone) on blocks
+    whose tables share a button: one launch has bank segments empty in
+    some blocks and full in others."""
+    P, n_steps, C = 6, 32, 3
+    T = 2 * ce.TABLES_PER_BLOCK
+    stb = (0, 1, 1, 1, 1, 1)
+    cfg = TableConfig(num_seats=P, rules="standard")
+    if form == "K5b":
+        stash = cn.deal_stash(7, T, P, 16, cuda)
+        state = _block_buttons(
+            ce.pack_state(cfg, ce._stash_rows(stash)[0].T), cfg)
+        weights = _banks(cuda, ["jam_tight", "fof_call"])
+        k = cn.run_net_det(state, stash, weights, P, n_steps, 5, 10,
+                           "standard", stb)
+        p = cn._run_net_det_plain(state, stash, weights, P, n_steps, 5, 10,
+                                  "standard", stb)
+        assert torch.equal(k, p)
+        return
+    first = _block_buttons(cn.initial_packed_state(23, cfg, T, cuda), cfg)
+    weights = _banks(cuda, ["es3", "fof_raise"])
+    p = cn._run_net_eval_plain_philox(5, first, weights, P, n_steps, 5, 10,
+                                      100, "standard", 0b000011, True, stb)
+    if form == "B7":
+        k = cn.run_net_league(5, first, weights, P, n_steps, 5, 10, 100,
+                              "standard", 0b000011, stb)
+        assert torch.equal(k, p)
+        return
+    state = first[None].expand(C, *first.shape).contiguous()
+    pw = weights[None].expand(C, *weights.shape).contiguous()
+    k = cn.run_net_eval_pop(5, state, pw, P, n_steps, 5, 10, 100,
+                            "standard", 0b000011, stb)
+    assert all(torch.equal(k[c], p) for c in range(C))
+
+
+@pytest.mark.parametrize("kernel", cn.KERNELS)
+def test_net_occupancy(cuda, kernel):
+    """Every net kernel launches with its banks and staging rows: at least
+    one block an SM, up to the most banks, of which the block holds
+    ``cn.SHARED_BANKS`` in shared memory (the probe takes one net)."""
+    for n_banks in (1,) if kernel == "probe" else (1, 2, cn.MAX_BANKS):
+        smem, blocks = cn.net_occupancy(kernel, 6, "standard", n_banks)
+        shared = min(n_banks, cn.SHARED_BANKS)
+        assert smem >= shared * cn.NUM_WEIGHTS * 4 and blocks >= 1
 
 
 @pytest.mark.parametrize("form,R", [(f, R) for f in cc.FORMS
