@@ -65,11 +65,16 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    the probe kernel; tournament K3; the first and last K4 launches of the
    completion run, which is replayed launch by launch (every launch timed
    with CUDA events, beside the tables still live); B3's flop call, and
-   B3 preflop on 2^26 rollouts; then K1, K2, K4 and B3 on injected words
-   (their ``words`` option);
-4. timing: each main-path kernel call again on the card (CUDA events),
-   each K3/K4 instantiation's ptxas registers, stack and spills (the P = 6
-   library's ``build.log``) beside its time, those of each net kernel
+   B3 preflop on 2^26 rollouts; then K1 (preflop, flop and turn: each of
+   its forms), K2, K4 and B3 (preflop and flop) on injected words (their
+   ``words`` option), and K1's turn form in Philox mode;
+4. timing: each main-path kernel call again on the card (CUDA events; K1's
+   and B3's flop calls too), the card's SM clock, power draw and
+   temperature sampled by ``nvidia-smi`` every 100 ms over each call,
+   each K1, K2 and B3 (at N = 3; the range over the rest) instantiation's
+   ptxas registers, stack and spills (the common library's ``build.log``)
+   and each K3/K4 instantiation's (the P = 6 library's) beside its time,
+   those of each net kernel
    instantiation, and per net form (K5, K5b, K6, B7, B8, B8l, the probe)
    the shared bytes a block and the blocks an SM that
    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports;
@@ -94,12 +99,15 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import atexit
 import itertools
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import datetime
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1038,12 +1046,24 @@ def main() -> int:
     agree("B3", f"injected words, {PLAIN_CHUNK} rollouts",
           cq.multiway_shares(0, dead, hm, PLAIN_CHUNK, words=words),
           cq._multiway_shares_plain(words, dead.tolist(), hm.tolist()))
-    dead, hm, vm = pre
-    words = cq.random_words(g, (5, PLAIN_CHUNK), dev)
-    agree("K1", f"injected words, {PLAIN_CHUNK} rollouts",
-          cq.equity_counts(0, dead, hm, vm, PLAIN_CHUNK, words=words),
-          cq._equity_counts_plain(words, dead.tolist(), hm.tolist(),
-                                  vm.tolist()))
+    dead, hm = mw_masks["flop"]
+    words = cq.random_words(g, (2, PLAIN_CHUNK), dev)
+    agree("B3", f"flop, injected words, {PLAIN_CHUNK} rollouts",
+          cq.multiway_shares(0, dead, hm, PLAIN_CHUNK, words=words),
+          cq._multiway_shares_plain(words, dead.tolist(), hm.tolist()))
+    # K1 in each of its forms (NDRAW 5, 2, 1) on injected words, and the
+    # turn's form (on no main path) in Philox mode too
+    turn = cq._hand_masks(AKS, QQ, FLOP + [teq.make_card(0, 9)], dev)
+    for name, (dead, hm, vm) in (("preflop", pre), ("flop", flop),
+                                 ("turn", turn)):
+        words = cq.random_words(g, (9 - dead.shape[0], PLAIN_CHUNK), dev)
+        agree("K1", f"{name}, injected words, {PLAIN_CHUNK} rollouts",
+              cq.equity_counts(0, dead, hm, vm, PLAIN_CHUNK, words=words),
+              cq._equity_counts_plain(words, dead.tolist(), hm.tolist(),
+                                      vm.tolist()))
+    agree("K1", f"turn, {PLAIN_CHUNK} rollouts",
+          cq.equity_counts(SEED + 6, *turn, PLAIN_CHUNK),
+          k1_plain(SEED + 6, turn, PLAIN_CHUNK))
     words = cq.random_words(g, (7, 169, 1 << 16), dev)
     agree("K2", "injected words, 169 x 65536 rollouts",
           cq.sweep_counts(0, sdead, smask, 1 << 16, words=words),
@@ -1056,45 +1076,62 @@ def main() -> int:
     phase_done("3 agreement")
 
     # ---- 4. timing ------------------------------------------------------
+    # the card's SM clock, power draw and temperature, sampled every 100 ms
+    # while the calls are timed (each call's window logged below); the
+    # sampler is killed at exit if a check fails first
+    smi_out = tempfile.TemporaryFile("w+")
+    smi_proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=timestamp,clocks.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=smi_out, stderr=subprocess.DEVNULL, text=True)
+    atexit.register(smi_proc.kill)
+    windows = {}
     dead, hm, vm = pre
-    times = {
-        "K1": cuda_ms(lambda: cq.equity_counts(SEED, dead, hm, vm,
-                                               N_EQUITY)),
-        "K2": cuda_ms(lambda: cq.sweep_counts(SEED + 2, sdead, smask,
-                                              N_SWEEP), reps=2),
-        "K3": cuda_ms(lambda: ce.run_perpetual_det(
-            st_full, acts_full, cards_full, P, DET_STEPS, SB, BB)),
-        "K4": cuda_ms(lambda: ce.run_perpetual_prng(SEED, st_sp, P, SP_SLOTS,
-                                                    SB, BB)),
-        "K3s": cuda_ms(lambda: ce.run_perpetual_det(
+    timings = {
+        "K1": lambda: cq.equity_counts(SEED, dead, hm, vm, N_EQUITY),
+        "K1f": lambda: cq.equity_counts(SEED + 1, *flop, N_FLOP),
+        "K2": (lambda: cq.sweep_counts(SEED + 2, sdead, smask, N_SWEEP), 2),
+        "K3": lambda: ce.run_perpetual_det(
+            st_full, acts_full, cards_full, P, DET_STEPS, SB, BB),
+        "K4": lambda: ce.run_perpetual_prng(SEED, st_sp, P, SP_SLOTS, SB,
+                                            BB),
+        "K3s": lambda: ce.run_perpetual_det(
             st_full_std, acts_full, cards_full, P, DET_STEPS, SB, BB,
-            rules="standard")),
-        "K4s": cuda_ms(lambda: ce.run_perpetual_prng(
-            SEED, st_sp_std, P, SP_SLOTS, SB, BB, rules="standard")),
-        "K5": cuda_ms(lambda: cn.run_net_det(
+            rules="standard"),
+        "K4s": lambda: ce.run_perpetual_prng(
+            SEED, st_sp_std, P, SP_SLOTS, SB, BB, rules="standard"),
+        "K5": lambda: cn.run_net_det(
             st_net_det, stash_net, w_bot, P, NET_DET_STEPS, SB, BB,
-            "standard")),
-        "K6": cuda_ms(lambda: cn.run_net_eval(
-            SEED, st_net0, w_es3, P, NET_LAUNCH, SB, BB, SS, "standard", 1)),
-        "K5b": cuda_ms(lambda: cn.run_net_det(
+            "standard"),
+        "K6": lambda: cn.run_net_eval(
+            SEED, st_net0, w_es3, P, NET_LAUNCH, SB, BB, SS, "standard", 1),
+        "K5b": lambda: cn.run_net_det(
             st_net_det, stash_net, w_det_banks, P, NET_DET_STEPS, SB, BB,
-            "standard", seat0)),
-        "B7": cuda_ms(lambda: cn.run_net_league(
+            "standard", seat0),
+        "B7": lambda: cn.run_net_league(
             SEED, st_league0, w7, P, NET_LAUNCH, SB, BB, SS, "standard",
-            all_seats, parity)),
-        "B8": cuda_ms(lambda: cn.run_net_eval_pop(
-            TRAIN_SEED, pop0, w8, P, TRAIN_SLOTS, SB, BB, SS, "standard", 1)),
-        "B8l": cuda_ms(lambda: cn.run_net_eval_pop(
+            all_seats, parity),
+        "B8": lambda: cn.run_net_eval_pop(
+            TRAIN_SEED, pop0, w8, P, TRAIN_SLOTS, SB, BB, SS, "standard", 1),
+        "B8l": lambda: cn.run_net_eval_pop(
             TRAIN_SEED, pop0, w8l, P, TRAIN_SLOTS, SB, BB, SS, "standard",
-            all_seats, seat0)),
-        "B3": cuda_ms(lambda: cq.multiway_shares(
-            SEED + 3, *mw_masks["preflop"], N_EQUITY)),
-        "K3t": cuda_ms(lambda: ce.run_perpetual_det(
+            all_seats, seat0),
+        "B3": lambda: cq.multiway_shares(
+            SEED + 3, *mw_masks["preflop"], N_EQUITY),
+        "B3f": lambda: cq.multiway_shares(
+            SEED + 4, *mw_masks["flop"], N_FLOP),
+        "K3t": lambda: ce.run_perpetual_det(
             st_full_tour, acts_full, cards_full, P, DET_STEPS, SB, BB,
-            rules="tournament")),
-        "K4t": cuda_ms(lambda: ce.run_perpetual_prng(
-            SEED, st_tour0, P, TOUR_LAUNCH, SB, BB, rules="tournament")),
+            rules="tournament"),
+        "K4t": lambda: ce.run_perpetual_prng(
+            SEED, st_tour0, P, TOUR_LAUNCH, SB, BB, rules="tournament"),
     }
+    times = {}
+    for key, job in timings.items():
+        fn, reps = job if isinstance(job, tuple) else (job, 3)
+        t0 = time.time()
+        times[key] = cuda_ms(fn, reps)
+        windows[key] = (t0, time.time())
     k4t_last_ms = cuda_ms(lambda: ce.run_perpetual_prng(
         tour_last[0], tour_last[1], P, TOUR_LAUNCH, SB, BB,
         rules="tournament"))
@@ -1117,6 +1154,44 @@ def main() -> int:
         log(f"ptxas {key}{form}: {rep['registers']} registers, "
             f"{rep['stack']} B stack, {rep['spill_stores']} B spill stores, "
             f"{rep['spill_loads']} B spill loads; main-path call {shown}")
+    # ptxas per instantiation of the equity kernels (the common library's
+    # build.log): K1's forms and K2 beside their main-path calls, B3's at
+    # N = 3, and the range over all of B3's
+    eq_ptxas = _build.ptxas_report((builds[0][0].parent / "build.log")
+                                   .read_text())
+
+    def ptxas_line(rep):
+        return (f"{rep['registers']} registers, {rep['stack']} B stack, "
+                f"{rep['spill_stores']} B spill stores, "
+                f"{rep['spill_loads']} B spill loads")
+
+    main_call = {("K1", 5): "K1", ("K1", 2): "K1f", ("B3", 5): "B3",
+                 ("B3", 2): "B3f"}
+    b3 = []
+    for name, rep in sorted(eq_ptxas.items()):
+        m = re.search(
+            r"mc_(equity|multiway)_kernelI(?:Li(\d+)E)?Li(\d)ELb(\d)E", name)
+        if "mc_sweep_kernel" in name:
+            log(f"ptxas K2: {ptxas_line(rep)}; main-path call "
+                f"{times['K2']:.3f} ms")
+        if not m:
+            continue
+        kernel = "K1" if m.group(1) == "equity" else "B3"
+        if kernel == "B3":
+            b3.append(rep)
+            if m.group(2) != "3":
+                continue
+        key = main_call.get((kernel, int(m.group(3))))
+        shown = f"{times[key]:.3f} ms" if key and m.group(4) == "0" else "-"
+        hands = f"N = {m.group(2)}, " if m.group(2) else ""
+        log(f"ptxas {kernel} ({hands}NDRAW {m.group(3)}, "
+            f"{'injected words' if m.group(4) == '1' else 'Philox'}): "
+            f"{ptxas_line(rep)}; main-path call {shown}")
+    log(f"ptxas B3, all {len(b3)} instantiations: "
+        f"{min(r['registers'] for r in b3)}-"
+        f"{max(r['registers'] for r in b3)} registers, at most "
+        f"{max(r['stack'] for r in b3)} B stack and "
+        f"{max(r['spill_stores'] for r in b3)} B spill stores")
     # the net kernels' block phase: ptxas per instantiation, and per form
     # the shared bytes a block and the blocks an SM
     for name, rep in sorted(ptxas.items()):
@@ -1287,6 +1362,29 @@ def main() -> int:
         "tournament_slots": tour_steps,
     }
     log(json.dumps({"card": smi, **rates}))
+    smi_proc.terminate()
+    smi_proc.wait(timeout=60)
+    smi_out.seek(0)
+    samples = []
+    for line in smi_out:
+        stamp, *fields = line.split(",")
+        try:  # a field nvidia-smi could not read is left out
+            t = datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f")
+            samples.append((t.timestamp(), [float(x) for x in fields]))
+        except ValueError:
+            continue
+    smi_out.close()
+    log(f"nvidia-smi: {len(samples)} samples of SM clock, power and "
+        f"temperature over the timing")
+    for key, (t0, t1) in windows.items():
+        rows = [v for t, v in samples if t0 <= t <= t1]
+        if rows:
+            clk, pw, temp = np.asarray(rows).T
+            log(f"nvidia-smi over {key}'s timing ({len(rows)} samples): SM "
+                f"clock {clk.min():.0f}/{np.median(clk):.0f}/{clk.max():.0f} "
+                f"MHz (min/median/max), power {np.median(pw):.1f}/"
+                f"{pw.max():.1f} W (median/max), temperature "
+                f"{temp.max():.0f} C")
     phase_done("4 timing")
 
     # ---- 5. the probes (path e): carry model and engine stages ----------
@@ -1467,7 +1565,7 @@ def main() -> int:
          engine + "716"),
         ("K4t", "K4 engine_prng tournament (completion run, first launch)",
          src + "engine.cu", engine + "716"),
-        ("B3", "B3 equity_multiway (N = 3, preflop)", src + "equity.cu",
+        ("B3", "B3 equity_multiway (N = 3, preflop)", src + "multiway.cu",
          "montecarlo_tpu/ops/pallas_equity.py:268"),
     ]
     carry_script = "scripts/exp_carry_model.py:"

@@ -1,65 +1,49 @@
-// Equity rollout kernels (ops/cuda_equity.py).
+// Equity rollout kernels (ops/cuda_equity.py): K1 and K2 here, B3 in
+// multiway.cu.
 //
 // K1 `mc_equity_kernel` replaces montecarlo_tpu/ops/pallas_equity.py:125
 // (_make_equity_kernel via equity_counts_pallas): hand vs hand rollouts on
 // a board with 0, 3 or 4 known cards. K2 `mc_sweep_kernel` replaces
 // pallas_equity.py:182 (_sweep_kernel via sweep_counts_pallas): per hero
-// hand, rollouts against a random villain (7 cards drawn from 50). B3
-// `mc_multiway_kernel` replaces pallas_equity.py:268 (_make_multiway_kernel
-// via equity_multiway_pallas): N hands in one pot on a board with K known
-// cards, each winner taking lcm(1..N) / (number of winners) shares.
+// hand, rollouts against a random villain (7 cards drawn from 50).
 //
 // A rollout: draw the missing cards (one u32 word mod the live count per
 // card, ordered draws made distinct by bubble insertion, then shifted past
-// the ascending dead cards), build four suit masks, rank the 7-card hands
-// with the comparison key, count win / tie (B3: add each winner's share).
-// Everything stays in registers: the kernels are integer-ALU bound
-// (Philox, sampling and two evaluations, B3 N, a few hundred integer ops
+// the ascending dead cards), build the suit masks, rank the 7-card hands
+// with the comparison key, count win / tie. The kernels are integer-ALU
+// bound (Philox, the draws and two evaluations, a few hundred integer ops
 // per rollout) and touch memory only for the optional injected words and
 // one atomic per block per counter. One thread runs rollouts in a
-// grid-stride loop; 64-bit counters take any rollout count in one launch.
-#include <cuda_runtime.h>
-
+// grid-stride loop.
+//
+// K1's form (equity.cuh): the words in registers, the draws modulo
+// compile-time constants, the dead shift and the suit planes from the
+// block's deck table in shared memory, and no stack frame; the first form
+// (a run-time divisor, a word buffer and suit masks indexed at run time,
+// both in local memory) spent most of its time on the words and the masks
+// (PERF.md). Its counters are 32-bit per thread (mc_rollout_blocks keeps
+// a thread's rollouts below 2^32) and its grid a wave of resident blocks.
 #include "equity.cuh"
 
-#define MC_THREADS 256
-
-// Sum n <= N per-thread counters v over the block, one atomic per counter
-// (counter i into out[i * stride]): warp shuffles, one partial per warp in
-// shared memory, then thread i adds counter i's partials.
-template <int N>
-__device__ void mc_block_add(const unsigned long long* v, int n,
-                             unsigned long long* out, long long stride) {
-  __shared__ unsigned long long part[MC_THREADS / 32][N];
-  int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    if (i < n) {  // n is the same for the whole block
-      unsigned long long a = v[i];
-      for (int off = 16; off > 0; off >>= 1)
-        a += __shfl_down_sync(0xffffffffu, a, off);
-      if (lane == 0) part[warp][i] = a;
-    }
-  __syncthreads();
-  if (threadIdx.x < n) {
-    unsigned long long t = 0;
-    for (int w = 0; w < MC_THREADS / 32; ++w) t += part[w][threadIdx.x];
-    atomicAdd(&out[threadIdx.x * stride], t);
-  }
-}
-
-// Rollout r reads injected word t at words[t * n + r].
-template <int NDRAW>
+// Rollout r draws from Philox stream (seed, r mod 2^32, r >> 32, 0), or
+// (INJECT) reads injected word t at words[t * n + r].
+template <int NDRAW, bool INJECT>
 __global__ void __launch_bounds__(MC_THREADS)
     mc_equity_kernel(uint32_t seed, MCEquityParams p, long long n,
                      const int* words, unsigned long long* out) {
-  unsigned long long wins = 0, ties = 0;
+  __shared__ uint64_t live[52];
+  mc_share_live(p.deck, live);
+  uint32_t wins = 0u, ties = 0u;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += (long long)gridDim.x * blockDim.x) {
-    MCWords src(words, n, r, seed, (uint32_t)r, (uint32_t)(r >> 32), 0u);
-    int res = mc_rollout_vs_hand<NDRAW>(src, p);
+    const int res =
+        mc_rollout_vs_hand<NDRAW, INJECT>(p, live, words, n, r, seed);
+#if MC_EQUITY_CUT < 4
+    wins += (uint32_t)res;
+#else
     wins += res > 0;
     ties += res == 0;
+#endif
   }
   const unsigned long long counts[2] = {wins, ties};
   mc_block_add<2>(counts, 2, out, 1);
@@ -87,29 +71,21 @@ __global__ void __launch_bounds__(MC_THREADS)
   mc_block_add<2>(counts, 2, out + h, H);
 }
 
-// Rollout r draws from Philox stream (seed, r mod 2^32, r >> 32,
-// MC_SUB_MULTIWAY), or reads injected word t at words[t * n + r]. The
-// shares stay in registers (64 bits, so any n fits one launch) until the
-// block's reduction.
-template <int NDRAW>
-__global__ void __launch_bounds__(MC_THREADS)
-    mc_multiway_kernel(uint32_t seed, MCMultiwayParams p, long long n,
-                       const int* words, unsigned long long* out) {
-  unsigned long long shares[MC_MAX_HANDS];
-#pragma unroll
-  for (int h = 0; h < MC_MAX_HANDS; ++h) shares[h] = 0;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += (long long)gridDim.x * blockDim.x) {
-    MCWords src(words, n, r, seed, (uint32_t)r, (uint32_t)(r >> 32),
-                MC_SUB_MULTIWAY);
-    mc_rollout_multiway<NDRAW>(src, p, shares);
-  }
-  mc_block_add<MC_MAX_HANDS>(shares, p.n_hands, out, 1);
-}
-
 static int mc_blocks(long long n, int cap) {
   long long b = (n + MC_THREADS - 1) / MC_THREADS;
   return (int)(b < 1 ? 1 : (b > cap ? cap : b));
+}
+
+template <int NDRAW>
+static int mc_launch_equity(uint32_t seed, const MCEquityParams& p,
+                            long long n, const int* words,
+                            unsigned long long* out, cudaStream_t s) {
+  auto kernel = words ? mc_equity_kernel<NDRAW, true>
+                      : mc_equity_kernel<NDRAW, false>;
+  const int blocks = mc_rollout_blocks(kernel, n, 1u);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<blocks, MC_THREADS, 0, s>>>(seed, p, n, words, out);
+  return (int)cudaGetLastError();
 }
 
 // params: n_dead ascending dead cards, then 4 hero and 4 villain masks.
@@ -118,23 +94,17 @@ extern "C" int mc_equity_counts(int seed, const int* params, int n_dead,
                                 long long n, const int* words,
                                 unsigned long long* out, void* stream) {
   MCEquityParams p;
-  p.n_dead = n_dead;
-  for (int i = 0; i < 8; ++i) p.dead[i] = i < n_dead ? params[i] : 99;
-  for (int s = 0; s < 4; ++s) {
-    p.hero[s] = (uint32_t)params[n_dead + s];
-    p.villain[s] = (uint32_t)params[n_dead + 4 + s];
-  }
-  int blocks = mc_blocks(n, 132 * 16);
+  mc_make_deck(params, n_dead, &p.deck);
+  mc_masks_to_planes(params + n_dead, p.hero);
+  mc_masks_to_planes(params + n_dead + 4, p.villain);
+  const uint32_t sd = (uint32_t)seed;
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_dead == 4)
-    mc_equity_kernel<5><<<blocks, MC_THREADS, 0, s>>>(seed, p, n, words, out);
-  else if (n_dead == 7)
-    mc_equity_kernel<2><<<blocks, MC_THREADS, 0, s>>>(seed, p, n, words, out);
-  else if (n_dead == 8)
-    mc_equity_kernel<1><<<blocks, MC_THREADS, 0, s>>>(seed, p, n, words, out);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  switch (n_dead) {
+    case 4: return mc_launch_equity<5>(sd, p, n, words, out, s);
+    case 7: return mc_launch_equity<2>(sd, p, n, words, out, s);
+    case 8: return mc_launch_equity<1>(sd, p, n, words, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // dead: int32[H, 2] ascending holes, hmask: int32[H, 4] (device).
@@ -147,41 +117,5 @@ extern "C" int mc_sweep_counts(int seed, const int* dead, const int* hmask,
   dim3 grid(mc_blocks(n, cap < 1 ? 1 : cap), H);
   mc_sweep_kernel<<<grid, MC_THREADS, 0, (cudaStream_t)stream>>>(
       (uint32_t)seed, dead, hmask, n, words, out);
-  return (int)cudaGetLastError();
-}
-
-// dead: the 2N + K ascending dead cards; hand_masks: int32[N, 4] suit masks
-// with the K known board cards OR-ed in (both host memory). out: int64[N]
-// shares, zeroed by the caller; a rollout's shares sum to lcm(1..N).
-// Returns cudaError_t (cudaErrorInvalidValue unless 2 <= N <= 12 and
-// 0 <= K <= 5).
-extern "C" int mc_multiway_shares(int seed, const int* dead, int n_dead,
-                                  const int* hand_masks, int n_hands,
-                                  long long n, const int* words,
-                                  unsigned long long* out, void* stream) {
-  const int k = n_dead - 2 * n_hands;
-  if (n_hands < 2 || n_hands > MC_MAX_HANDS || k < 0 || k > 5)
-    return (int)cudaErrorInvalidValue;
-  MCMultiwayParams p;
-  p.n_dead = n_dead;
-  p.n_hands = n_hands;
-  for (int i = 0; i < 2 * MC_MAX_HANDS + 5; ++i)
-    p.dead[i] = i < n_dead ? dead[i] : 99;
-  for (int h = 0; h < MC_MAX_HANDS; ++h)
-    for (int s = 0; s < 4; ++s)
-      p.hand[h][s] = h < n_hands ? (uint32_t)hand_masks[4 * h + s] : 0u;
-  p.scale = mc_lcm_to(n_hands);
-  int blocks = mc_blocks(n, 132 * 16);
-  cudaStream_t st = (cudaStream_t)stream;
-  uint32_t sd = (uint32_t)seed;
-  switch (5 - k) {
-#define MC_CASE(D)                                                        \
-  case D:                                                                 \
-    mc_multiway_kernel<D><<<blocks, MC_THREADS, 0, st>>>(sd, p, n, words, \
-                                                         out);            \
-    break;
-    MC_CASE(0) MC_CASE(1) MC_CASE(2) MC_CASE(3) MC_CASE(4) MC_CASE(5)
-#undef MC_CASE
-  }
   return (int)cudaGetLastError();
 }

@@ -125,6 +125,29 @@ struct MCInjectedWords {
   MC_HD uint32_t next() { return at(pos++); }
 };
 
+// The equity kernels' word source (K1, B3): words 0..K-1 of rollout r
+// straight into registers, every index a compile-time constant once
+// unrolled. From Philox (key (seed, r mod 2^32), counter (b, r >> 32, sub,
+// 0)), the ceil(K / 4) blocks computed in order; or, INJECT, word t from
+// words[t * n + r]. The source is a template flag, not a branch on a word.
+template <int K, bool INJECT>
+MC_HD void mc_rollout_words(uint32_t (&w)[K], const int* words, long long n,
+                            long long r, uint32_t seed, uint32_t sub) {
+  if constexpr (INJECT) {
+#pragma unroll
+    for (int t = 0; t < K; ++t) w[t] = (uint32_t)words[t * n + r];
+  } else {
+#pragma unroll
+    for (int b = 0; b < (K + 3) / 4; ++b) {
+      uint32_t x[4] = {(uint32_t)b, (uint32_t)(r >> 32), sub, 0u};
+      mc_philox4x32_10(x, seed, (uint32_t)r);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * b + j < K) w[4 * b + j] = x[j];
+    }
+  }
+}
+
 // Draw K distinct live cards (pallas_equity.py:65-93): draw t is one word
 // mod (live - t), made distinct by bubble insertion into the ascending
 // list of earlier draws, then shifted past the n_dead ascending dead cards.

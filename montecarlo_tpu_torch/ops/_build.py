@@ -4,7 +4,7 @@
 plain C interface, which ``ctypes`` loads:
 
 - ``library()``: the kernels that take no seat count (``equity.cu``,
-  ``philox.cu``);
+  ``multiway.cu``, ``philox.cu``);
 - ``library(P)``: the engine and net kernels (``SEAT_SOURCES``) for seat
   count P only, under each rule set they take (``-DMC_SEATS=P``). A run
   builds the seat counts it uses, not all nine;

@@ -5,8 +5,9 @@ The counterpart of ``montecarlo_tpu/ops/pallas_equity.py``. Kernel K1
 (``csrc/equity.cu:mc_equity_kernel``) replaces ``_make_equity_kernel``
 (hand vs hand on a board of 0, 3 or 4 known cards); K2
 (``mc_sweep_kernel``) replaces ``_sweep_kernel`` (per hero hand vs a random
-villain); B3 (``mc_multiway_kernel``) replaces ``_make_multiway_kernel``
-(N hands in one pot, ties split as integer shares scaled by lcm(1..N)).
+villain); B3 (``csrc/multiway.cu:mc_multiway_kernel``) replaces
+``_make_multiway_kernel`` (N hands in one pot, ties split as integer
+shares scaled by lcm(1..N)).
 Each draws one u32 word per card and takes it modulo the live-card count,
 as the TPU kernels do, so a kernel and its plain version compute the same
 function of the words.
@@ -20,7 +21,8 @@ injected words of the same shape. ``equity_words`` / ``sweep_words`` /
 kernels return the same counts, and the ``_*_plain_philox`` functions hold
 a kernel's Philox mode against its plain version at any size.
 
-B3 keeps 64-bit shares, so any rollout count is one launch; the TPU splits
+B3 sums its shares in 64 bits (32-bit per thread, the grid sized so that
+they cannot overflow), so any rollout count is one launch; the TPU splits
 its launches at int32's limit and keys each with its own seed, so B3 and
 ``equity_multiway_pallas`` agree in distribution, not draw for draw.
 

@@ -6,19 +6,21 @@ montecarlo_tpu_torch/csrc | tar -x -C DIR``):
 
     python -m montecarlo_tpu_torch.scripts.ab_engine \\
         --parent DIR/montecarlo_tpu_torch/csrc [--runs 5] [--also DIR2] \\
-        [--variants MC_ENGINE_THREADS=128,MC_NET_CHUNK=16]
+        [--variants MC_ENGINE_THREADS=128,MC_NET_CHUNK=16] [--time-only] \\
+        [--calls K1,K1f,B3,B3f,K2]
 
 Each source tree is built with ``_build.NVCC_FLAGS`` into a temporary
 directory (the six-seat library of ``engine.cu`` and ``net.cu``, the one
-of ``equity.cu`` and ``philox.cu``, and one stage-probe library a stage;
-one nvcc per source), and every build is loaded into this process. Each
+of the other sources but the probes', and one stage-probe library a
+stage; one nvcc per source), and every build is loaded into this process. Each
 kernel call of the main paths runs on every tree in turn, ``runs``
 times, the order reversed every other run (parent, this tree, this tree,
 parent, ...), each call timed with CUDA events; the medians and their
 ratios are printed, and the trees' outputs must be equal bit for bit.
 The calls, at ``chip_smoke.py``'s sizes: K1 (AKs vs QQ preflop, 2^30
-rollouts), K2 (169 hands x 10^7 rollouts), B3 (AA/KK/76o preflop, 2^30
-rollouts), K4 under reference and standard rules (2^20 tables x 512
+rollouts; K1f on the flop 2c 7h Kd, 2^28), K2 (169 hands x 10^7
+rollouts), B3 (AA/KK/76o preflop, 2^30 rollouts; B3f AhKh/QsQd/JcTc on
+9h 8s 2h, 2^28), K4 under reference and standard rules (2^20 tables x 512
 slots) and tournament rules (2^20 6-max tournaments, the completion
 run's first, fifth and last launches of 1024 slots), K3 under each rule
 set (2^20 x 64 injected steps; tournament with 20-chip stacks), the stage
@@ -33,10 +35,16 @@ banks) and the net probe (2^18 tables, es3).
 engine kernels' block size in ``engine.cuh``; ``MC_NET_CHUNK``, the net
 kernels' hidden rows a chunk, in ``net.cuh``; ``MC_NET_MIN_BLOCKS``,
 K5's and K6's launch bound, in ``net.cu``), and times every call on each
-against this tree: the measurement behind those constants. Constants that
+against this tree: the measurement behind those constants
+(``MC_EQUITY_CUT``, in ``equity.cuh``, stops K1's and B3's rollouts
+early: a probe whose outputs differ by design, so it takes
+``--time-only``, which times the variants without comparing their
+outputs; this tree and the parent are compared all the same). Constants that
 must change together (``MC_NET_THREADS`` with the net launch bound) take a
 copy of ``csrc/`` edited by hand, through ``--also``. A library that lacks
 a C entry of this tree (an older commit's) is loaded without it.
+``--calls`` times only the named calls; when they are all equity calls
+(K1, K1f, K2, B3, B3f) only the library without a seat count is built.
 
 Each library's ptxas report (registers, stack frame and spills per kernel)
 is printed first. The last line is one JSON object with every median; with
@@ -80,9 +88,9 @@ TOUR_TIMED = (0, 4, -1)   # completion launches timed (the last: -1)
 T_NET, NET_DET_STEPS, NET_HMAX, NET_LAUNCH = 1 << 18, 64, 16, 256
 T_LEAGUE = 1 << 16
 TRAIN_POP, T_TRAIN, TRAIN_SLOTS, TRAIN_SEED = 32, 1 << 14, 256, 13
-N_EQUITY, N_SWEEP = 1 << 30, 10_000_000
+N_EQUITY, N_FLOP, N_SWEEP = 1 << 30, 1 << 28, 10_000_000
 STAGE_STEPS = 256
-COMMON_SOURCES = ("equity.cu", "philox.cu")
+EQUITY_CALLS = ("K1", "K1f", "K2", "B3", "B3f")
 
 
 def _load(path, signatures):
@@ -92,30 +100,34 @@ def _load(path, signatures):
                                       if hasattr(lib, k)})
 
 
-def build(csrc: Path, out_dir: Path):
-    """Build ``csrc``'s seat library (P = 6), its library without a seat
-    count and the stage probe's into ``out_dir``; returns the loaded
-    libraries, the ptxas report of the first two and the seconds of the
-    seat library."""
-    seat_path, seconds = _build.compile_library(
-        [csrc / name for name in _build.SEAT_SOURCES], [f"-DMC_SEATS={P}"],
-        out_dir / "p6", csrc)
-    common_path, _ = _build.compile_library(
-        [csrc / name for name in COMMON_SOURCES], [], out_dir / "common",
-        csrc)
-    stage_paths = {stage: _build.compile_library(
-        [csrc / "probe_stages.cu"],
-        [f"-DMC_SEATS={P}", f"-DMC_STAGE=MC_STAGE_{stage.upper()}"],
-        out_dir / f"stage-{stage}", csrc)[0] for stage in cs.STAGES}
+def build(csrc: Path, out_dir: Path, equity_only: bool = False):
+    """Build ``csrc``'s library without a seat count and, unless
+    ``equity_only``, its seat library (P = 6) and the stage probe's into
+    ``out_dir``; returns the loaded libraries (None for those not built),
+    the ptxas report of the first two and the seconds of each."""
+    common = [f for f in sorted(csrc.glob("*.cu"))
+              if f.name not in (*_build.SEAT_SOURCES, *_build.PROBE_SOURCES)]
+    common_path, common_s = _build.compile_library(
+        common, [], out_dir / "common", csrc)
+    paths, seconds = [common_path], {"common": common_s}
+    seat_lib, stage_libs = None, None
+    if not equity_only:
+        seat_path, seconds["p6"] = _build.compile_library(
+            [csrc / name for name in _build.SEAT_SOURCES],
+            [f"-DMC_SEATS={P}"], out_dir / "p6", csrc)
+        paths.append(seat_path)
+        seat_lib = _load(seat_path, _build.SEAT_SIGNATURES)
+        stage_libs = {stage: _build.StageBuild(stage, _load(
+            _build.compile_library(
+                [csrc / "probe_stages.cu"],
+                [f"-DMC_SEATS={P}", f"-DMC_STAGE=MC_STAGE_{stage.upper()}"],
+                out_dir / f"stage-{stage}", csrc)[0],
+            _build.STAGE_SIGNATURES), 0.0, {}) for stage in cs.STAGES}
     report = {}
-    for lib_path in (seat_path, common_path):
+    for lib_path in paths:
         report.update(_build.ptxas_report(
             (lib_path.parent / "build.log").read_text()))
-    libs = (_load(seat_path, _build.SEAT_SIGNATURES),
-            _load(common_path, _build.SIGNATURES),
-            {stage: _build.StageBuild(stage, _load(
-                path, _build.STAGE_SIGNATURES), 0.0, {})
-             for stage, path in stage_paths.items()})
+    libs = (seat_lib, _load(common_path, _build.SIGNATURES), stage_libs)
     return libs, report, seconds
 
 
@@ -132,9 +144,37 @@ def using(libs):
         _build.library, cs.stage_library = saved
 
 
+def equity_calls(dev):
+    """K1, K2 and B3's main-path calls (and the flop's) as a dict of
+    thunks, on inputs made once."""
+    mk = teq.make_card
+    aks, qq = [mk(0, 14), mk(0, 13)], [mk(1, 12), mk(2, 12)]
+    dead, hm, vm = cq._hand_masks(aks, qq, (), dev)
+    fdead, fhm, fvm = cq._hand_masks(aks, qq, [mk(3, 2), mk(1, 7), mk(2, 13)],
+                                     dev)
+    heroes = torch.tensor([list(c) for _, c in teq.canonical_hands()],
+                          dtype=torch.int32)
+    sdead = torch.sort(heroes, dim=1).values.to(dev)
+    smask = torch.stack(cq.suit_masks_from_cards(heroes), dim=1).to(dev)
+    mw_dead, mw_hm = cq._multiway_masks(
+        [[mk(0, 14), mk(1, 14)], [mk(2, 13), mk(3, 13)], [mk(0, 7), mk(1, 6)]],
+        (), dev)
+    mwf_dead, mwf_hm = cq._multiway_masks(
+        [[mk(0, 14), mk(0, 13)], [mk(2, 12), mk(1, 12)],
+         [mk(3, 11), mk(3, 10)]], [mk(0, 9), mk(2, 8), mk(0, 2)], dev)
+    return {
+        "K1": lambda: cq.equity_counts(SEED, dead, hm, vm, N_EQUITY),
+        "K1f": lambda: cq.equity_counts(SEED + 1, fdead, fhm, fvm, N_FLOP),
+        "K2": lambda: cq.sweep_counts(SEED + 2, sdead, smask, N_SWEEP),
+        "B3": lambda: cq.multiway_shares(SEED + 3, mw_dead, mw_hm, N_EQUITY),
+        "B3f": lambda: cq.multiway_shares(SEED + 4, mwf_dead, mwf_hm, N_FLOP),
+    }
+
+
 def inputs(dev, libs):
-    """The main-path calls as (name, thunk) pairs, on inputs made once
-    (the completion run's launch states by ``libs``)."""
+    """The main-path calls of the engine and net kernels as a dict of
+    thunks, on inputs made once (the completion run's launch states by
+    ``libs``)."""
     cfg = TableConfig(num_seats=P)
     std = TableConfig(num_seats=P, rules="standard")
     tour = TableConfig(num_seats=P, rules="tournament")
@@ -197,21 +237,7 @@ def inputs(dev, libs):
     parity = tuple(k % 2 for k in range(P))
     seat0 = (0,) + (1,) * (P - 1)
 
-    aks = [teq.make_card(0, 14), teq.make_card(0, 13)]
-    qq = [teq.make_card(1, 12), teq.make_card(2, 12)]
-    dead, hm, vm = cq._hand_masks(aks, qq, (), dev)
-    heroes = torch.tensor([list(c) for _, c in teq.canonical_hands()],
-                          dtype=torch.int32)
-    sdead = torch.sort(heroes, dim=1).values.to(dev)
-    smask = torch.stack(cq.suit_masks_from_cards(heroes), dim=1).to(dev)
-    mk = teq.make_card
-    mw_dead, mw_hm = cq._multiway_masks(
-        [[mk(0, 14), mk(1, 14)], [mk(2, 13), mk(3, 13)], [mk(0, 7), mk(1, 6)]],
-        (), dev)
     calls = {
-        "K1": lambda: cq.equity_counts(SEED, dead, hm, vm, N_EQUITY),
-        "K2": lambda: cq.sweep_counts(SEED + 2, sdead, smask, N_SWEEP),
-        "B3": lambda: cq.multiway_shares(SEED + 3, mw_dead, mw_hm, N_EQUITY),
         "K4": lambda: ce.run_perpetual_prng(
             SEED, sp_in["reference"], P, SP_SLOTS, SB, BB),
         "K4s": lambda: ce.run_perpetual_prng(
@@ -267,9 +293,9 @@ def timed(fn):
     return out, a.elapsed_time(b)
 
 
-def ab(calls, libs, runs, log):
+def ab(calls, libs, runs, log, compare=True):
     """Per call, the median ms on each library over ``runs`` alternating
-    runs; the libraries' outputs must be equal."""
+    runs; the libraries' outputs must be equal (unless not ``compare``)."""
     result = {}
     names = list(libs)
     for key, fn in calls.items():
@@ -280,7 +306,7 @@ def ab(calls, libs, runs, log):
                 outs[name] = fn()
         torch.cuda.synchronize()
         ref = outs[names[0]]
-        for name in names[1:]:
+        for name in names[1:] if compare else ():
             if not torch.equal(outs[name], ref):
                 raise RuntimeError(f"{key}: {name} differs from "
                                    f"{names[0]}")
@@ -305,8 +331,14 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=5)
     ap.add_argument("--variants", default="",
                     help="comma-separated NAME=VALUE defines of csrc/")
+    ap.add_argument("--time-only", action="store_true",
+                    help="time the variants without comparing outputs")
+    ap.add_argument("--calls", default="",
+                    help="comma-separated calls to time (default: all)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
+    wanted = [c for c in args.calls.split(",") if c]
+    equity_only = bool(wanted) and set(wanted) <= set(EQUITY_CALLS)
     dev = cuda_device()
     lines = []
 
@@ -338,19 +370,24 @@ def main(argv=None) -> int:
             trees[f"{name}={value}"] = tree
         libs = {}
         with ThreadPoolExecutor(len(trees)) as pool:
-            builds = pool.map(lambda kv: build(kv[1], tmp / kv[0]),
-                              trees.items())
+            builds = pool.map(
+                lambda kv: build(kv[1], tmp / kv[0], equity_only),
+                trees.items())
             for name, (lib, report, seconds) in zip(trees, builds):
                 libs[name] = lib
                 log(json.dumps({"build": name, "nvcc_s": seconds,
                                 "ptxas": report}))
-        calls = inputs(dev, libs["this"])
+        calls = equity_calls(dev)
+        if not equity_only:
+            calls.update(inputs(dev, libs["this"]))
+        if wanted:
+            calls = {k: calls[k] for k in wanted}
         main_libs = {k: v for k, v in libs.items() if k in ("parent", "this")
                      or k.startswith("also:")}
         res = ab(calls, main_libs, args.runs, log)
         res_v = ab(calls, {k: v for k, v in libs.items()
                            if k == "this" or "=" in k},
-                   args.runs, log) if variants else {}
+                   args.runs, log, not args.time_only) if variants else {}
     summary = {"card": smi, "runs": args.runs, "median_ms": res,
                "variants_median_ms": res_v,
                "ratio_over_this": {

@@ -11,7 +11,10 @@ block's lanes, with banks and, for K6, a grid of candidates at the
 kernel's state and weight offsets; the dense MLP phase alone; one thread
 of each carry-probe form and one table of each stage-probe body) in
 Philox mode, the way the kernels key their streams, and the results must
-equal the plain versions fed ``ops/philox.py``'s words. This checks the
+equal the plain versions fed ``ops/philox.py``'s words. The equity
+kernels' parts are held on their own too: the draw modulus, the suit
+planes, the deck's draws, ``mc_rank7``'s order over every 7-card hand and
+the grid rule that keeps their 32-bit counters from overflowing. This checks the
 device code's arithmetic before it meets a card; the launch geometry is
 checked on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). Skips without a host C++ compiler.
@@ -42,6 +45,7 @@ torch.set_num_threads(1)
 HARNESS = r"""
 #include <cstdio>
 #include <cstring>
+#include <utility>
 #include <vector>
 
 #include <cstdlib>
@@ -54,23 +58,20 @@ HARNESS = r"""
 
 typedef std::vector<long long> Out;
 
-static void k1(const int* in, Out& out) {
+// K1: in = seed, start (hi, lo), n, inject, n_dead, dead..., hero and
+// villain masks (4 each), then with inject the words [9 - n_dead, n].
+template <int NDRAW>
+static void k1_run(const int* in, const MCEquityParams& p, Out& out) {
   uint32_t seed = in[0];
   long long start = ((long long)in[1] << 32) | (uint32_t)in[2];
   int n = in[3];
-  MCEquityParams p;
-  p.n_dead = in[4];
-  for (int i = 0; i < 8; ++i) p.dead[i] = i < p.n_dead ? in[5 + i] : 99;
-  for (int s = 0; s < 4; ++s) {
-    p.hero[s] = in[5 + p.n_dead + s];
-    p.villain[s] = in[9 + p.n_dead + s];
-  }
-  long long wins = 0, ties = 0;
+  const int* words = in[4] ? in + 14 + in[5] : nullptr;
+  uint32_t wins = 0, ties = 0;
   for (long long r = start; r < start + n; ++r) {
-    MCWords src(nullptr, n, r, seed, (uint32_t)r, (uint32_t)(r >> 32), 0u);
-    int res = p.n_dead == 4   ? mc_rollout_vs_hand<5>(src, p)
-              : p.n_dead == 7 ? mc_rollout_vs_hand<2>(src, p)
-                              : mc_rollout_vs_hand<1>(src, p);
+    int res = words ? mc_rollout_vs_hand<NDRAW, true>(p, p.deck.live, words,
+                                                       n, r - start, seed)
+                    : mc_rollout_vs_hand<NDRAW, false>(p, p.deck.live,
+                                                        nullptr, n, r, seed);
     wins += res > 0;
     ties += res == 0;
   }
@@ -78,34 +79,167 @@ static void k1(const int* in, Out& out) {
   out.push_back(ties);
 }
 
-// B3: in = seed, start (hi, lo), n, N, n_dead, dead..., masks [N, 4].
-static void mw(const int* in, Out& out) {
+static void k1(const int* in, Out& out) {
+  int n_dead = in[5];
+  MCEquityParams p;
+  mc_make_deck(in + 6, n_dead, &p.deck);
+  mc_masks_to_planes(in + 6 + n_dead, p.hero);
+  mc_masks_to_planes(in + 10 + n_dead, p.villain);
+  switch (n_dead) {
+    case 4: k1_run<5>(in, p, out); break;
+    case 7: k1_run<2>(in, p, out); break;
+    default: k1_run<1>(in, p, out); break;
+  }
+}
+
+// B3: in = seed, start (hi, lo), n, inject, N, n_dead, dead..., masks
+// [N, 4], then with inject the words [5 - K, n]. One thread's 32-bit
+// shares, as the kernel keeps them.
+template <int N, int NDRAW>
+static void mw_run(const int* in, const MCMultiwayParams& p, Out& out) {
   uint32_t seed = in[0];
   long long start = ((long long)in[1] << 32) | (uint32_t)in[2];
   int n = in[3];
-  MCMultiwayParams p;
-  p.n_hands = in[4];
-  p.n_dead = in[5];
-  for (int i = 0; i < 2 * MC_MAX_HANDS + 5; ++i)
-    p.dead[i] = i < p.n_dead ? in[6 + i] : 99;
-  p.scale = mc_lcm_to(p.n_hands);
-  for (int h = 0; h < MC_MAX_HANDS; ++h)
-    for (int s = 0; s < 4; ++s)
-      p.hand[h][s] = h < p.n_hands ? in[6 + p.n_dead + 4 * h + s] : 0u;
-  unsigned long long shares[MC_MAX_HANDS] = {};
+  const int* words = in[4] ? in + 7 + in[6] + 4 * N : nullptr;
+  uint32_t shares[N] = {};
   for (long long r = start; r < start + n; ++r) {
-    MCWords src(nullptr, n, r, seed, (uint32_t)r, (uint32_t)(r >> 32),
-                MC_SUB_MULTIWAY);
-    switch (5 - (p.n_dead - 2 * p.n_hands)) {
-      case 0: mc_rollout_multiway<0>(src, p, shares); break;
-      case 1: mc_rollout_multiway<1>(src, p, shares); break;
-      case 2: mc_rollout_multiway<2>(src, p, shares); break;
-      case 3: mc_rollout_multiway<3>(src, p, shares); break;
-      case 4: mc_rollout_multiway<4>(src, p, shares); break;
-      default: mc_rollout_multiway<5>(src, p, shares); break;
-    }
+    if (words)
+      mc_rollout_multiway<N, NDRAW, true>(p, p.deck.live, words, n,
+                                          r - start, seed, shares);
+    else
+      mc_rollout_multiway<N, NDRAW, false>(p, p.deck.live, nullptr, n, r,
+                                           seed, shares);
   }
-  out.insert(out.end(), shares, shares + p.n_hands);
+  out.insert(out.end(), shares, shares + N);
+}
+
+template <int N>
+static void mw_n(const int* in, const MCMultiwayParams& p, Out& out) {
+  switch (5 - (in[6] - 2 * N)) {
+    case 0: mw_run<N, 0>(in, p, out); break;
+    case 1: mw_run<N, 1>(in, p, out); break;
+    case 2: mw_run<N, 2>(in, p, out); break;
+    case 3: mw_run<N, 3>(in, p, out); break;
+    case 4: mw_run<N, 4>(in, p, out); break;
+    default: mw_run<N, 5>(in, p, out); break;
+  }
+}
+
+static void mw(const int* in, Out& out) {
+  int n_hands = in[5], n_dead = in[6];
+  MCMultiwayParams p;
+  mc_make_deck(in + 7, n_dead, &p.deck);
+  for (int h = 0; h < n_hands; ++h)
+    mc_masks_to_planes(in + 7 + n_dead + 4 * h, p.hand[h]);
+  switch (n_hands) {
+    case 2: mw_n<2>(in, p, out); break;
+    case 3: mw_n<3>(in, p, out); break;
+    case 4: mw_n<4>(in, p, out); break;
+    case 6: mw_n<6>(in, p, out); break;
+    case 7: mw_n<7>(in, p, out); break;
+    default: mw_n<12>(in, p, out); break;
+  }
+}
+
+// The draw rule's modulus: in = words; out = mc_draw_mod<D>(word) for each
+// word and each D in 1..52.
+template <int... D>
+static void mods(uint32_t w, Out& out, std::integer_sequence<int, D...>) {
+  (out.push_back(mc_draw_mod<D + 1>(w)), ...);
+}
+
+// The plane helper against mc_add_card: in = cards (any count); out = the
+// four suit masks by mc_add_card, then those of mc_card_bit64's planes.
+static void bits(const int* in, size_t n, Out& out) {
+  uint32_t m[4] = {0u, 0u, 0u, 0u};
+  uint64_t b = 0u;
+  for (size_t i = 0; i < n; ++i) {
+    mc_add_card(m, in[i]);
+    b |= mc_card_bit64(in[i]);
+  }
+  out.insert(out.end(), m, m + 4);
+  const uint32_t lo = (uint32_t)b, hi = (uint32_t)(b >> 32);
+  for (uint32_t x : {lo & 0xFFFFu, lo >> 16, hi & 0xFFFFu, hi >> 16})
+    out.push_back(x);
+}
+
+// mc_rank7 against mc_eval_cmp on every 7-card hand: out = the hands,
+// the distinct mc_eval_cmp keys, the hands whose mc_rank7 differs from
+// that of an earlier hand with the same mc_eval_cmp key, and the distinct
+// mc_eval_cmp keys (ascending) whose mc_rank7 is not above the previous
+// one's.
+static void rank7_all(Out& out) {
+  std::vector<uint32_t> seen((size_t)9 << 19, 0u);  // key -> rank + 1
+  long long hands = 0, clashes = 0;
+  uint64_t bit[52];
+  for (int c = 0; c < 52; ++c) bit[c] = mc_card_bit64(c);
+  int c[7];
+  uint64_t b[8] = {0u};
+  // the hands in lexicographic order, their planes built incrementally
+  for (int i = 0; i < 7; ++i) c[i] = i;
+  while (true) {
+    for (int i = 0; i < 7; ++i) b[i + 1] = b[i] | bit[c[i]];
+    const uint32_t lo = (uint32_t)b[7], hi = (uint32_t)(b[7] >> 32);
+    const uint32_t m0 = lo & 0xFFFFu, m1 = lo >> 16;
+    const uint32_t m2 = hi & 0xFFFFu, m3 = hi >> 16;
+    const int key = mc_eval_cmp(m0, m1, m2, m3);
+    const uint32_t r = mc_rank7(m0, m1, m2, m3) + 1u;
+    ++hands;
+    if (!seen[key]) seen[key] = r;
+    clashes += seen[key] != r;
+    int i = 6;
+    while (i >= 0 && c[i] == 45 + i) --i;
+    if (i < 0) break;
+    ++c[i];
+    for (int j = i + 1; j < 7; ++j) c[j] = c[j - 1] + 1;
+  }
+  long long distinct = 0, disorders = 0;
+  uint32_t prev = 0u;
+  for (uint32_t r : seen)
+    if (r) {
+      ++distinct;
+      disorders += r <= prev;
+      prev = r;
+    }
+  out.insert(out.end(), {hands, distinct, clashes, disorders});
+}
+
+// Words from an array, for mc_sample_cards.
+struct ArrayWords {
+  const int* w;
+  int i;
+  uint32_t next() { return (uint32_t)w[i++]; }
+};
+
+// The draws' cards against insertion plus the walk (mc_sample_cards): in
+// = ND, then cases of ND ascending dead cards and 5 words; out per case =
+// the two planes of mc_draw_planes, then those of mc_sample_cards' cards.
+template <int ND>
+static void draws(const int* in, size_t n, Out& out) {
+  for (size_t i = 1; i + ND + 5 <= n; i += ND + 5) {
+    MCDeck deck;
+    mc_make_deck(in + i, ND, &deck);
+    uint32_t w[5];
+    for (int t = 0; t < 5; ++t) w[t] = (uint32_t)in[i + ND + t];
+    uint32_t lo, hi, cut = 0u;
+    mc_draw_planes<52 - ND, 5>(w, deck.live, lo, hi, cut);
+    out.push_back(lo);
+    out.push_back(hi);
+    ArrayWords src{in + i + ND, 0};
+    int cards[5];
+    mc_sample_cards<5>(src, in + i, ND, cards);
+    uint64_t b = 0u;
+    for (int c : cards) b |= mc_card_bit64(c);
+    out.push_back((uint32_t)b);
+    out.push_back((uint32_t)(b >> 32));
+  }
+}
+
+// draws<ND> for ND = in[0], 4..29.
+template <int... ND>
+static void draws_nd(const int* in, size_t n, Out& out,
+                     std::integer_sequence<int, ND...>) {
+  ((in[0] == ND + 4 ? draws<ND + 4>(in, n, out) : void()), ...);
 }
 
 static void k2(const int* in, Out& out) {
@@ -397,6 +531,21 @@ int main(int argc, char** argv) {
     }
   } else if (!strcmp(argv[1], "k1")) {
     k1(in.data(), out);
+  } else if (!strcmp(argv[1], "mod")) {
+    for (int x : in)
+      mods((uint32_t)x, out, std::make_integer_sequence<int, 52>());
+  } else if (!strcmp(argv[1], "grid")) {
+    for (size_t i = 0; i + 4 <= in.size(); i += 4)
+      out.push_back(mc_rollout_grid(
+          ((long long)in[i] << 32) | (uint32_t)in[i + 1], in[i + 2],
+          in[i + 3]));
+  } else if (!strcmp(argv[1], "rank7_all")) {
+    rank7_all(out);
+  } else if (!strcmp(argv[1], "bits")) {
+    bits(in.data(), in.size(), out);
+  } else if (!strcmp(argv[1], "draws")) {
+    draws_nd(in.data(), in.size(), out,
+             std::make_integer_sequence<int, 26>());
   } else if (!strcmp(argv[1], "k2")) {
     k2(in.data(), out);
   } else if (!strcmp(argv[1], "mw")) {
@@ -474,11 +623,107 @@ def test_equity_rollout_device_code_equals_plain(harness, board, start):
     seed, n = 0x9E3779B9, 3000
     dead, hm, vm = (m.tolist() for m in cq._hand_masks(
         [0, 12], [25, 38], board, "cpu"))
-    got = harness("k1", [seed, start >> 32, start & 0xFFFFFFFF, n,
+    got = harness("k1", [seed, start >> 32, start & 0xFFFFFFFF, n, 0,
                          len(dead), *dead, *hm, *vm])
     words = cq.equity_words(seed, 9 - len(dead), start, n, "cpu")
     assert got.tolist() == cq._equity_counts_plain(words, dead, hm,
                                                    vm).tolist()
+
+
+@pytest.mark.parametrize("board", [(), (5, 6, 7), (5, 6, 7, 44),
+                                   (13, 26, 51, 0)])
+def test_equity_rollout_injected_device_code_equals_plain(harness, board):
+    """K1 on injected words (its INJECT form), at every NDRAW."""
+    n = 2000
+    dead, hm, vm = (m.tolist() for m in cq._hand_masks(
+        [1, 14], [27, 40], board, "cpu"))
+    words = torch.from_numpy(np.random.default_rng(len(board)).integers(
+        0, 1 << 32, (9 - len(dead), n), dtype=np.int64))
+    got = harness("k1", [0, 0, 0, n, 1, len(dead), *dead, *hm, *vm,
+                         *words.reshape(-1).tolist()])
+    assert got.tolist() == cq._equity_counts_plain(words, dead, hm,
+                                                   vm).tolist()
+
+
+@pytest.mark.parametrize("d", range(1, 53))
+def test_draw_mod_equals_remainder(harness, d):
+    """mc_draw_mod<D> (a draw modulo the compile-time live count) against
+    %, on edge words and seeded random words, for every D in 1..52."""
+    rng = np.random.default_rng(d)
+    words = np.concatenate([[0, 1, d - 1, d, d + 1, (1 << 32) - 1,
+                             (1 << 32) - d, (1 << 31) + d],
+                            rng.integers(0, 1 << 32, 256)]).astype(np.int64)
+    got = harness("mod", words.tolist()).reshape(-1, 52)[:, d - 1]
+    assert got.tolist() == (words % d).tolist()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_card_planes_equal_add_card(harness, seed):
+    """mc_card_bit64's packed planes, unpacked, equal mc_add_card's suit
+    masks and the plain version's, for seeded card sets of 0 to 52
+    cards."""
+    rng = np.random.default_rng(seed)
+    for k in (0, 1, 2, 5, 7, 13, 52):
+        cards = rng.permutation(52)[:k].tolist()
+        got = harness("bits", cards)
+        plain = [int(m) for m in tev.suit_masks_from_cards(
+            torch.tensor(cards, dtype=torch.int32).reshape(1, -1))] \
+            if k else [0] * 4
+        assert got[:4].tolist() == plain
+        assert got[4:].tolist() == plain
+
+
+@pytest.mark.parametrize("n_hands", [1, 2, 3, 7, 12])
+def test_rollout_grid_keeps_counters_in_32_bits(harness, n_hands):
+    """mc_rollout_grid, K1's and B3's block count: a thread's rollouts x
+    lcm(1..N) (its 32-bit counters' largest value; 1 for K1) stay below
+    2^32 for any n; the grid is MC_EQUITY_WAVES waves of resident blocks,
+    fewer for a small n, more where the counters need it."""
+    per = 1 if n_hands == 1 else cq.multiway_scale(n_hands)
+    wave = 132 * 6
+    ns = [0, 1, 255, 256, 257, 10**6, 1 << 30, (1 << 32) + 1, 10**12,
+          (1 << 40) + 7, (1 << 62) - 1]
+    got = harness("grid", [x for n in ns for x in (n >> 32, n & 0xFFFFFFFF,
+                                                    per, wave)])
+    per_thread = 0xFFFFFFFF // per
+    for n, b in zip(ns, got.tolist()):
+        need = -(-(-(-n // per_thread)) // 256)
+        assert b == max(min(-(-n // 256), 16 * wave), need, 1)
+        assert -(-n // (b * 256)) * per <= 0xFFFFFFFF
+
+
+def test_rank7_orders_every_hand_as_eval_cmp(harness):
+    """mc_rank7 (the equity kernels' key) orders all C(52, 7) hands as
+    mc_eval_cmp does: one mc_rank7 value per mc_eval_cmp key, increasing
+    with it. Hand against hand, every comparison and tie of K1 and B3 is
+    then mc_eval_cmp's."""
+    hands, distinct, clashes, disorders = harness("rank7_all", []).tolist()
+    assert hands == 133_784_560 and distinct > 4000
+    assert clashes == 0 and disorders == 0
+
+
+@pytest.mark.parametrize("n_dead", range(4, 30))
+def test_deck_draws_equal_insertion_and_walk(harness, n_dead):
+    """The draws' cards through the deck (mc_draw_planes) equal bubble
+    insertion then the walk past the dead cards (mc_sample_cards) and the
+    plain version's, for seeded dead sets of 4 to 29 cards."""
+    rng = np.random.default_rng(n_dead)
+    cases, dead_sets, word_rows = [n_dead], [], []
+    for i in range(64):
+        dead = np.sort(rng.permutation(52)[:n_dead])
+        words = rng.integers(0, 1 << 32, 5)
+        if i == 0:  # the first and the last live card
+            words[:2] = [0, (1 << 32) - 1]
+        dead_sets.append(dead)
+        word_rows.append(words)
+        cases += [*dead.tolist(), *words.tolist()]
+    got = harness("draws", cases).reshape(-1, 4)
+    assert got[:, :2].tolist() == got[:, 2:].tolist()
+    for row, dead, words in zip(got, dead_sets, word_rows):
+        cards = cq._sample_cards(torch.tensor(words, dtype=torch.int64),
+                                 dead.tolist())
+        b = sum(1 << (c + 3 * (c // 13) + 2) for c in map(int, cards))
+        assert row[:2].tolist() == [b & 0xFFFFFFFF, b >> 32]
 
 
 def test_sweep_rollout_device_code_equals_plain(harness):
@@ -645,11 +890,38 @@ def test_multiway_rollout_device_code_equals_plain(harness, n_hands, board,
     seed, n = 0x7F4A7C15, 1500
     hands = [[8 + 2 * h, 9 + 2 * h] for h in range(n_hands)]
     dead, hm = (m.tolist() for m in cq._multiway_masks(hands, board, "cpu"))
-    got = harness("mw", [seed, start >> 32, start & 0xFFFFFFFF, n, n_hands,
-                         len(dead), *dead, *[x for row in hm for x in row]])
+    got = harness("mw", [seed, start >> 32, start & 0xFFFFFFFF, n, 0,
+                         n_hands, len(dead), *dead,
+                         *[x for row in hm for x in row]])
     words = cq.multiway_words(seed, 5 - len(board), start, n, "cpu")
     assert got.tolist() == cq._multiway_shares_plain(words, dead,
                                                      hm).tolist()
+
+
+@pytest.mark.parametrize("n_hands", [2, 3, 7, 12])
+@pytest.mark.parametrize("n_draw", range(6))
+def test_multiway_every_form_device_code_equals_plain(harness, n_hands,
+                                                      n_draw):
+    """B3 at every NDRAW for N = 2, 3, 7 and 12 (each its own
+    instantiation), in Philox mode and on injected words."""
+    rng = np.random.default_rng(100 * n_hands + n_draw)
+    deal = rng.permutation(52)[:2 * n_hands + 5 - n_draw].tolist()
+    hands = [deal[2 * h:2 * h + 2] for h in range(n_hands)]
+    board = deal[2 * n_hands:]
+    dead, hm = (m.tolist() for m in cq._multiway_masks(hands, board, "cpu"))
+    masks = [x for row in hm for x in row]
+    n, seed = 600, 31 + n_draw
+    got = harness("mw", [seed, 0, 5, n, 0, n_hands, len(dead), *dead,
+                         *masks])
+    words = cq.multiway_words(seed, n_draw, 5, n, "cpu")
+    assert got.tolist() == cq._multiway_shares_plain(words, dead,
+                                                     hm).tolist()
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (n_draw, n)))
+    got = harness("mw", [0, 0, 0, n, 1, n_hands, len(dead), *dead, *masks,
+                         *words.reshape(-1).tolist()])
+    assert got.tolist() == cq._multiway_shares_plain(words, dead,
+                                                     hm).tolist()
+    assert int(got.sum()) == cq.multiway_scale(n_hands) * n
 
 
 @pytest.mark.parametrize("rules", ce.RULES)

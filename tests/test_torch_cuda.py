@@ -270,6 +270,42 @@ def test_multiway_kernel_equals_plain(cuda, n_hands, board):
                                                    n))
 
 
+@pytest.mark.parametrize("n_hands", range(2, 13))
+@pytest.mark.parametrize("n_draw", range(6))
+def test_multiway_kernel_every_form_equals_plain(cuda, n_hands, n_draw):
+    """B3 in each of its instantiations (N hands, NDRAW = 5 - K drawn
+    cards; Philox and injected words) equals its plain version."""
+    rng = np.random.default_rng(100 * n_hands + n_draw)
+    deal = rng.permutation(52)[:2 * n_hands + 5 - n_draw].tolist()
+    hands = [deal[2 * h:2 * h + 2] for h in range(n_hands)]
+    dead, hm = cq._multiway_masks(hands, deal[2 * n_hands:], cuda)
+    n = (1 << 16) + 3
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (n_draw, n))).to(cuda)
+    k = cq.multiway_shares(0, dead, hm, n, words=words)
+    assert torch.equal(k, cq._multiway_shares_plain(words, dead.tolist(),
+                                                    hm.tolist()))
+    k = cq.multiway_shares(n_draw, dead, hm, n)
+    assert torch.equal(k, cq._multiway_shares_plain_philox(
+        n_draw, dead.tolist(), hm.tolist(), n, cuda))
+    assert int(k.sum()) == cq.multiway_scale(n_hands) * n
+
+
+def test_multiway_kernel_largest_rollouts_per_thread(cuda):
+    """B3 where a thread's 32-bit shares come closest to 2^32: 12 hands on
+    a known board (every rollout the same, so 2^40 rollouts run at once),
+    a grid of as few threads as the counters allow (mc_rollout_grid), each
+    with some 155,000 rollouts of lcm(1..12) = 27,720 shares."""
+    hands = [[2 * h, 2 * h + 1] for h in range(12)]
+    dead, hm = cq._multiway_masks(hands, [30, 35, 40, 45, 50], cuda)
+    n = 1 << 40
+    k = cq.multiway_shares(3, dead, hm, n)
+    one = cq._multiway_shares_plain(torch.zeros((0, 1), dtype=torch.int64,
+                                                device=cuda),
+                                    dead.tolist(), hm.tolist())
+    assert torch.equal(k, one * n)
+    assert int(k.sum()) == cq.multiway_scale(12) * n
+
+
 @pytest.fixture
 def es3(cuda):
     return cn.net_weights(tpn.load_params("data/policy_6max_es3.npz"), cuda)
