@@ -72,8 +72,12 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    and B3's flop calls too), the card's SM clock, power draw and
    temperature sampled by ``nvidia-smi`` every 100 ms over each call,
    each K1, K2 and B3 (at N = 3; the range over the rest) instantiation's
-   ptxas registers, stack and spills (the common library's ``build.log``)
-   and each K3/K4 instantiation's (the P = 6 library's) beside its time,
+   ptxas registers, stack and spills (the common library's ``build.log``;
+   K2's beside its blocks an SM and a hand) and each K3/K4
+   instantiation's (the P = 6 library's) beside its time, the rollout
+   loop of K1 preflop and of both K2 forms in the SASS (instructions by
+   opcode), K2 timed once more before the sampler starts and the host's
+   share of ``sweep169_seconds_warm``,
    those of each net kernel
    instantiation, and per net form (K5, K5b, K6, B7, B8, B8l, the probe)
    the shared bytes a block and the blocks an SM that
@@ -1076,6 +1080,10 @@ def main() -> int:
     phase_done("3 agreement")
 
     # ---- 4. timing ------------------------------------------------------
+    # K2 timed once more before the sampler starts, as the A/B times it
+    # (median of 5): the gap between this script's K2 time and the A/B's
+    k2_quiet_ms = cuda_ms(
+        lambda: cq.sweep_counts(SEED + 2, sdead, smask, N_SWEEP), 5)
     # the card's SM clock, power draw and temperature, sampled every 100 ms
     # while the calls are timed (each call's window logged below); the
     # sampler is killed at exit if a check fails first
@@ -1171,9 +1179,16 @@ def main() -> int:
     for name, rep in sorted(eq_ptxas.items()):
         m = re.search(
             r"mc_(equity|multiway)_kernelI(?:Li(\d+)E)?Li(\d)ELb(\d)E", name)
-        if "mc_sweep_kernel" in name:
-            log(f"ptxas K2: {ptxas_line(rep)}; main-path call "
-                f"{times['K2']:.3f} ms")
+        k2 = re.search(r"mc_sweep_kernelILb(\d)E", name)
+        if k2:
+            inject = k2.group(1) == "1"
+            shown = "-" if inject else f"{times['K2']:.3f} ms"
+            blocks, per_sm = cq.sweep_grid(169, N_SWEEP if not inject
+                                           else 1 << 16, inject)
+            log(f"ptxas K2 ({'injected words' if inject else 'Philox'}): "
+                f"{ptxas_line(rep)}; {per_sm} blocks an SM, {blocks} blocks "
+                f"a hand at 169 x {1 << 16 if inject else N_SWEEP}; "
+                f"main-path call {shown}")
         if not m:
             continue
         kernel = "K1" if m.group(1) == "equity" else "B3"
@@ -1209,9 +1224,32 @@ def main() -> int:
         shown = f"{times[key]:.3f} ms" if key in times else "-"
         log(f"{key} (B = {n_banks}, C = {n_cand}): {smem} B of shared "
             f"memory a block, {blocks} blocks an SM; main-path call {shown}")
+    # the rollout loop of K2 (both forms) and of K1 preflop in the SASS:
+    # its instructions by opcode (the largest backward-branch loop)
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = ecm.sass_loops(subprocess.run(
+        [str(cuobjdump), "-sass", str(builds[0][0])], capture_output=True,
+        text=True, check=True).stdout)
+    for name, loops in sorted(sass.items()):
+        m = re.search(r"mc_sweep_kernelILb(\d)E|mc_equity_kernelILi5ELb0E",
+                      name)
+        if m and loops:
+            loop = max(loops, key=lambda c: c["instructions"])
+            top = sorted(loop["opcodes"].items(), key=lambda kv: -kv[1])
+            form = "injected words" if m.group(1) == "1" else "Philox"
+            kernel = ("K1 (NDRAW 5, Philox)" if m.group(1) is None
+                      else f"K2 ({form})")
+            log(f"SASS {kernel}: rollout loop {loop['instructions']} "
+                f"instructions, LDL {loop['ldl']}, STL {loop['stl']}; "
+                f"{dict(top)}")
     t0 = time.perf_counter()
     cq.equity_sweep_kernel(SEED + 5, heroes, N_SWEEP, dev)
     sweep_warm_s = time.perf_counter() - t0
+    host_ms = sweep_warm_s * 1e3 - times["K2"]
+    log(f"sweep169_seconds_warm {sweep_warm_s:.4f} s: K2's kernel "
+        f"{times['K2']:.3f} ms, the host {host_ms:.3f} ms; K2 with the "
+        f"sampler off (median of 5) {k2_quiet_ms:.3f} ms, on "
+        f"{times['K2']:.3f} ms (x{times['K2'] / k2_quiet_ms:.4f})")
     # bench.py's net_eval_hands_per_sec: hands / host seconds of one
     # 2 x 256-slot evaluation from a state built once, best of 2
     net_runs = []

@@ -16,13 +16,14 @@
 // one atomic per block per counter. One thread runs rollouts in a
 // grid-stride loop.
 //
-// K1's form (equity.cuh): the words in registers, the draws modulo
-// compile-time constants, the dead shift and the suit planes from the
-// block's deck table in shared memory, and no stack frame; the first form
-// (a run-time divisor, a word buffer and suit masks indexed at run time,
-// both in local memory) spent most of its time on the words and the masks
-// (PERF.md). Its counters are 32-bit per thread (mc_rollout_blocks keeps
-// a thread's rollouts below 2^32) and its grid a wave of resident blocks.
+// Both take the form of equity.cuh: the words in registers, the draws
+// modulo compile-time constants, the dead shift and the suit planes from
+// the block's deck table in shared memory, and no stack frame; the first
+// form (a run-time divisor, a word buffer and suit masks indexed at run
+// time, both in local memory) spent most of its time on the words and the
+// masks (PERF.md). Their counters are 32-bit per thread (mc_rollout_blocks
+// keeps a thread's rollouts below 2^32) and their grid MC_EQUITY_WAVES
+// waves of resident blocks, over all hands for K2.
 #include "equity.cuh"
 
 // Rollout r draws from Philox stream (seed, r mod 2^32, r >> 32, 0), or
@@ -49,31 +50,35 @@ __global__ void __launch_bounds__(MC_THREADS)
   mc_block_add<2>(counts, 2, out, 1);
 }
 
-// Grid (chunks, hands): blockIdx.y is the hero hand h; rollout r of hand h
-// reads injected word t at words[t * H * n + h * n + r].
+// Grid (chunks, hands): blockIdx.y is the hero hand h, whose deck the
+// block builds in shared memory. Rollout r of hand h draws from Philox
+// stream (seed, r mod 2^32, r >> 32, h + 1), or (INJECT) reads injected
+// word t at words[t * H * n + h * n + r].
+template <bool INJECT>
 __global__ void __launch_bounds__(MC_THREADS)
     mc_sweep_kernel(uint32_t seed, const int* dead, const int* hmask,
                     long long n, const int* words, unsigned long long* out) {
-  int h = blockIdx.y, H = gridDim.y;
-  int hd[2] = {dead[2 * h], dead[2 * h + 1]};
-  uint32_t hm[4];
-  for (int s = 0; s < 4; ++s) hm[s] = (uint32_t)hmask[4 * h + s];
-  unsigned long long wins = 0, ties = 0;
+  __shared__ uint64_t live[50];
+  const int h = blockIdx.y;
+  mc_share_hero_live(dead[2 * h], dead[2 * h + 1], live);
+  uint32_t hero[2];
+  mc_masks_to_planes(hmask + 4 * h, hero);
+  const int* row = INJECT ? words + (long long)h * n : nullptr;
+  const long long stride = (long long)gridDim.y * n;
+  uint32_t wins = 0u, ties = 0u;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += (long long)gridDim.x * blockDim.x) {
-    MCWords src(words, (long long)H * n, (long long)h * n + r, seed,
-                (uint32_t)r, (uint32_t)(r >> 32), (uint32_t)h + 1u);
-    int res = mc_rollout_vs_random(src, hd, hm);
+    const int res = mc_rollout_sweep<INJECT>(hero, live, row, stride, r,
+                                             seed, (uint32_t)h + 1u);
+#if MC_EQUITY_CUT < 4
+    wins += (uint32_t)res;
+#else
     wins += res > 0;
     ties += res == 0;
+#endif
   }
   const unsigned long long counts[2] = {wins, ties};
-  mc_block_add<2>(counts, 2, out + h, H);
-}
-
-static int mc_blocks(long long n, int cap) {
-  long long b = (n + MC_THREADS - 1) / MC_THREADS;
-  return (int)(b < 1 ? 1 : (b > cap ? cap : b));
+  mc_block_add<2>(counts, 2, out + h, gridDim.y);
 }
 
 template <int NDRAW>
@@ -107,15 +112,30 @@ extern "C" int mc_equity_counts(int seed, const int* params, int n_dead,
   }
 }
 
-// dead: int32[H, 2] ascending holes, hmask: int32[H, 4] (device).
-// out: int64[2, H] (wins row, ties row), zeroed by the caller.
+// K2's grid for H hands of n rollouts: out[0] its blocks a hand (the
+// grid's x; mc_rollout_blocks over H rows), out[1] the blocks an SM holds
+// of the instantiation (injected words or Philox). Returns cudaError_t
+// (cudaErrorInvalidValue unless 1 <= H <= 65535, the grid's y, and the
+// blocks a hand fit the grid's x).
+extern "C" int mc_sweep_grid(int H, long long n, int inject, int* out) {
+  if (H < 1 || H > 65535) return (int)cudaErrorInvalidValue;
+  auto kernel = inject ? mc_sweep_kernel<true> : mc_sweep_kernel<false>;
+  out[0] = mc_rollout_blocks(kernel, n, 1u, H);
+  out[1] = mc_blocks_per_sm(kernel);
+  return out[0] == 0 ? (int)cudaErrorInvalidValue : (int)cudaSuccess;
+}
+
+// dead: int32[H, 2] each hero's distinct holes, ascending; hmask: int32[H,
+// 4] their suit masks (device). out: int64[2, H] (wins row, ties row),
+// zeroed by the caller. Returns cudaError_t.
 extern "C" int mc_sweep_counts(int seed, const int* dead, const int* hmask,
                                int H, long long n, const int* words,
                                unsigned long long* out, void* stream) {
-  if (H < 1 || H > 65535) return (int)cudaErrorInvalidValue;
-  int cap = (132 * 16) / H;
-  dim3 grid(mc_blocks(n, cap < 1 ? 1 : cap), H);
-  mc_sweep_kernel<<<grid, MC_THREADS, 0, (cudaStream_t)stream>>>(
+  int grid[2];
+  const int err = mc_sweep_grid(H, n, words != nullptr, grid);
+  if (err) return err;
+  auto kernel = words ? mc_sweep_kernel<true> : mc_sweep_kernel<false>;
+  kernel<<<dim3(grid[0], H), MC_THREADS, 0, (cudaStream_t)stream>>>(
       (uint32_t)seed, dead, hmask, n, words, out);
   return (int)cudaGetLastError();
 }

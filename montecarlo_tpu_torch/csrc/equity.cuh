@@ -1,34 +1,34 @@
 // Equity rollouts (ops/cuda_equity.py), host- and device-compilable.
 //
-// K1 and B3 (since their redesign for the H100): a rollout's words go
-// straight into registers (mc_rollout_words: Philox blocks computed in
-// order, or the injected rows; the source a template flag), draw t is one
-// word modulo the compile-time constant NLIVE - t (the dead count is fixed
-// by the instantiation, so nvcc emits a multiply-high, not a division),
-// distinct by bubble insertion among the earlier draws' live indices, and
-// a live index becomes its card's bit in two packed suit planes through
-// the launch's deck table (MCDeck, in shared memory on the card). Hands
+// K1, K2 and B3 (since their redesign for the H100) share one form: a
+// rollout's words go straight into registers (mc_rollout_words: Philox
+// blocks computed in order, or the injected rows; the source a template
+// flag), draw t is one word modulo the compile-time constant NLIVE - t
+// (the dead count is fixed by the instantiation, so nvcc emits a
+// multiply-high, not a division), distinct by bubble insertion among the
+// earlier draws' live indices, and a live index becomes its card's bit in
+// two packed suit planes through a deck table in shared memory (K1 and
+// B3: the launch's MCDeck; K2: each hero's own, built by the block). Hands
 // are ranked by mc_rank7, which orders them as mc_eval_cmp does with no
 // leading-bit search. Every array index is a compile-time constant: no
-// stack frame. K2 keeps the first form (MCWords, mc_sample_cards,
-// mc_add_card, mc_eval_cmp).
+// stack frame.
 #pragma once
 
 #include "evaluator.cuh"
 #include "philox.cuh"
 
-// Where a rollout of K1 or B3 stops: a probe of where their time goes,
+// Where a rollout of K1, K2 or B3 stops: a probe of where their time goes,
 // built as a variant and timed without comparing (scripts/ab_engine.py
 // --variants MC_EQUITY_CUT=1,MC_EQUITY_CUT=2,MC_EQUITY_CUT=3 --time-only).
 // 1: the words only; 2: with the draws (each card's live index); 3: with
-// the board's suit planes; 4: the whole rollout, the kernels' result. A cut
-// returns its partial result, which the kernel adds to its first counter
-// whole, so nvcc drops none of the work before it.
+// the board's (and K2's villain's) suit planes; 4: the whole rollout, the
+// kernels' result. A cut returns its partial result, which the kernel adds
+// to its first counter whole, so nvcc drops none of the work before it.
 #define MC_EQUITY_CUT 4
 
 // The key of the 7-card hand whose planes are lo and hi: mc_rank7 of its
 // four suit masks, taken out with shifts. It orders hands as mc_eval_cmp
-// does, and K1 and B3 only compare keys.
+// does, and K1, K2 and B3 only compare keys.
 MC_HD uint32_t mc_eval_planes(uint32_t lo, uint32_t hi) {
   return mc_rank7(lo & 0xFFFFu, lo >> 16, hi & 0xFFFFu, hi >> 16);
 }
@@ -95,12 +95,14 @@ MC_HD uint32_t mc_draw_mod(uint32_t w) {
 }
 
 // Draw T of a rollout and the draws after it, each card's plane bit ORed
-// into m (one step a draw, so that T, and with it the divisor, is a
-// compile-time constant). chosen: the earlier draws' live indices,
+// into mv (the first NV draws: K2's villain) or m (the rest: the board),
+// one step a draw, so that T, and with it the divisor and the mask, is a
+// compile-time constant. chosen: the earlier draws' live indices,
 // ascending.
-template <int NLIVE, int NDRAW, int T>
+template <int NLIVE, int NDRAW, int NV, int T>
 MC_HD void mc_draw_step(const uint32_t (&w)[NDRAW], const uint64_t* live,
-                        int (&chosen)[NDRAW], uint64_t& m, uint32_t& cut) {
+                        int (&chosen)[NDRAW], uint64_t& mv, uint64_t& m,
+                        uint32_t& cut) {
   if constexpr (T < NDRAW) {
     int x = (int)mc_draw_mod<NLIVE - T>(w[T]);
 #pragma unroll
@@ -114,8 +116,11 @@ MC_HD void mc_draw_step(const uint32_t (&w)[NDRAW], const uint64_t* live,
     }
     chosen[T] = carry;
     cut = cut * 53u + (uint32_t)x;
-    m |= live[x];
-    mc_draw_step<NLIVE, NDRAW, T + 1>(w, live, chosen, m, cut);
+    if constexpr (T < NV)
+      mv |= live[x];
+    else
+      m |= live[x];
+    mc_draw_step<NLIVE, NDRAW, NV, T + 1>(w, live, chosen, mv, m, cut);
   }
 }
 
@@ -128,8 +133,8 @@ template <int NLIVE, int NDRAW>
 MC_HD void mc_draw_planes(const uint32_t (&w)[NDRAW], const uint64_t* live,
                           uint32_t& lo, uint32_t& hi, uint32_t& cut) {
   int chosen[NDRAW];
-  uint64_t m = 0u;
-  mc_draw_step<NLIVE, NDRAW, 0>(w, live, chosen, m, cut);
+  uint64_t m = 0u, unused = 0u;
+  mc_draw_step<NLIVE, NDRAW, 0, 0>(w, live, chosen, unused, m, cut);
   lo = (uint32_t)m;
   hi = (uint32_t)(m >> 32);
 }
@@ -166,21 +171,47 @@ MC_HD int mc_rollout_vs_hand(const MCEquityParams& p, const uint64_t* live,
   return (vh > vv) - (vh < vv);
 }
 
-// Hero (ascending holes hd, masks hm) vs a random villain: 2 villain and 5
-// board cards from the 50 live cards (pallas_equity.py:182-205).
-MC_HD int mc_rollout_vs_random(MCWords& src, const int* hd,
-                               const uint32_t* hm) {
-  int cards[7];
-  mc_sample_cards<7>(src, hd, 2, cards);
-  uint32_t vm[4] = {0u, 0u, 0u, 0u}, bm[4] = {0u, 0u, 0u, 0u};
-  mc_add_card(vm, cards[0]);
-  mc_add_card(vm, cards[1]);
+// Entry i of a hero's deck (K2): the i-th card, ascending, that is not
+// one of the hero's ascending holes d0 < d1, as its plane bit; i < 50.
+// The shift past the two holes is _sample_cards' (pallas_equity.py:88-92).
+MC_HD uint64_t mc_hero_live(int i, int d0, int d1) {
+  int card = i;
+  card += card >= d0;
+  card += card >= d1;
+  return mc_card_bit64(card);
+}
+
+// K2's rollout r: the hero (planes `hero`, its holes the deck's only dead
+// cards) vs a random villain, 2 villain and 5 board cards drawn from the
+// hero's 50 live cards (pallas_equity.py:182-205). `live`: the hero's deck
+// (mc_hero_live); `words`: hand h's row of the injected words, `stride`
+// H * n; sub: the hand's Philox sub-stream h + 1. Returns +1 hero wins, 0
+// tie, -1 loss (under MC_EQUITY_CUT < 4, the cut's partial result).
+template <bool INJECT>
+MC_HD int mc_rollout_sweep(const uint32_t (&hero)[2], const uint64_t* live,
+                           const int* words, long long stride, long long r,
+                           uint32_t seed, uint32_t sub) {
+  uint32_t w[7];
+  mc_rollout_words<7, INJECT>(w, words, stride, r, seed, sub);
+  uint32_t cut = 0u;
+#if MC_EQUITY_CUT == 1
 #pragma unroll
-  for (int t = 2; t < 7; ++t) mc_add_card(bm, cards[t]);
-  int vh = mc_eval_cmp(bm[0] | hm[0], bm[1] | hm[1], bm[2] | hm[2],
-                       bm[3] | hm[3]);
-  int vv = mc_eval_cmp(bm[0] | vm[0], bm[1] | vm[1], bm[2] | vm[2],
-                       bm[3] | vm[3]);
+  for (int t = 0; t < 7; ++t) cut = cut * 53u + w[t];
+  return (int)cut;
+#endif
+  int chosen[7];
+  uint64_t vm = 0u, bm = 0u;
+  mc_draw_step<50, 7, 2, 0>(w, live, chosen, vm, bm, cut);
+#if MC_EQUITY_CUT == 2
+  return (int)cut;
+#endif
+  const uint32_t lo = (uint32_t)bm, hi = (uint32_t)(bm >> 32);
+  const uint32_t vlo = lo | (uint32_t)vm, vhi = hi | (uint32_t)(vm >> 32);
+#if MC_EQUITY_CUT == 3
+  return (int)((lo | hero[0]) ^ vlo ^ (((hi | hero[1]) ^ vhi) << 1));
+#endif
+  const uint32_t vh = mc_eval_planes(lo | hero[0], hi | hero[1]);
+  const uint32_t vv = mc_eval_planes(vlo, vhi);
   return (vh > vv) - (vh < vv);
 }
 
@@ -237,21 +268,24 @@ MC_HD void mc_rollout_multiway(const MCMultiwayParams& p,
 }
 
 #define MC_THREADS 256
-// Waves of resident blocks in a K1 or B3 launch (mc_rollout_grid): a
+// Waves of resident blocks in an equity launch (mc_rollout_grid): a
 // block's share of the rollouts small enough that the SMs finish together
 // (16 waves took 0.96 of the time of one, 64 the same as 16: PERF.md).
 #define MC_EQUITY_WAVES 16
 
-// Blocks of MC_THREADS for n rollouts of a K1 or B3 launch whose card holds
-// `wave` blocks at once: MC_EQUITY_WAVES waves, fewer for a small n, and
-// more where a thread would otherwise run so many rollouts that its 32-bit
-// counters, at most `per_rollout` a rollout, could overflow (grid-stride:
-// a thread runs at most ceil(n / (blocks x MC_THREADS)) rollouts).
+// Blocks of MC_THREADS for each of `hands` rows of n rollouts (K1 and B3:
+// one row; K2: a row a hero hand, the grid's y) on a card that holds
+// `wave` blocks at once: MC_EQUITY_WAVES waves over all rows, at least one
+// block a row, fewer for a small n, and more where a thread would
+// otherwise run so many rollouts that its 32-bit counters, at most
+// `per_rollout` a rollout, could overflow (grid-stride: a thread runs at
+// most ceil(n / (blocks x MC_THREADS)) rollouts).
 MC_HD long long mc_rollout_grid(long long n, uint32_t per_rollout,
-                                long long wave) {
+                                long long wave, int hands = 1) {
   if (n <= 0) return 1;
   long long b = (n - 1) / MC_THREADS + 1;
-  if (b > MC_EQUITY_WAVES * wave) b = MC_EQUITY_WAVES * wave;
+  const long long cap = (MC_EQUITY_WAVES * wave - 1) / hands + 1;
+  if (b > cap) b = cap;
   const long long per_thread = 0xFFFFFFFFll / per_rollout;
   const long long need = ((n - 1) / per_thread) / MC_THREADS + 1;
   return b < need ? need : b;
@@ -296,20 +330,35 @@ __device__ __forceinline__ void mc_share_live(const MCDeck& deck,
   __syncthreads();
 }
 
-// Blocks of MC_THREADS for n rollouts of `kernel` (mc_rollout_grid, a
-// wave being the SMs times cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// from the kernel's registers and shared memory); 0 when n would need more
-// than 2^31 - 1 blocks.
+// A hero's deck (K2) in the block's shared memory: thread i < 50 writes
+// entry i (mc_hero_live of the ascending holes d0 < d1).
+__device__ __forceinline__ void mc_share_hero_live(int d0, int d1,
+                                                   uint64_t* live) {
+  if (threadIdx.x < 50) live[threadIdx.x] = mc_hero_live(threadIdx.x, d0, d1);
+  __syncthreads();
+}
+
+// The blocks an SM holds of `kernel` (cudaOccupancyMaxActiveBlocksPer
+// Multiprocessor, from its registers and shared memory), at least 1.
 template <class Kernel>
-static int mc_rollout_blocks(Kernel kernel, long long n,
-                             uint32_t per_rollout) {
-  int dev = 0, sms = 1, per_sm = 1;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+static int mc_blocks_per_sm(Kernel kernel) {
+  int per_sm = 1;
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MC_THREADS,
                                                 0);
-  const long long b =
-      mc_rollout_grid(n, per_rollout, (long long)sms * mc_max(per_sm, 1));
+  return mc_max(per_sm, 1);
+}
+
+// Blocks of MC_THREADS for each of `hands` rows of n rollouts of `kernel`
+// (mc_rollout_grid, a wave being the SMs times mc_blocks_per_sm); 0 when
+// n would need more than 2^31 - 1 blocks a row.
+template <class Kernel>
+static int mc_rollout_blocks(Kernel kernel, long long n,
+                             uint32_t per_rollout, int hands = 1) {
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long b = mc_rollout_grid(
+      n, per_rollout, (long long)sms * mc_blocks_per_sm(kernel), hands);
   return b > 0x7FFFFFFFll ? 0 : (int)b;
 }
 #endif

@@ -125,17 +125,20 @@ struct MCInjectedWords {
   MC_HD uint32_t next() { return at(pos++); }
 };
 
-// The equity kernels' word source (K1, B3): words 0..K-1 of rollout r
+// The equity kernels' word source (K1, K2, B3): words 0..K-1 of rollout r
 // straight into registers, every index a compile-time constant once
 // unrolled. From Philox (key (seed, r mod 2^32), counter (b, r >> 32, sub,
 // 0)), the ceil(K / 4) blocks computed in order; or, INJECT, word t from
-// words[t * n + r]. The source is a template flag, not a branch on a word.
+// words[t * stride + r] (`words` already offset to the rollouts' row: K1
+// and B3 pass stride n, K2 hand h's row h * n and stride H * n). The
+// source is a template flag, not a branch on a word.
 template <int K, bool INJECT>
-MC_HD void mc_rollout_words(uint32_t (&w)[K], const int* words, long long n,
-                            long long r, uint32_t seed, uint32_t sub) {
+MC_HD void mc_rollout_words(uint32_t (&w)[K], const int* words,
+                            long long stride, long long r, uint32_t seed,
+                            uint32_t sub) {
   if constexpr (INJECT) {
 #pragma unroll
-    for (int t = 0; t < K; ++t) w[t] = (uint32_t)words[t * n + r];
+    for (int t = 0; t < K; ++t) w[t] = (uint32_t)words[t * stride + r];
   } else {
 #pragma unroll
     for (int b = 0; b < (K + 3) / 4; ++b) {

@@ -64,6 +64,7 @@ ULL_ = ctypes.c_ulonglong
 SIGNATURES = {
     "mc_equity_counts": [I_, P_, I_, LL_, P_, P_, P_],
     "mc_sweep_counts": [I_, P_, P_, I_, LL_, P_, P_, P_],
+    "mc_sweep_grid": [I_, LL_, I_, P_],
     "mc_multiway_shares": [I_, P_, I_, P_, I_, LL_, P_, P_, P_],
     "mc_philox_blocks": [P_, P_, I_, P_],
 }

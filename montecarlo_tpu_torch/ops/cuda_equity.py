@@ -32,6 +32,7 @@ it launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -323,14 +324,28 @@ def equity_vs_hand_kernel(seed: int, hero, villain, n_rollouts: int,
     return w, t, n
 
 
+def sweep_grid(H: int, n_per_hand: int, inject: bool = False):
+    """K2's launch for ``H`` hands of ``n_per_hand`` rollouts on the current
+    card: (blocks a hand, blocks an SM of the instantiation, Philox or
+    injected words). The blocks a hand are ``MC_EQUITY_WAVES`` waves of
+    resident blocks over all hands (``csrc/equity.cuh:mc_rollout_grid``).
+    Needs a card."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.library().mc_sweep_grid(H, int(n_per_hand),
+                                                int(inject), out),
+                 "mc_sweep_grid")
+    return out[0], out[1]
+
+
 def sweep_counts(seed: int, dead: torch.Tensor, hero_masks: torch.Tensor,
                  n_per_hand: int, words=None):
     """Per-hand (wins, ties) as int64 [2, H] on ``dead``'s device, over
     ``n_per_hand`` rollouts of each hero hand vs a random villain.
 
-    ``dead``: int32 [H, 2] each hero's ascending holes; ``hero_masks``:
-    int32 [H, 4]. ``words`` (optional): int64 [7, H, n_per_hand]; without
-    them the words are Philox's for ``seed``."""
+    ``dead``: int32 [H, 2] each hero's two distinct holes, ascending;
+    ``hero_masks``: int32 [H, 4], their suit masks (the kernel ranks
+    exactly 7 cards a hand). ``words`` (optional): int64 [7, H,
+    n_per_hand]; without them the words are Philox's for ``seed``."""
     H = dead.shape[0]
     dev = dead.device
     if words is not None:

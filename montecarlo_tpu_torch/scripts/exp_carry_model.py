@@ -55,7 +55,8 @@ def sass_loops(sass: str) -> dict:
     """The loops of each kernel in ``cuobjdump -sass`` output: for every
     backward branch, the instructions from its target to it, with the
     integer adds (IADD3, VIADD, IMAD.IADD, ...; by opcode in
-    ``add_opcodes``) and the local and global loads and stores among them.
+    ``add_opcodes``), the local and global loads and stores among them, and
+    every instruction by opcode (``opcodes``, its modifiers dropped).
     Returns {kernel: [loop, ...]}, innermost loops first."""
     out = {}
     for chunk in re.split(r"\n\s*Function : ", sass)[1:]:
@@ -71,9 +72,12 @@ def sass_loops(sass: str) -> dict:
                    if int(m.group(1), 16) <= a <= addr]
             adds = [o for o in ops
                     if o.startswith(("IADD", "VIADD", "IMAD.IADD"))]
+            bases = [o.split(".")[0] for o in ops]
             count = {"instructions": len(ops), "adds": len(adds),
                      "add_opcodes": {o: adds.count(o)
-                                     for o in sorted(set(adds))}}
+                                     for o in sorted(set(adds))},
+                     "opcodes": {o: bases.count(o)
+                                 for o in sorted(set(bases))}}
             for mem in ("LDL", "STL", "LDG", "STG"):
                 count[mem.lower()] = sum(o.startswith(mem) for o in ops)
             loops.append(count)

@@ -242,25 +242,66 @@ static void draws_nd(const int* in, size_t n, Out& out,
   ((in[0] == ND + 4 ? draws<ND + 4>(in, n, out) : void()), ...);
 }
 
+// K2: in = seed, H, n, inject, dead [H, 2], hmask [H, 4], then with
+// inject the words [7, H, n]; out = wins [H], ties [H]. Each hand as a
+// block of the kernel: its deck from mc_hero_live, its planes, its row of
+// the words; one thread's 32-bit counters.
 static void k2(const int* in, Out& out) {
   uint32_t seed = in[0];
   int H = in[1], n = in[2];
-  const int* dead = in + 3;
+  const int* dead = in + 4;
   const int* hmask = dead + 2 * H;
+  const int* words = in[3] ? hmask + 4 * H : nullptr;
   Out wins(H), ties(H);
   for (int h = 0; h < H; ++h) {
-    uint32_t hm[4];
-    for (int s = 0; s < 4; ++s) hm[s] = hmask[4 * h + s];
+    uint64_t live[50];
+    for (int i = 0; i < 50; ++i)
+      live[i] = mc_hero_live(i, dead[2 * h], dead[2 * h + 1]);
+    uint32_t hero[2];
+    mc_masks_to_planes(hmask + 4 * h, hero);
+    uint32_t w = 0u, t = 0u;
     for (long long r = 0; r < n; ++r) {
-      MCWords src(nullptr, (long long)H * n, (long long)h * n + r, seed,
-                  (uint32_t)r, (uint32_t)(r >> 32), (uint32_t)h + 1u);
-      int res = mc_rollout_vs_random(src, dead + 2 * h, hm);
-      wins[h] += res > 0;
-      ties[h] += res == 0;
+      const int res =
+          words ? mc_rollout_sweep<true>(hero, live, words + (long long)h * n,
+                                         (long long)H * n, r, seed, h + 1u)
+                : mc_rollout_sweep<false>(hero, live, nullptr,
+                                          (long long)H * n, r, seed, h + 1u);
+      w += res > 0;
+      t += res == 0;
     }
+    wins[h] = w;
+    ties[h] = t;
   }
   out.insert(out.end(), wins.begin(), wins.end());
   out.insert(out.end(), ties.begin(), ties.end());
+}
+
+// K2's deck: in = pairs of ascending holes; out per pair = the 50 entries
+// of mc_hero_live.
+static void hero_deck(const int* in, size_t n, Out& out) {
+  for (size_t i = 0; i + 2 <= n; i += 2)
+    for (int k = 0; k < 50; ++k)
+      out.push_back((long long)mc_hero_live(k, in[i], in[i + 1]));
+}
+
+// K2's draws: in = cases of 2 ascending holes and 7 words; out per case =
+// the villain's planes (lo, hi), then the board's, of mc_draw_step<50, 7,
+// 2, 0> through the hero's deck.
+static void sweep_draws(const int* in, size_t n, Out& out) {
+  for (size_t i = 0; i + 9 <= n; i += 9) {
+    uint64_t live[50];
+    for (int k = 0; k < 50; ++k) live[k] = mc_hero_live(k, in[i], in[i + 1]);
+    uint32_t w[7];
+    for (int t = 0; t < 7; ++t) w[t] = (uint32_t)in[i + 2 + t];
+    int chosen[7];
+    uint64_t vm = 0u, bm = 0u;
+    uint32_t cut = 0u;
+    mc_draw_step<50, 7, 2, 0>(w, live, chosen, vm, bm, cut);
+    for (uint64_t m : {vm, bm}) {
+      out.push_back((uint32_t)m);
+      out.push_back((uint32_t)(m >> 32));
+    }
+  }
 }
 
 // The carry probe: in = form, R, n_steps, n_blocks, then the words
@@ -548,6 +589,16 @@ int main(int argc, char** argv) {
              std::make_integer_sequence<int, 26>());
   } else if (!strcmp(argv[1], "k2")) {
     k2(in.data(), out);
+  } else if (!strcmp(argv[1], "hero_deck")) {
+    hero_deck(in.data(), in.size(), out);
+  } else if (!strcmp(argv[1], "sweep_draws")) {
+    sweep_draws(in.data(), in.size(), out);
+  } else if (!strcmp(argv[1], "sweep_grid")) {
+    // K2's blocks a hand: in = n (hi, lo), H, wave
+    for (size_t i = 0; i + 4 <= in.size(); i += 4)
+      out.push_back(mc_rollout_grid(
+          ((long long)in[i] << 32) | (uint32_t)in[i + 1], 1u, in[i + 3],
+          in[i + 2]));
   } else if (!strcmp(argv[1], "mw")) {
     mw(in.data(), out);
   } else if (!strcmp(argv[1], "carry")) {
@@ -726,15 +777,95 @@ def test_deck_draws_equal_insertion_and_walk(harness, n_dead):
         assert row[:2].tolist() == [b & 0xFFFFFFFF, b >> 32]
 
 
+def _sweep_heroes(heroes):
+    """(dead [H, 2] ascending, hero masks [H, 4]) of [H, 2] hero holes."""
+    heroes = torch.as_tensor(heroes, dtype=torch.int32).reshape(-1, 2)
+    return (torch.sort(heroes, dim=1).values,
+            torch.stack(cq.suit_masks_from_cards(heroes), dim=1))
+
+
 def test_sweep_rollout_device_code_equals_plain(harness):
-    heroes = torch.tensor([[0, 13], [5, 40], [12, 51], [20, 21]],
-                          dtype=torch.int32)
-    dead = torch.sort(heroes, dim=1).values
-    hm = torch.stack(cq.suit_masks_from_cards(heroes), dim=1)
-    got = harness("k2", [17, 4, 2000, *dead.reshape(-1).tolist(),
+    dead, hm = _sweep_heroes([[0, 13], [5, 40], [12, 51], [20, 21]])
+    got = harness("k2", [17, 4, 2000, 0, *dead.reshape(-1).tolist(),
                          *hm.reshape(-1).tolist()])
     want = cq._sweep_counts_plain_philox(17, dead, hm, 2000)
     assert got.reshape(2, 4).tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("inject", [False, True])
+def test_sweep_rollout_169_heroes_equals_plain(harness, inject):
+    """K2's rollout (mc_rollout_sweep, each hero's deck, one thread's 32-bit
+    counters) over the 169 canonical heroes equals the plain version: in
+    Philox mode the kernel's streams (hand h's sub-stream h + 1), and on
+    injected words hand h's row of words [7, H, n]."""
+    from montecarlo_tpu_torch.rollout import equity as teq
+    dead, hm = _sweep_heroes([list(c) for _, c in teq.canonical_hands()])
+    n = 301 if inject else 1001
+    ints = [23, 169, n, int(inject), *dead.reshape(-1).tolist(),
+            *hm.reshape(-1).tolist()]
+    if inject:
+        words = torch.from_numpy(np.random.default_rng(10).integers(
+            0, 1 << 32, (7, 169, n), dtype=np.int64))
+        want = cq._sweep_counts_plain(words, dead, hm)
+        ints += words.reshape(-1).tolist()
+    else:
+        want = cq._sweep_counts_plain_philox(23, dead, hm, n)
+    assert harness("k2", ints).reshape(2, 169).tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("holes", [(0, 1), (50, 51), (0, 51), (12, 13),
+                                   (25, 26)])
+def test_hero_deck_equals_sample_cards_shift(harness, holes):
+    """K2's deck (mc_hero_live) maps live index i to the card that
+    _sample_cards' shift past the hero's two ascending holes gives, as its
+    plane bit, at the deck's edges."""
+    got = harness("hero_deck", list(holes))
+    cards = cq._sample_cards(torch.arange(50, dtype=torch.int64)[None],
+                             list(holes))[0]
+    assert sorted(set(cards.tolist()) | set(holes)) == list(range(52))
+    assert got.tolist() == [1 << (c + 3 * (c // 13) + 2)
+                            for c in cards.tolist()]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sweep_draws_planes_equal_sample_cards(harness, seed):
+    """K2's draws (mc_draw_step<50, 7, 2, 0> through the hero's deck): the
+    villain's planes (draws 0-1) and the board's (draws 2-6) equal
+    _sample_cards + _masks_of on seeded words and hero holes."""
+    rng = np.random.default_rng(seed)
+    cases, rows = [], []
+    for i in range(64):
+        holes = np.sort(rng.permutation(52)[:2])
+        words = rng.integers(0, 1 << 32, 7)
+        if i == 0:  # the first and the last live card
+            words[:2] = [0, (1 << 32) - 1]
+        cases += [*holes.tolist(), *words.tolist()]
+        rows.append((holes, words))
+    got = harness("sweep_draws", cases).reshape(-1, 4)
+    for (lo_v, hi_v, lo_b, hi_b), (holes, words) in zip(got.tolist(), rows):
+        cards = cq._sample_cards(torch.tensor(words, dtype=torch.int64),
+                                 holes.tolist())
+        for (lo, hi), part in (((lo_v, hi_v), cards[:2]),
+                               ((lo_b, hi_b), cards[2:])):
+            masks = [int(m) for m in cq._masks_of(part)]
+            assert [lo & 0xFFFF, lo >> 16, hi & 0xFFFF, hi >> 16] == masks
+
+
+@pytest.mark.parametrize("H", [1, 169, 65535])
+def test_sweep_grid_keeps_counters_in_32_bits(harness, H):
+    """K2's blocks a hand (mc_rollout_grid over H rows): at least 1,
+    MC_EQUITY_WAVES waves of resident blocks over all hands, fewer for a
+    small n, and enough that a thread's rollouts (its 32-bit counters'
+    largest value) stay below 2^32 for any n per hand up to 2^40."""
+    wave = 132 * 6
+    ns = [0, 1, 255, 256, 257, 10**6, 10**7, 1 << 30, (1 << 32) + 1,
+          10**12, 1 << 40]
+    got = harness("sweep_grid", [x for n in ns for x in (
+        n >> 32, n & 0xFFFFFFFF, H, wave)])
+    for n, b in zip(ns, got.tolist()):
+        need = -(-(-(-n // 0xFFFFFFFF)) // 256)
+        assert b == max(min(-(-n // 256), -(-16 * wave // H)), need, 1)
+        assert -(-n // (b * 256)) < 1 << 32
 
 
 def _flat(x):

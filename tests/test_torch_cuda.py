@@ -97,6 +97,47 @@ def test_sweep_kernel_equals_plain(cuda):
     assert torch.equal(k, cq._sweep_counts_plain(words, dead, hm))
 
 
+def _sweep_inputs(H, device):
+    heroes = torch.tensor([list(c) for _, c in teq.canonical_hands()[:H]],
+                          dtype=torch.int32)
+    return (torch.sort(heroes, dim=1).values.to(device),
+            torch.stack(cq.suit_masks_from_cards(heroes), dim=1).to(device))
+
+
+@pytest.mark.parametrize("inject", [False, True])
+@pytest.mark.parametrize("H,n", [(1, 77), (1, 100_001), (169, 77),
+                                 (169, 20_001)])
+def test_sweep_kernel_forms_equal_plain(cuda, inject, H, n):
+    """Both K2 instantiations (Philox, injected words) at one hand and at
+    169, with n odd and n under one block: the counts equal the plain
+    version's and the call launches the kernel once."""
+    dead, hm = _sweep_inputs(H, cuda)
+    words = None
+    if inject:
+        g = torch.Generator(device=cuda).manual_seed(H + n)
+        words = cq.random_words(g, (7, H, n), cuda)
+    before = cq.LAUNCHES["sweep"]
+    k = cq.sweep_counts(3, dead, hm, n, words=words)
+    assert cq.LAUNCHES["sweep"] == before + 1
+    p = (cq._sweep_counts_plain(words, dead, hm) if inject
+         else cq._sweep_counts_plain_philox(3, dead, hm, n))
+    assert torch.equal(k, p)
+
+
+def test_sweep_kernel_wave_grid_equals_plain(cuda):
+    """K2's grid from the card (MC_EQUITY_WAVES waves of resident blocks
+    over the hands) differs from the first form's 132 x 16 / H blocks a
+    hand, and the counts still equal the plain version's."""
+    H, n = 169, 200_003
+    blocks, per_sm = cq.sweep_grid(H, n)
+    assert blocks != 132 * 16 // H and per_sm >= 1
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks == -(-16 * n_sms * per_sm // H)
+    dead, hm = _sweep_inputs(H, cuda)
+    assert torch.equal(cq.sweep_counts(9, dead, hm, n),
+                       cq._sweep_counts_plain_philox(9, dead, hm, n))
+
+
 def test_equity_vs_hand_philox_within_4_sigma_of_exact(cuda):
     exact = teq.equity_exact(AKS, QQ, device=cuda).equity
     r = teq.equity_vs_hand(7, AKS, QQ, 1 << 26, device=cuda)
