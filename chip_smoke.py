@@ -94,7 +94,25 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    stage built by its own nvcc (one at a time, in the background from the
    end of phase 0), then 256 steps from the main path's K3 state (mid-hand,
    pots on the table) at the script's 32 blocks and at 1024 blocks; every
-   probe launch held against its plain version, tolerance 0, and timed.
+   probe launch held against its plain version, tolerance 0, and timed;
+6. range equity and push/fold (path f, plain PyTorch on the card, no
+   kernel of its own; after the probes so that the main paths' numbers
+   are taken as before): ``equity_exact_range_vs_range`` of eight hero
+   representatives (AA, 72o and 76s among them) against all 1326 combos
+   over all C(52, 5) boards, its class-aggregated rows equal to
+   ``data/pushfold_eq169_cr.npz``'s; ``matchup_equity_matrix_exact``'s
+   AA and 72o rows over all C(48, 5) boards equal to
+   ``data/pushfold_eq169_exact.npz``'s; ``matchup_equity_matrix`` at
+   2^12 boards a matchup within 4 sigma of the exact matrix in aggregate;
+   ``equity_vs_range`` (AKs vs QQ+KK, 2^26 rollouts) within 4 sigma of
+   ``equity_exact_vs_range``, and ``sample_distinct`` equal on the card
+   and on the CPU; ``solve_push_fold_cr`` on the committed matrix at
+   10 bb, jam and call fractions equal to
+   ``data/pushfold_ranges_cr.json``'s (0.5825 / 0.3738); and the
+   evaluator on the card over all C(52, 7) hands: 4,892 packed and 4,892
+   cmp keys, a strictly increasing bijection between them, and the
+   (packed, cmp) table's FNV-1a digest that
+   ``native/certify_evaluator.cpp`` recorded (fc0295d3f7577d5b).
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -170,6 +188,21 @@ TPU_MW_BOUND = 0.004
 # (scripts/debug_kernel_compile.py's 256 steps and 32 blocks).
 STAGE_STEPS = 256
 STAGE_BLOCKS = 32
+# Path f: the hero classes of the card-removal rows (AA, 72o, the suited
+# connector 76s and five more), the rows of the exact matrix, the boards a
+# matchup of the Monte Carlo matrix, the rollouts of equity_vs_range (AKs
+# against QQ+KK) and of the sample_distinct comparison; the 10 bb
+# equilibrium; and the evaluator certificate (native/certify_evaluator.cpp,
+# recorded in the TPU rounds' PERF.md).
+PF_CR_HEROES = ("AA", "72o", "76s", "KK", "AKs", "AKo", "T9s", "22")
+PF_EXACT_HEROES = ("AA", "72o")
+PF_MC_BOARDS = 1 << 12
+N_RANGE = 1 << 26
+N_DISTINCT = 1 << 20
+PF_STACK_BB = 10
+EVAL_HANDS = 133_784_560
+EVAL_KEYS = 4892
+EVAL_DIGEST = "fc0295d3f7577d5b"
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
 # Lower counts of the operations a kernel's work needs, for bound_ms,
@@ -219,6 +252,19 @@ def log(*a):
     print(*a, flush=True)
 
 
+def fnv1a_digest(table) -> str:
+    """FNV-1a over the little-endian bytes of the words packed << 32 |
+    cmp of a (packed, cmp) key table in packed order
+    (``native/certify_evaluator.cpp``)."""
+    digest = 1469598103934665603
+    for packed, cmp in table:
+        word = (int(packed) << 32) | int(cmp)
+        for i in range(8):
+            digest ^= (word >> (8 * i)) & 0xFF
+            digest = (digest * 1099511628211) & 0xFFFFFFFFFFFFFFFF
+    return f"{digest:016x}"
+
+
 def bound(n_bytes, int_ops, f32_ops=0):
     """(ms, what bounds it): the least time the card could take for this
     work, bytes at the memory rate or operations at their peak rate."""
@@ -240,6 +286,7 @@ def main() -> int:
     from montecarlo_tpu_torch.engine.state import TableConfig
     from montecarlo_tpu_torch.models import bots
     from montecarlo_tpu_torch.models import policy_net as tpn
+    from montecarlo_tpu_torch.models import pushfold as pf
     from montecarlo_tpu_torch.models import train_es as tte
     from montecarlo_tpu_torch.ops import _build
     from montecarlo_tpu_torch.ops import cuda_carry as cc
@@ -248,7 +295,10 @@ def main() -> int:
     from montecarlo_tpu_torch.ops import cuda_net as cn
     from montecarlo_tpu_torch.ops import cuda_stages as cs
     from montecarlo_tpu_torch.ops import philox
-    from montecarlo_tpu_torch.ops.evaluator import eval_masks_cmp_impl
+    from montecarlo_tpu_torch.ops.evaluator import (
+        eval_masks_cmp_impl,
+        every_hand_keys,
+    )
     from montecarlo_tpu_torch.rollout import equity as teq
     from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
     from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
@@ -276,7 +326,7 @@ def main() -> int:
         return float(np.median([timed(fn)[1] for _ in range(reps)]))
 
     def reset_counts():
-        for mod in (cq, ce, cn, cc, cs):
+        for mod in (cq, ce, cn, cc, cs, philox):
             mod.reset_launches()
 
     def field_sum(state, cfg, name, rows):
@@ -1573,6 +1623,115 @@ def main() -> int:
           "carry_array R = 141 takes at least its operation bound")
     del stage_res, stage_in
     phase_done("5 probes")
+
+    # ---- 6. range equity and push/fold (path f) ---------------------------
+    # plain PyTorch on the card: no kernel launches
+    reset_counts()
+    labels, hero_reps, _, _ = pf._representatives()
+    combos, cls = pf._all_combos()
+    with np.load(ROOT / "data" / "pushfold_eq169_cr.npz") as d:
+        cr_eq, cr_pairs = d["equity"], d["n_pairs"]
+    with np.load(ROOT / "data" / "pushfold_eq169_exact.npz") as d:
+        exact_eq = d["equity"]
+    f_s = {}
+    t0 = time.perf_counter()
+    rows = [labels.index(x) for x in PF_CR_HEROES]
+    res = teq.equity_exact_range_vs_range(hero_reps[rows], combos,
+                                          elem_budget=1 << 27, device=dev)
+    cr_rows = pf._class_equity(res, cls)
+    f_s["cr_rows"] = time.perf_counter() - t0
+    diff = np.abs(cr_rows - cr_eq[rows]).max()
+    log(f"path f: card-removal rows {PF_CR_HEROES} vs all 1326 combos over "
+        f"{res.n_boards} boards a pair (all C(52, 5) masked): "
+        f"{f_s['cr_rows']:.2f} s, max |diff| against "
+        f"data/pushfold_eq169_cr.npz {diff!r}")
+    check(np.array_equal(cr_rows, cr_eq[rows]),
+          "path f: the card-removal rows equal data/pushfold_eq169_cr.npz's")
+    check(np.array_equal(pf.matchup_pair_counts(), cr_pairs),
+          "path f: the pair counts equal data/pushfold_eq169_cr.npz's")
+    t0 = time.perf_counter()
+    rows = [labels.index(x) for x in PF_EXACT_HEROES]
+    ex_rows = pf._exact_rows(rows, device=dev)
+    f_s["exact_rows"] = time.perf_counter() - t0
+    diff = np.abs(ex_rows - exact_eq[rows]).max()
+    log(f"path f: exact matrix rows {PF_EXACT_HEROES} x 169 over all "
+        f"C(48, 5) boards: {f_s['exact_rows']:.2f} s, max |diff| against "
+        f"data/pushfold_eq169_exact.npz {diff!r}")
+    check(np.array_equal(ex_rows, exact_eq[rows]),
+          "path f: the exact rows equal data/pushfold_eq169_exact.npz's")
+    t0 = time.perf_counter()
+    mc_eq = pf.matchup_equity_matrix(SEED, n_per=PF_MC_BOARDS, device=dev)
+    f_s["mc_matrix"] = time.perf_counter() - t0
+    # Each matchup draws boards of its own, so each entry is an independent
+    # estimate, its variance at most p (1 - p) / n (ties lower it): the sum
+    # of the entries' z^2 sees every entry, the z of the strict upper
+    # triangle's sum a bias between hero and villain.
+    z_e = (mc_eq - exact_eq) / np.sqrt(
+        exact_eq * (1 - exact_eq) / PF_MC_BOARDS)
+    chi2, n_e = float((z_e ** 2).sum()), z_e.size
+    up = z_e[np.triu_indices(169, 1)]
+    z_up = up.sum() / np.sqrt(up.size)
+    log(f"path f: Monte Carlo matrix, {PF_MC_BOARDS} boards a matchup: "
+        f"{f_s['mc_matrix']:.2f} s, sum of z^2 {chi2:.1f} over {n_e} "
+        f"entries (limit {n_e + 4 * np.sqrt(2 * n_e):.1f}), max |z| "
+        f"{np.abs(z_e).max():.3f}, upper-triangle z {z_up:+.3f}, max |diff| "
+        f"{np.abs(mc_eq - exact_eq).max():.4f}")
+    check(chi2 < n_e + 4 * np.sqrt(2 * n_e) and abs(z_up) < 4,
+          "path f: every entry of the Monte Carlo matrix within its noise "
+          "of the exact one (sum of z^2 within 4 sigma), no bias")
+    aks = [teq.make_card(0, 14), teq.make_card(0, 13)]
+    qk = teq.expand_range(["QQ", "KK"])
+    t0 = time.perf_counter()
+    mc = teq.equity_vs_range(SEED, aks, qk, N_RANGE, device=dev)
+    f_s["vs_range"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex = teq.equity_exact_vs_range(aks, qk, device=dev)
+    f_s["exact_vs_range"] = time.perf_counter() - t0
+    log(f"path f: AKs vs QQ+KK, equity_vs_range {mc.equity:.6f} +- "
+        f"{mc.stderr:.6f} ({N_RANGE} rollouts, {f_s['vs_range']:.2f} s), "
+        f"exact {ex.equity:.6f} ({f_s['exact_vs_range']:.2f} s), z "
+        f"{(mc.equity - ex.equity) / mc.stderr:+.3f}")
+    check(mc.n == N_RANGE and abs(mc.equity - ex.equity) < 4 * mc.stderr,
+          "path f: equity_vs_range within 4 sigma of equity_exact_vs_range")
+    slots = teq.sample_distinct(SEED, 48, 5, N_DISTINCT, device=dev)
+    check(torch.equal(slots.cpu(), teq.sample_distinct(
+        SEED, 48, 5, N_DISTINCT, device="cpu")),
+        "path f: sample_distinct gives the same slots on the card and on "
+        "the CPU")
+    with open(ROOT / "data" / "pushfold_ranges_cr.json") as f:
+        book = json.load(f)["stacks_bb"][str(PF_STACK_BB)]
+    sol = pf.solve_push_fold_cr(cr_eq, cr_pairs, PF_STACK_BB)
+    log(f"path f: {PF_STACK_BB} bb card-removal Nash: jam "
+        f"{sol.jam_fraction!r}, call {sol.call_fraction!r} (the committed "
+        f"ranges: {book['jam_fraction']!r}, {book['call_fraction']!r})")
+    check(sol.jam_fraction == book["jam_fraction"]
+          and sol.call_fraction == book["call_fraction"]
+          and round(sol.jam_fraction, 4) == 0.5825
+          and round(sol.call_fraction, 4) == 0.3738
+          and sol.jam_range() == book["jam"]
+          and sol.call_range() == book["call"],
+          f"path f: the {PF_STACK_BB} bb equilibrium equals "
+          f"data/pushfold_ranges_cr.json's")
+    t0 = time.perf_counter()
+    hands, table = every_hand_keys(device=dev)
+    table = table.cpu().numpy()
+    f_s["every_hand"] = time.perf_counter() - t0
+    n_packed = len(np.unique(table[:, 0]))
+    n_cmp = len(np.unique(table[:, 1]))
+    digest = fnv1a_digest(table)
+    log(f"path f: evaluator on the card, {hands} hands "
+        f"({f_s['every_hand']:.2f} s): {n_packed} packed keys, {n_cmp} cmp "
+        f"keys, {len(table)} pairs, digest {digest}")
+    check(hands == EVAL_HANDS and n_packed == n_cmp == len(table) == EVAL_KEYS
+          and bool((np.diff(table[:, 1]) > 0).all())
+          and digest == EVAL_DIGEST,
+          "path f: every hand's keys form the certified table")
+    f_launches = {**cq.LAUNCHES, **ce.LAUNCHES, **cn.LAUNCHES, **cc.LAUNCHES,
+                  **cs.LAUNCHES, **philox.LAUNCHES}
+    check(not any(f_launches.values()), "path f launches no kernel")
+    log(json.dumps({"path_f_seconds": f_s, "card": smi}))
+    del res, cr_rows, mc_eq, slots, table
+    phase_done("6 range equity and push/fold")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 

@@ -7,20 +7,38 @@ reader find the counterpart:
 - ``cards.py``, ``handval.py``  the card and hand-value encodings (copies
                           of the framework-free JAX-package modules; a test
                           holds every public name equal);
+- ``device.py``           the card by default, the CPU when asked;
 - ``ops/evaluator.py``    the bitmask 7-card evaluator on int32 tensors;
+- ``ops/philox.py``       Philox4x32-10 in plain PyTorch (the kernels'
+                          words; ``csrc/philox.cuh`` on the card);
 - ``ops/cuda_equity.py``  equity rollouts, multiway equity and the
-                          169-hand sweep (kernels in ``csrc/equity.cu``);
+                          169-hand sweep (kernels in ``csrc/equity.cu``,
+                          ``csrc/multiway.cu``);
 - ``ops/cuda_engine.py``  the whole-step betting engine over the packed
                           per-table state, reference, standard and
                           tournament rules, and tournaments run to
                           completion (kernels in ``csrc/engine.cu``);
-- ``ops/cuda_net.py``     policy-net evaluation inside the engine
-                          (kernels in ``csrc/net.cu``);
+- ``ops/cuda_net.py``     policy-net evaluation inside the engine, with
+                          banks and populations (kernels in
+                          ``csrc/net.cu``);
+- ``ops/cuda_carry.py``, ``ops/cuda_stages.py``  the carry probe and the
+                          engine-stage probe (``csrc/probe_carry.cu``,
+                          ``csrc/probe_stages.cu``);
+- ``ops/_build.py``       nvcc build of ``csrc/`` and the ctypes binding;
 - ``models/features.py``, ``models/policy_net.py``  the 24 decision
                           features and the 24-64-64-4 policy MLP;
-- ``ops/_build.py``       nvcc build of ``csrc/`` and the ctypes binding;
-- ``rollout/equity.py``   the user-facing equity API;
-- ``engine/state.py``     ``TableConfig``.
+- ``models/bots.py``      rule bots as packed nets;
+- ``models/train_es.py``  evolution-strategies training on the kernels;
+- ``models/pushfold.py``  the heads-up push/fold Nash solver and its
+                          matchup equity matrices;
+- ``rollout/equity.py``   the user-facing equity API: hand vs hand,
+                          random or range, multiway, exact enumeration of
+                          hands and ranges;
+- ``engine/state.py``     ``TableConfig``;
+- ``scripts/``            ports of the repository's scripts
+                          (``exp_carry_model``, ``debug_kernel_compile``,
+                          ``build_pushfold_cr``) and the kernels' A/B
+                          (``ab_engine``).
 
 Every kernel has a plain PyTorch version of the same function beside it.
 A wrapper runs the plain version only for tensors that lie on the CPU; for

@@ -14,10 +14,10 @@ class TableConfig:
     """Static table parameters, field for field the JAX ``TableConfig``.
 
     Defaults mirror the reference: 100-chip starting stacks, 5/10 blinds.
-    ``rules`` is "reference", "standard" or "tournament" (the port's engine
-    runs "reference" and "standard" so far); ``bets_impl`` names the street bet form
-    ("layers" or "levels") of the JAX engine and is unused by the kernels,
-    which run the levels form.
+    ``rules`` is "reference", "standard" or "tournament"; the engine
+    kernels run all three (the net kernels the first two).
+    ``bets_impl`` names the street bet form ("layers" or "levels") of the
+    JAX engine and is unused by the kernels, which run the levels form.
     """
 
     num_seats: int

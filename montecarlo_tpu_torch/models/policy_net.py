@@ -38,16 +38,19 @@ class MLPParams(NamedTuple):
     b3: torch.Tensor
 
 
-def init_params(generator: torch.Generator) -> MLPParams:
-    """He-normal weights and zero biases, drawn from ``generator`` (the
-    JAX ``init_params`` scheme; the values differ from JAX's)."""
+def init_params(generator: torch.Generator, hidden: int = HIDDEN) -> MLPParams:
+    """He-normal weights and zero biases of a 24-``hidden``-``hidden``-4
+    net, drawn from ``generator`` (the JAX ``init_params`` scheme; the
+    values differ from JAX's). The net kernels take ``hidden`` = 64 only
+    (``ops/cuda_net.net_weights`` refuses other widths); ``policy_logits``
+    takes any."""
     def dense(n_in, n_out):
         w = torch.randn((n_in, n_out), generator=generator, dtype=F32)
         return w * math.sqrt(2.0 / n_in), torch.zeros(n_out, dtype=F32)
 
-    w1, b1 = dense(NUM_FEATURES, HIDDEN)
-    w2, b2 = dense(HIDDEN, HIDDEN)
-    w3, b3 = dense(HIDDEN, NUM_ACTIONS)
+    w1, b1 = dense(NUM_FEATURES, hidden)
+    w2, b2 = dense(hidden, hidden)
+    w3, b3 = dense(hidden, NUM_ACTIONS)
     return MLPParams(w1, b1, w2, b2, w3, b3)
 
 

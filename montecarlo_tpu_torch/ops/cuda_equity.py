@@ -112,16 +112,16 @@ def multiway_scale(n_hands: int) -> int:
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _sample_cards(words, dead):
-    """k distinct live cards per rollout (``pallas_equity._sample_cards``).
+def _distinct_slots(words, n_avail: int):
+    """k distinct slots in [0, ``n_avail``) per rollout, in draw order
+    (``rollout/equity.py:sample_distinct``'s ordered draws): draw t is
+    word t modulo ``n_avail - t``, rank-shifted past the earlier draws,
+    which bubble insertion keeps ascending.
 
-    ``words``: int64 [k, ...]; ``dead``: the ascending dead cards, each a
-    python int or a tensor broadcasting against ``words[t]`` (per-row dead
-    cards). Returns a list of k int32 card tensors."""
-    n_live = 52 - len(dead)
-    sorted_chosen, cards = [], []
+    ``words``: int64 [k, ...]. Returns a list of k int32 tensors."""
+    sorted_chosen, slots = [], []
     for t in range(words.shape[0]):
-        x = (words[t] % (n_live - t)).to(I32)
+        x = (words[t] % (n_avail - t)).to(I32)
         for c in sorted_chosen:
             x = x + (x >= c).to(I32)
         new_sorted, carry = [], x
@@ -130,11 +130,27 @@ def _sample_cards(words, dead):
             carry = torch.maximum(carry, c)
         new_sorted.append(carry)
         sorted_chosen = new_sorted
-        card = x
-        for d in dead:
-            card = card + (card >= d).to(I32)
-        cards.append(card)
-    return cards
+        slots.append(x)
+    return slots
+
+
+def _shift_past(slots, dead):
+    """Live-deck slots to card ids: rank-shift ``slots`` past the ascending
+    ``dead`` cards (the order-preserving bijection onto the complement).
+    Each dead card is a python int or a tensor broadcasting against
+    ``slots`` (per-row dead cards)."""
+    for d in dead:
+        slots = slots + (slots >= d).to(slots.dtype)
+    return slots
+
+
+def _sample_cards(words, dead):
+    """k distinct live cards per rollout (``pallas_equity._sample_cards``).
+
+    ``words``: int64 [k, ...]; ``dead``: the ascending dead cards (see
+    ``_shift_past``). Returns a list of k int32 card tensors."""
+    return [_shift_past(s, dead)
+            for s in _distinct_slots(words, 52 - len(dead))]
 
 
 def _masks_of(cards):

@@ -95,7 +95,12 @@ def reset_launches() -> None:
 
 def net_weights(params: MLPParams, device=None) -> torch.Tensor:
     """An ``MLPParams`` -> the kernels' flat float32 [NUM_WEIGHTS] on
-    ``device`` (the card when None)."""
+    ``device`` (the card when None). The kernels assume the hidden width
+    ``HIDDEN`` (64): any other raises ``ValueError``."""
+    width = tuple(params.w1.shape)[-1]
+    if width != HIDDEN:
+        raise ValueError(f"hidden width {width}: the net kernels take "
+                         f"{HIDDEN}")
     for name, leaf, shape in zip(MLPParams._fields, params, WEIGHT_SHAPES):
         if tuple(leaf.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(leaf.shape)}, expected "

@@ -22,9 +22,12 @@ is ``csrc/evaluator.cuh`` (``__popc``/``__clz``), the same logic.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from montecarlo_tpu_torch.cards import NUM_RANKS
+from montecarlo_tpu_torch.device import resolve
 from montecarlo_tpu_torch.handval import (
     CAT_FLUSH,
     CAT_FULL_HOUSE,
@@ -39,6 +42,7 @@ from montecarlo_tpu_torch.handval import (
 )
 
 I32 = torch.int32
+I64 = torch.int64
 
 
 def _popcount(x):
@@ -223,3 +227,38 @@ def eval_masks_cmp_impl(m0, m1, m2, m3):
 def eval7_from_cards(cards):
     """[..., K] distinct card ids -> packed int32 hand keys."""
     return eval_masks_impl(*suit_masks_from_cards(cards))
+
+
+def _colex_subsets(n: int, k: int, device) -> torch.Tensor:
+    """All k-subsets of range(n) as int64 bitmasks [C(n, k)], in colex
+    order: by largest element, so the first C(m, k) are those of
+    range(m)."""
+    sets = torch.zeros(1, dtype=I64, device=device)
+    for j in range(1, k + 1):
+        sets = torch.cat([sets[:math.comb(m, j - 1)] | (1 << m)
+                          for m in range(j - 1, n)])
+    return sets
+
+
+def every_hand_keys(n_cards: int = 52, device=None):
+    """Both keys of every 7-card hand of card ids 0 .. ``n_cards`` - 1 (all
+    C(52, 7) = 133,784,560 by default), on ``device`` (the card when None),
+    a highest card at a time.
+
+    Returns (hands, table): ``table`` the distinct (packed, cmp) pairs of
+    ``eval_masks_impl`` and ``eval_masks_cmp_impl``, int64 [K, 2], sorted
+    by packed key then cmp key (the table ``native/certify_evaluator.cpp``
+    digests)."""
+    dev = resolve(device)
+    low = _colex_subsets(n_cards - 1, 6, dev)
+    hands, pairs = 0, []
+    for top in range(6, n_cards):
+        cards = low[:math.comb(top, 6)] | (1 << top)
+        masks = [(((cards >> (NUM_RANKS * s)) & 0x1FFF) << 2).to(I32)
+                 for s in range(4)]
+        packed = eval_masks_impl(*masks).to(I64)
+        cmp = eval_masks_cmp_impl(*masks).to(I64)
+        pairs.append(torch.unique((packed << 32) | cmp))
+        hands += cards.shape[0]
+    table = torch.unique(torch.cat(pairs))
+    return hands, torch.stack([table >> 32, table & 0xFFFFFFFF], dim=1)

@@ -11,6 +11,19 @@ A stream is keyed by (seed, stream_lo) with the counter words
 (block, stream_hi, sub, 0); word i of a stream is output i % 4 of block
 i // 4. Words are int64 in [0, 2^32), as everywhere in the plain versions.
 
+The sub-streams taken, with stream_lo (and stream_hi) their index:
+- 0: K1's rollouts (the rollout) and K4/K6's tables (the table);
+- 1: ``cuda_engine.first_deal`` (the table);
+- 2: ``cuda_net.deal_stash`` (the table, stream_hi the hand);
+- h + 1 for hand h < 65535: K2's rollouts of hand h (the rollout);
+- 65536: B3's rollouts (``cuda_equity.MULTIWAY_SUB``);
+- 65537: the stage probe's tables (``cuda_stages.SUB_PROBE``);
+- 65538: ``rollout/equity.sample_distinct``, the boards of
+  ``equity_vs_range`` and of ``models/pushfold.matchup_equity_matrix``
+  (the rollout; ``equity.DISTINCT_SUB``);
+- 65539: ``equity_vs_range``'s villain draws (the rollout;
+  ``equity.RANGE_SUB``).
+
 ``philox_blocks`` runs the bare block function: plain for CPU tensors, the
 ``mc_philox_blocks`` kernel for CUDA tensors (a probe that holds the card's
 Philox against published known-answer vectors).
@@ -84,6 +97,11 @@ def stream_words(seed: int, stream_lo, stream_hi, sub, start: int, n: int):
 
 
 LAUNCHES = {"philox_blocks": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def philox_blocks(ctr_key: torch.Tensor) -> torch.Tensor:

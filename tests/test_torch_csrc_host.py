@@ -14,12 +14,19 @@ Philox mode, the way the kernels key their streams, and the results must
 equal the plain versions fed ``ops/philox.py``'s words. The equity
 kernels' parts are held on their own too: the draw modulus, the suit
 planes, the deck's draws, ``mc_rank7``'s order over every 7-card hand and
-the grid rule that keeps their 32-bit counters from overflowing. This checks the
+the grid rule that keeps their 32-bit counters from overflowing. The same
+walk of all C(52, 7) hands certifies the device keys ``mc_eval_key`` and
+``mc_eval_cmp`` as ``native/certify_evaluator.cpp`` certified the
+reference evaluator (4,892 keys, a strictly increasing bijection, the
+recorded digest), and the torch evaluator is held hand for hand against
+that evaluator's C++ twin (``native/mcpoker.cpp``, built here). This checks the
 device code's arithmetic before it meets a card; the launch geometry is
 checked on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). Skips without a host C++ compiler.
 """
 
+import ctypes
+import ctypes.util
 import shutil
 import subprocess
 
@@ -163,14 +170,20 @@ static void bits(const int* in, size_t n, Out& out) {
     out.push_back(x);
 }
 
-// mc_rank7 against mc_eval_cmp on every 7-card hand: out = the hands,
-// the distinct mc_eval_cmp keys, the hands whose mc_rank7 differs from
-// that of an earlier hand with the same mc_eval_cmp key, and the distinct
+// Every 7-card hand, in lexicographic order, through mc_rank7, mc_eval_cmp
+// and mc_eval_key. out = the hands; for mc_rank7 against mc_eval_cmp: the
+// distinct mc_eval_cmp keys, the hands whose mc_rank7 differs from that of
+// an earlier hand with the same mc_eval_cmp key, and the distinct
 // mc_eval_cmp keys (ascending) whose mc_rank7 is not above the previous
-// one's.
-static void rank7_all(Out& out) {
-  std::vector<uint32_t> seen((size_t)9 << 19, 0u);  // key -> rank + 1
-  long long hands = 0, clashes = 0;
+// one's; then native/certify_evaluator.cpp's certificate of the (packed,
+// cmp) key table: the distinct packed and cmp keys, the hands whose key
+// maps to another key than an earlier hand's (either way), the packed keys
+// (ascending) whose cmp key is not above the previous one's, and the
+// FNV-1a digest of the (packed << 32 | cmp) words in packed order.
+static void every_hand(Out& out) {
+  std::vector<uint32_t> seen((size_t)9 << 19, 0u);  // cmp key -> rank + 1
+  std::vector<int32_t> p2c((size_t)1 << 24, -1), c2p((size_t)1 << 23, -1);
+  long long hands = 0, clashes = 0, iso = 0;
   uint64_t bit[52];
   for (int c = 0; c < 52; ++c) bit[c] = mc_card_bit64(c);
   int c[7];
@@ -183,10 +196,17 @@ static void rank7_all(Out& out) {
     const uint32_t m0 = lo & 0xFFFFu, m1 = lo >> 16;
     const uint32_t m2 = hi & 0xFFFFu, m3 = hi >> 16;
     const int key = mc_eval_cmp(m0, m1, m2, m3);
+    const int packed = mc_eval_key(m0, m1, m2, m3);
     const uint32_t r = mc_rank7(m0, m1, m2, m3) + 1u;
     ++hands;
     if (!seen[key]) seen[key] = r;
     clashes += seen[key] != r;
+    int32_t& pc = p2c[packed];
+    if (pc < 0) pc = key;
+    iso += pc != key;
+    int32_t& cp = c2p[key];
+    if (cp < 0) cp = packed;
+    iso += cp != packed;
     int i = 6;
     while (i >= 0 && c[i] == 45 + i) --i;
     if (i < 0) break;
@@ -201,7 +221,24 @@ static void rank7_all(Out& out) {
       disorders += r <= prev;
       prev = r;
     }
-  out.insert(out.end(), {hands, distinct, clashes, disorders});
+  long long n_packed = 0, n_cmp = 0, order = 0;
+  long long last = -1;
+  uint64_t digest = 1469598103934665603ull;
+  for (uint32_t pk = 0; pk < (1u << 24); ++pk) {
+    const int32_t ck = p2c[pk];
+    if (ck < 0) continue;
+    ++n_packed;
+    order += ck <= last;
+    last = ck;
+    const uint64_t word = ((uint64_t)pk << 32) | (uint32_t)ck;
+    for (int k = 0; k < 8; ++k) {
+      digest ^= (word >> (8 * k)) & 0xFFu;
+      digest *= 1099511628211ull;
+    }
+  }
+  for (int32_t pk : c2p) n_cmp += pk >= 0;
+  out.insert(out.end(), {hands, distinct, clashes, disorders, n_packed, n_cmp,
+                         iso, order, (long long)digest});
 }
 
 // Words from an array, for mc_sample_cards.
@@ -580,8 +617,8 @@ int main(int argc, char** argv) {
       out.push_back(mc_rollout_grid(
           ((long long)in[i] << 32) | (uint32_t)in[i + 1], in[i + 2],
           in[i + 3]));
-  } else if (!strcmp(argv[1], "rank7_all")) {
-    rank7_all(out);
+  } else if (!strcmp(argv[1], "every_hand")) {
+    every_hand(out);
   } else if (!strcmp(argv[1], "bits")) {
     bits(in.data(), in.size(), out);
   } else if (!strcmp(argv[1], "draws")) {
@@ -743,14 +780,131 @@ def test_rollout_grid_keeps_counters_in_32_bits(harness, n_hands):
         assert -(-n // (b * 256)) * per <= 0xFFFFFFFF
 
 
-def test_rank7_orders_every_hand_as_eval_cmp(harness):
+@pytest.fixture(scope="module")
+def every_hand(harness):
+    """The harness's walk of all C(52, 7) hands (mode ``every_hand``)."""
+    return harness("every_hand", []).tolist()
+
+
+def test_rank7_orders_every_hand_as_eval_cmp(every_hand):
     """mc_rank7 (the equity kernels' key) orders all C(52, 7) hands as
     mc_eval_cmp does: one mc_rank7 value per mc_eval_cmp key, increasing
-    with it. Hand against hand, every comparison and tie of K1 and B3 is
-    then mc_eval_cmp's."""
-    hands, distinct, clashes, disorders = harness("rank7_all", []).tolist()
-    assert hands == 133_784_560 and distinct > 4000
+    with it, over all 4,892 keys. Hand against hand, every comparison and
+    tie of K1 and B3 is then mc_eval_cmp's."""
+    hands, distinct, clashes, disorders = every_hand[:4]
+    assert hands == 133_784_560 and distinct == 4892
     assert clashes == 0 and disorders == 0
+
+
+def test_device_evaluator_certified_on_every_hand(every_hand):
+    """native/certify_evaluator.cpp's certificate, for the device keys: on
+    all C(52, 7) hands mc_eval_key (the packed key) and mc_eval_cmp take
+    4,892 values each, the map between them is a bijection and strictly
+    increasing, and the (packed, cmp) table has the digest that the
+    certification of the reference evaluator recorded."""
+    hands, *_, n_packed, n_cmp, iso, order, digest = every_hand
+    assert hands == 133_784_560
+    assert n_packed == n_cmp == 4892
+    assert iso == 0 and order == 0
+    assert f"{digest & (2**64 - 1):016x}" == "fc0295d3f7577d5b"
+
+
+@pytest.fixture(scope="module")
+def twin(tmp_path_factory):
+    """``native/mcpoker.cpp``'s batch evaluators (the C++ twin of the JAX
+    evaluator that ``native/certify_evaluator.cpp`` certified), built here
+    into a temporary directory, never in ``native/``."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to build native/mcpoker.cpp")
+    d = tmp_path_factory.mktemp("mcpoker")
+    lib = d / "libmcpoker_twin.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-fPIC", "-shared",
+                    str(_build.CSRC.parents[1] / "native" / "mcpoker.cpp"),
+                    "-o", str(lib)], check=True, capture_output=True,
+                   timeout=600)
+    so = ctypes.CDLL(str(lib))
+    fns = {}
+    for name in ("mc_eval7_batch", "mc_eval7_cmp_batch"):
+        fn = getattr(so, name)
+        fn.restype = None
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
+                       ctypes.POINTER(ctypes.c_uint32)]
+        fns[name] = fn
+
+    def run(name, hands):
+        a = np.ascontiguousarray(hands, np.int32)
+        out = np.empty(a.shape[0], np.uint32)
+        fns[name](a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                  a.shape[0], out.ctypes.data_as(
+                      ctypes.POINTER(ctypes.c_uint32)))
+        return out.astype(np.int64)
+    run.so = so  # the library stays loaded while the fixture lives
+    return run
+
+
+def _structured_hands():
+    """7-card hands of every category and its edges: high card, a pair,
+    trips, straight flushes at every top (and the ace-low run that is no
+    straight), quads, two trips,
+    trips over two pairs, three pairs, six and seven of a suit, straights
+    with pairs, a seeded fill for the rest."""
+    rng = np.random.default_rng(2)
+    card = lambda s, r: s * 13 + (r - 2)  # noqa: E731
+    hands = []
+
+    def fill(base):
+        rest = [c for c in rng.permutation(52).tolist() if c not in base]
+        return base + rest[:7 - len(base)]
+    for s in range(4):
+        for top in range(6, 15):
+            hands.append(fill([card(s, r) for r in range(top - 4, top + 1)]))
+        hands.append(fill([card(s, r) for r in (14, 2, 3, 4, 5)]))
+        hands.append([card(s, r) for r in (2, 4, 6, 8, 10, 12, 14)])
+        hands.append(fill([card(s, r) for r in (3, 5, 7, 9, 11, 13)]))
+    for r in range(2, 15):
+        # high card, a pair, trips: ranks two apart, suits mixed
+        spread = [2 + (r - 2 + 2 * k) % 13 for k in range(7)]
+        hands.append([card(k % 4, x) for k, x in enumerate(spread)])
+        hands.append([card(0, r)] + [card((k + 1) % 4, x)
+                                     for k, x in enumerate(spread[:6])])
+        hands.append([card(1, r), card(2, r)] + [card(k % 4, x) for k, x
+                                                 in enumerate(spread[:5])])
+        hands.append(fill([card(s, r) for s in range(4)]))
+        r2 = 2 + (r - 1) % 13
+        hands.append(fill([card(s, r) for s in range(3)]
+                          + [card(s, r2) for s in range(3)]))
+        r3 = 2 + (r + 3) % 13
+        hands.append([card(s, r) for s in range(3)]
+                     + [card(s, r2) for s in range(2)]
+                     + [card(s, r3) for s in (1, 2)])
+        hands.append([card(0, r), card(1, r), card(2, r2), card(3, r2),
+                      card(0, r3), card(1, r3), card(2, 2 + (r + 6) % 13)])
+        if r <= 10:
+            hands.append([card(s % 4, r + s) for s in range(5)]
+                         + [card(1, r), card(2, r + 1)])
+    return np.array(hands, np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "structured"])
+def test_evaluator_equals_native_twin(twin, kind):
+    """ops/evaluator.py's two keys against native/mcpoker.cpp's
+    mc_eval7_batch (packed) and mc_eval7_cmp_batch (cmp), hand for
+    hand."""
+    if kind == "random":
+        rng = np.random.default_rng(11)
+        hands = np.argsort(rng.random((200_000, 52)), axis=1)[:, :7] \
+            .astype(np.int32)
+    else:
+        hands = _structured_hands()
+        assert all(len(set(h)) == 7 for h in hands.tolist())
+    masks = tev.suit_masks_from_cards(torch.from_numpy(hands))
+    packed = tev.eval_masks_impl(*masks).numpy().astype(np.int64)
+    cmp = tev.eval_masks_cmp_impl(*masks).numpy().astype(np.int64)
+    np.testing.assert_array_equal(packed, twin("mc_eval7_batch", hands))
+    np.testing.assert_array_equal(cmp, twin("mc_eval7_cmp_batch", hands))
+    if kind == "structured":  # every category is reached
+        assert set((packed >> 20).tolist()) == set(range(9))
 
 
 @pytest.mark.parametrize("n_dead", range(4, 30))
@@ -1222,12 +1376,29 @@ def test_net_pop_device_code_equals_plain(harness, es3, n_banks, stb):
                       True, stb)
 
 
+def _libm_logf():
+    """The C library's ``logf`` (the one the harness links), by ctypes."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    libm.logf.argtypes = [ctypes.c_float]
+    libm.logf.restype = ctypes.c_float
+    return libm.logf
+
+
 def test_net_probe_device_code_equals_plain(harness, es3):
     """Features and masked logits bit for bit (same operations, same
-    order, no FMA); the Gumbel scores within 4 float32 ulps, because the
-    host's libm logf and PyTorch's CPU log (SLEEF) differ in the last bit
-    for some inputs. On the card both sides use libdevice's logf and
-    chip_smoke.py holds the scores bit for bit."""
+    order, no FMA). The Gumbel scores z = logit - g, g = log(-log(u)), bit
+    for bit against the masked logits minus g computed with the C
+    library's logf, the harness's own (on the card both sides use
+    libdevice's logf and chip_smoke.py holds the scores bit for bit).
+
+    The plain version takes g from PyTorch's CPU log (SLEEF, whose code
+    path depends on the CPU), so its g and its scores are held to the
+    libm ones by an error bound. Each logf is within 1 ulp of the exact
+    value, so the two inner logs y = -log(u) differ by at most 2 ulp(y),
+    which the outer log turns into 2 ulp(y) / y, and the two outer logs
+    add 2 ulp(g); the subtraction from the logit adds at most 1 ulp(z).
+    Where y is near 1, g is near 0 and this is many ulps of g, so no
+    fixed count of ulps of g, or of z, holds on every CPU."""
     P = 6
     T = ce.TABLES_PER_BLOCK
     cfg = TableConfig(num_seats=P, rules="standard")
@@ -1242,8 +1413,32 @@ def test_net_probe_device_code_equals_plain(harness, es3):
     want = cn.net_probe(state, words, es3, P, 10, "standard")
     n = tpn.NUM_ACTIONS
     assert torch.equal(got[:-n].view(torch.int32), want[:-n].view(torch.int32))
-    torch.testing.assert_close(got[-n:], want[-n:], rtol=4 * 2.0 ** -23,
-                               atol=0)
+
+    logf = _libm_logf()
+    u = ((words >> 8).to(torch.float32) * 2.0 ** -24).clamp(min=1e-12)
+    y = np.array([-logf(x) for x in u.reshape(-1).tolist()], np.float32)
+    g = np.array([logf(x) for x in y.tolist()], np.float32).reshape(u.shape)
+    logits = want[-2 * n:-n]
+    z = logits - torch.from_numpy(g)
+    assert torch.equal(got[-n:].view(torch.int32), z.view(torch.int32))
+
+    g_plain = torch.log(-torch.log(u)).numpy().astype(np.float64)
+    y = y.reshape(u.shape).astype(np.float64)
+    ulp_g = np.spacing(np.abs(g).astype(np.float32)).astype(np.float64)
+    ulp_y = np.spacing(y.astype(np.float32)).astype(np.float64)
+    ulps = np.abs(g_plain - g) / ulp_g
+    assert np.all(ulps <= 2 + 2 * ulp_y / (y * ulp_g)), ulps.max()
+
+    # the plain version's own scores against the libm ones, by that bound
+    z_plain = want[-n:].numpy().astype(np.float64)
+    z_libm = z.numpy().astype(np.float64)
+    finite = np.isfinite(z_libm)
+    assert np.array_equal(z_plain[~finite], z_libm[~finite])
+    ulp_z = np.spacing(np.maximum(np.abs(z_plain), np.abs(z_libm))
+                       .astype(np.float32)).astype(np.float64)
+    bound = 2 * ulp_g + 2 * ulp_y / y + ulp_z
+    err = np.abs(z_plain - z_libm)
+    assert np.all(err[finite] <= bound[finite]), (err / bound)[finite].max()
     assert int(ce.unpack_field(state, cfg, "stage").ne(0).sum()) > 0
 
 

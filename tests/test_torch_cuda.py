@@ -694,3 +694,42 @@ def test_stage_build_and_kernel_equal_plain(cuda, stage):
     assert torch.equal(k.cpu(), cs.run_stage(stage, 21, state.cpu(), P,
                                              n_steps, 5, 10))
     assert not torch.equal(k, state)
+
+
+def test_exact_range_vs_range_card_equals_cpu(cuda):
+    """The exact sweep on the card gives the CPU's integers: the wins and
+    ties of every combo pair on a flop, and the same result."""
+    hero = teq.expand_range(["QQ", "AKs"])
+    vill = teq.expand_range(["JJ", "T9s", "AQo"])
+    board = [teq.make_card(0, 12), teq.make_card(1, 7), teq.make_card(2, 2)]
+    boards, valid = teq._enumerate_boards(np.asarray(board, np.int32),
+                                          1 << 12, len(hero) * len(vill))
+    counts = {}
+    for dev in ("cpu", cuda):
+        hm = cq.suit_masks_from_cards(torch.from_numpy(hero).to(dev))
+        vm = cq.suit_masks_from_cards(torch.from_numpy(vill).to(dev))
+        w, t = teq._range_pair_counts(
+            torch.from_numpy(boards.reshape(-1, 5)).to(dev),
+            torch.from_numpy(valid.reshape(-1)).to(dev), hm, vm,
+            boards.shape[1])
+        counts[str(dev)] = (w.cpu(), t.cpu())
+    assert torch.equal(counts["cpu"][0], counts["cuda"][0])
+    assert torch.equal(counts["cpu"][1], counts["cuda"][1])
+    on_card = teq.equity_exact_range_vs_range(hero, vill, board=board,
+                                              device=cuda)
+    on_cpu = teq.equity_exact_range_vs_range(hero, vill, board=board,
+                                             device="cpu")
+    assert on_card.equity == on_cpu.equity
+    np.testing.assert_array_equal(on_card.pair_equity, on_cpu.pair_equity)
+
+
+def test_sample_distinct_and_vs_range_card_equal_cpu(cuda):
+    """A seed gives the same slots, and equity_vs_range the same counts, on
+    the card and on the CPU."""
+    a = teq.sample_distinct(17, 48, 5, (1 << 16) + 3, device=cuda)
+    assert torch.equal(a.cpu(), teq.sample_distinct(17, 48, 5, (1 << 16) + 3,
+                                                    device="cpu"))
+    qk = teq.expand_range(["QQ", "KK"])
+    args = (9, AKS, qk, (1 << 16) + 5)
+    assert teq.equity_vs_range(*args, weights=np.arange(1, 13), device=cuda) \
+        == teq.equity_vs_range(*args, weights=np.arange(1, 13), device="cpu")

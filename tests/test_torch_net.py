@@ -18,6 +18,7 @@ the JAX package.
 
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -150,6 +151,69 @@ def test_init_params_he_normal():
     assert abs(float(p.w2.std()) - (2.0 / 64) ** 0.5) < 0.02
     again = tpn.init_params(torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in zip(p, again))
+
+
+@pytest.mark.parametrize("hidden", [4, 64, 96])
+def test_init_params_hidden_width_matches_jax(hidden):
+    """``init_params(generator, hidden)`` gives JAX ``init_params(key,
+    hidden)``'s shapes and scheme, and ``policy_logits`` runs at any
+    width."""
+    p = tpn.init_params(torch.Generator().manual_seed(hidden), hidden)
+    want = jpn.init_params(jax.random.key(0), hidden=hidden)
+    assert [tuple(x.shape) for x in p] == [tuple(x.shape) for x in want]
+    assert all(x.dtype == torch.float32 for x in p)
+    assert not p.b1.any() and not p.b2.any() and not p.b3.any()
+    feats = torch.rand((8, tfe.NUM_FEATURES),
+                       generator=torch.Generator().manual_seed(1))
+    got = tpn.policy_logits(p, feats)
+    ref = jpn.policy_logits(jpn.MLPParams(*(jnp.asarray(x.numpy())
+                                            for x in p)),
+                            jnp.asarray(feats.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _narrow():
+    return tpn.init_params(torch.Generator().manual_seed(0), hidden=4)
+
+
+def _es3():
+    return tpn.load_params(ES3)
+
+
+STD = TableConfig(num_seats=P, rules="standard")
+# Every net wrapper and entry point of ops/cuda_net.py, given a net of
+# hidden width 4 (the CPU path, so that a ValueError is the width's).
+NARROW_CALLS = {
+    "net_weights": lambda: cn.net_weights(_narrow(), "cpu"),
+    "bank_weights": lambda: cn.bank_weights([_es3(), _narrow()],
+                                            "cpu"),
+    "pop_weights": lambda: cn.pop_weights([_narrow()], "cpu"),
+    "pop_weights_opponent": lambda: cn.pop_weights(
+        [_es3()], "cpu", opponent=_narrow()),
+    "run_net_eval": lambda: cn.run_net_eval(
+        0, cn.initial_packed_state(0, STD, T, "cpu"),
+        torch.cat([x.reshape(-1) for x in _narrow()]), P, 4, 5, 10, 100,
+        "standard", 1),
+    "selfplay_net_eval_kernel": lambda: cn.selfplay_net_eval_kernel(
+        0, STD, _narrow(), 1, T, 4, device="cpu"),
+    "selfplay_net_league": lambda: cn.selfplay_net_league(
+        0, STD, [_es3(), _narrow()], (0, 1) * 3, T, 4, device="cpu"),
+    "selfplay_net_eval_pop": lambda: cn.selfplay_net_eval_pop(
+        0, STD, [_es3(), _narrow()], 1, T, 4, device="cpu"),
+    "selfplay_net_league_pop": lambda: cn.selfplay_net_league_pop(
+        0, STD, [_es3()], _narrow(), T, 4, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NARROW_CALLS))
+def test_net_wrappers_refuse_other_widths(name):
+    """The net kernels assume a hidden width of 64: every wrapper refuses
+    another with a ValueError and launches nothing."""
+    cn.reset_launches()
+    with pytest.raises(ValueError):
+        NARROW_CALLS[name]()
+    assert not any(cn.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("bot", ["fof_raise", "jam_tight"])

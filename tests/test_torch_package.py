@@ -19,7 +19,7 @@ from montecarlo_tpu.engine.state import TableConfig as JaxTableConfig
 from montecarlo_tpu.models import features as jfeatures
 from montecarlo_tpu.models import policy_net as jpolicy_net
 from montecarlo_tpu_torch.engine.state import TableConfig
-from montecarlo_tpu_torch.models import bots, train_es
+from montecarlo_tpu_torch.models import bots, pushfold, train_es
 from montecarlo_tpu_torch.models import features as tfeatures
 from montecarlo_tpu_torch.models import policy_net as tpolicy_net
 from montecarlo_tpu_torch.ops import cuda_carry as cc
@@ -30,6 +30,7 @@ from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.ops import evaluator as tev
 from montecarlo_tpu_torch.ops import philox
 from montecarlo_tpu_torch.rollout import equity as teq
+from montecarlo_tpu_torch.scripts import build_pushfold_cr as bpc
 from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
 from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
 
@@ -52,16 +53,19 @@ MODULES = [
     "montecarlo_tpu_torch.models.policy_net",
     "montecarlo_tpu_torch.models.bots",
     "montecarlo_tpu_torch.models.train_es",
+    "montecarlo_tpu_torch.models.pushfold",
+    "montecarlo_tpu_torch.rollout",
     "montecarlo_tpu_torch.rollout.equity",
     "montecarlo_tpu_torch.scripts",
     "montecarlo_tpu_torch.scripts.exp_carry_model",
     "montecarlo_tpu_torch.scripts.debug_kernel_compile",
+    "montecarlo_tpu_torch.scripts.build_pushfold_cr",
 ]
-# Runs the port's CPU path (equity and multiway equity, the engine under
-# every rule set, tournaments to completion, net evaluation, an ES
-# generation on the population form with a rule bot's league, the two
-# ported probe scripts) in a fresh process, then lists what it loaded of
-# JAX and of the JAX package.
+# Runs the port's CPU path (equity and multiway equity, range equity and
+# push/fold, the engine under every rule set, tournaments to completion,
+# net evaluation, an ES generation on the population form with a rule
+# bot's league, the two ported probe scripts) in a fresh process, then
+# lists what it loaded of JAX and of the JAX package.
 CPU_PATH = """
 import json, sys
 import torch
@@ -76,6 +80,18 @@ assert r.n == 4096
 eq, n = teq.equity_multiway(1, [[0, 12], [25, 38], [5, 6]], 4096,
                             device="cpu")
 assert n == 4096 and abs(eq.sum() - 1) < 1e-12
+from montecarlo_tpu_torch.models import pushfold as pf
+qk = teq.expand_range(["QQ", "KK"])
+assert teq.equity_vs_range(1, [0, 12], qk, 4096, device="cpu").n == 4096
+assert teq.sample_distinct(1, 48, 5, 64, device="cpu").shape == (64, 5)
+r = teq.equity_exact_range_vs_range(qk, teq.expand_range(["AKs"]),
+                                    board=[1, 2, 3, 4], device="cpu")
+assert 0 < r.equity < 1
+assert pf.matchup_equity_matrix(1, n_per=2, device="cpu").shape == (169, 169)
+import numpy as np
+with np.load("data/pushfold_eq169_cr.npz") as d:
+    sol = pf.solve_push_fold_cr(d["equity"], d["n_pairs"], 10.0)
+assert round(sol.jam_fraction, 4) == 0.5825
 for rules in ("reference", "standard", "tournament"):
     cfg = TableConfig(num_seats=6, rules=rules)
     assert ce.selfplay_perpetual_kernel(2, cfg, 1024, 32, device="cpu")[1] > 0
@@ -183,6 +199,23 @@ def test_cuda_requests_raise_without_a_card():
         cq.equity_sweep_kernel(0, [[0, 1]], 1024, device="cuda")
     with pytest.raises((RuntimeError, AssertionError)):
         teq.equity_multiway(0, [[0, 1], [2, 3]], 1024, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        teq.sample_distinct(0, 48, 5, 1024, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        teq.equity_vs_range(0, [0, 1], [[2, 3], [4, 5]], 1024,
+                            device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        teq.equity_exact_range_vs_range([[0, 1]], [[2, 3]], board=[4, 5, 6],
+                                        device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        teq.equity_exact_vs_range([0, 1], [[2, 3]], board=[4, 5, 6],
+                                  device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        pushfold.matchup_equity_matrix(0, n_per=2, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        pushfold.matchup_equity_matrix_exact(device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tev.every_hand_keys(8, device="cuda")
     cfg = TableConfig(num_seats=6)
     with pytest.raises((RuntimeError, AssertionError)):
         ce.selfplay_perpetual_kernel(0, cfg, 1024, 16, device="cuda")
@@ -227,6 +260,21 @@ ENTRY_POINTS = {
     "initial_packed_state": lambda: cn.initial_packed_state(0, STD, 1024),
     "deal_stash": lambda: cn.deal_stash(0, 1024, 6, 2),
     "exp_carry_model.main": lambda: ecm.main(n_blocks=1, n_steps=2),
+    "sample_distinct": lambda: teq.sample_distinct(0, 48, 5, 1024),
+    "equity_vs_range": lambda: teq.equity_vs_range(
+        0, [0, 1], teq.expand_range(["QQ"]), 1024),
+    "equity_exact_range_vs_range": lambda: teq.equity_exact_range_vs_range(
+        [[0, 1]], [[2, 3]], board=[4, 5, 6]),
+    "equity_exact_vs_range": lambda: teq.equity_exact_vs_range(
+        [0, 1], [[2, 3]], board=[4, 5, 6]),
+    "matchup_equity_matrix": lambda: pushfold.matchup_equity_matrix(
+        0, n_per=2),
+    "matchup_equity_matrix_exact": lambda:
+        pushfold.matchup_equity_matrix_exact(),
+    "matchup_equity_matrix_cr": lambda: pushfold.matchup_equity_matrix_cr(),
+    "every_hand_keys": lambda: tev.every_hand_keys(8),
+    "build_pushfold_cr.main": lambda: bpc.main(
+        ["--out", str(ROOT / "montecarlo_tpu_torch" / "_build" / "pf")]),
     "debug_kernel_compile.compile_variant": lambda: dkc.compile_variant(
         "full", 2, 1),
 }
