@@ -113,6 +113,18 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    cmp keys, a strictly increasing bijection between them, and the
    (packed, cmp) table's FNV-1a digest that
    ``native/certify_evaluator.cpp`` recorded (fc0295d3f7577d5b).
+7. the table engine (path g, plain PyTorch on the card, no kernel of its
+   own; after path f so that every earlier number is taken as before):
+   ``engine/state.init_state``'s Philox decks at 2^20 tables (each a
+   permutation, the first 1,024 equal to the CPU's, a chi-squared test of
+   card by deck position), then under reference, standard and tournament
+   rules (phase 1d's 20-chip stacks) at 2^20 6-max tables: ``init_state``
+   + ``redeal`` on phase 1's first deals equal to ``pack_state`` field by
+   field, 64 steps of phase 1's injected stream through ``clamp_action``
+   and ``step_table`` (``engine/replay.replay_injected``) equal to phase
+   1's K3 output on every table within capacity, with equal overflow
+   sets (``replay.against_k3``), and the engine's ns per table-step (CUDA
+   events) beside K3's, its seconds and its peak memory.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -124,6 +136,7 @@ from __future__ import annotations
 import atexit
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -203,6 +216,10 @@ PF_STACK_BB = 10
 EVAL_HANDS = 133_784_560
 EVAL_KEYS = 4892
 EVAL_DIGEST = "fc0295d3f7577d5b"
+# Path g: the tables whose decks are held against the CPU's, and the gate
+# of the decks' chi-squared test (two-sided p).
+DECK_CPU_TABLES = 1024
+DECK_P = 1e-4
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
 # Lower counts of the operations a kernel's work needs, for bound_ms,
@@ -283,6 +300,9 @@ def main() -> int:
         return 1
 
     from montecarlo_tpu_torch.device import cuda_device
+    from montecarlo_tpu_torch.engine import replay as erp
+    from montecarlo_tpu_torch.engine import state as tstate
+    from montecarlo_tpu_torch.engine import step as tstep
     from montecarlo_tpu_torch.engine.state import TableConfig
     from montecarlo_tpu_torch.models import bots
     from montecarlo_tpu_torch.models import policy_net as tpn
@@ -1732,6 +1752,117 @@ def main() -> int:
     log(json.dumps({"path_f_seconds": f_s, "card": smi}))
     del res, cr_rows, mc_eq, slots, table
     phase_done("6 range equity and push/fold")
+    # ---- 7. the table engine (path g) ------------------------------------
+    # plain PyTorch on the card (the port of the XLA engine): no kernel
+    # launches. Its decks, then under each rule set its first state and 64
+    # steps of K3's injected stream against phase 1's K3 outputs.
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    g_s, t_g = {}, time.perf_counter()
+    t0 = time.perf_counter()
+    decks = tstate.init_state(SEED, cfg, T_FULL, dev).deck
+    sync()
+    g_s["init_state"] = time.perf_counter() - t0
+    check(torch.equal(decks.sort(1).values, torch.arange(
+        52, dtype=torch.int32, device=dev).expand(T_FULL, 52)),
+        "path g: every deck is a permutation of the 52 cards")
+    check(torch.equal(decks[:DECK_CPU_TABLES].cpu(), tstate.init_state(
+        SEED, cfg, DECK_CPU_TABLES, "cpu").deck),
+        f"path g: the first {DECK_CPU_TABLES} tables' decks equal the CPU's")
+    # card by deck position: 52 x 52 counts, uniform under the null;
+    # chi-squared with 51^2 degrees of freedom, p by Wilson-Hilferty
+    pos = torch.arange(52, device=dev)[None] * 52
+    counts = torch.bincount((pos + decks).reshape(-1), minlength=52 * 52)
+    want = T_FULL / 52
+    chi2 = float(((counts.double() - want) ** 2 / want).sum())
+    dof = 51 * 51
+    z = ((chi2 / dof) ** (1 / 3) - (1 - 2 / (9 * dof))) \
+        / (2 / (9 * dof)) ** 0.5
+    p_deck = math.erfc(abs(z) / 2 ** 0.5)
+    log(f"path g: decks of {T_FULL} tables (Philox sub-stream "
+        f"{tstate.DECK_SUB}), card by position chi^2 {chi2:.1f} over {dof} "
+        f"dof, z {z:+.3f}, two-sided p {p_deck:.4f} (gate p > {DECK_P})")
+    check(p_deck > DECK_P, "path g: the decks are uniform (chi^2)")
+    del decks, counts
+    acts_rows = acts_full.permute(1, 0, 2, 3).reshape(DET_STEPS, T_FULL)
+    deals = ce._stash_rows(cards_full).permute(2, 0, 1).contiguous()
+    g_rows = []
+    for rules, packed0, det, stack in (
+            ("reference", st_full, det_out, SS),
+            ("standard", st_full_std, det_std, SS),
+            ("tournament", st_full_tour, det_tour, TOUR_STACK)):
+        L = ce._L_for(rules)
+        gcfg = TableConfig(num_seats=P, rules=rules, starting_stack=stack,
+                           max_layers=L, max_pot_layers=4 * L)
+        st0 = tstate.redeal(tstate.init_state(SEED, gcfg, T_FULL, dev),
+                            erp.decks_from_deals(deals[:, 0]))
+        bad = erp.against_pack_state(packed0, gcfg, st0)
+        check(not bad, f"path g {rules}: init_state + redeal equals "
+                       f"pack_state (differs in {bad})")
+        t0 = time.perf_counter()
+        rep = erp.replay_injected(gcfg, st0, acts_rows, deals)
+        sync()
+        replay_s = time.perf_counter() - t0
+        agree = erp.against_k3(det, gcfg, rep)
+        parted = (agree.k3_overflow != rep.overflow).nonzero()
+        if len(parted):
+            t = int(parted[0])
+            log(f"path g {rules}: the overflow sets part at table {t}: K3 "
+                f"{bool(agree.k3_overflow[t])}, the engine's first overflow "
+                f"at step {int(rep.overflow_at[t])} (-1: none)")
+        check(not len(parted), f"path g {rules}: the overflow sets are equal")
+        clean = float((~agree.k3_overflow).float().mean())
+        check(clean > 0.9, f"path g {rules}: over 90% of tables within "
+                           f"capacity")
+        for name, bad in agree.mismatch.items():
+            check(not bool(bad.any()), f"path g {rules}: {name} equals K3's "
+                  f"on every table within capacity")
+        n_fresh = int(agree.frozen_fresh.sum())
+        frozen = int(rep.state.hand_over.sum())
+        check(rules == "tournament" or n_fresh == 0,
+              f"path g {rules}: no frozen table")
+        # the engine alone: DET_STEPS steps of clamp_action + step_table
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        st = st0
+        a.record()
+        for i in range(DET_STEPS):
+            st = tstep.step_table(st, tstep.clamp_action(st, acts_rows[i]),
+                                  rules=rules)
+        b.record()
+        b.synchronize()
+        engine_ms = a.elapsed_time(b)
+        k3_key = {"reference": "K3", "standard": "K3s",
+                  "tournament": "K3t"}[rules]
+        row = {"rules": rules, "tables": T_FULL, "steps": DET_STEPS,
+               "hands": int(rep.hand_ct.sum()),
+               "overflowed": int(agree.k3_overflow.sum()),
+               "within_capacity": clean, "frozen": frozen,
+               "frozen_fresh_fields": n_fresh, "replay_s": replay_s,
+               "engine_ms": engine_ms,
+               "engine_ns_per_table_step":
+                   engine_ms * 1e6 / (T_FULL * DET_STEPS),
+               "det_ns_per_table_step":
+                   times[k3_key] * 1e6 / (T_FULL * DET_STEPS)}
+        g_rows.append(row)
+        log(f"path g {rules}: {T_FULL} tables x {DET_STEPS} steps equal K3 "
+            f"on the {clean:.4%} within capacity, overflow sets equal "
+            f"({row['overflowed']}), {row['hands']} hands, {frozen} frozen "
+            f"({n_fresh} with K3's fresh street_raises/last_raiser, ROADMAP "
+            f"C-5); replay {replay_s:.2f} s, step_table "
+            f"{row['engine_ns_per_table_step']:.2f} ns per table-step "
+            f"(K3 {row['det_ns_per_table_step']:.4f})")
+        del st0, st, rep, agree
+    g_launches = {**cq.LAUNCHES, **ce.LAUNCHES, **cn.LAUNCHES,
+                  **cc.LAUNCHES, **cs.LAUNCHES, **philox.LAUNCHES}
+    check(not any(g_launches.values()), "path g launches no kernel")
+    sync()
+    g_s["path"] = time.perf_counter() - t_g
+    log(json.dumps({"path_g": g_rows, "path_g_seconds": g_s,
+                    "path_g_peak_bytes": torch.cuda.max_memory_allocated(dev),
+                    "card": smi}))
+    del acts_rows, deals
+    phase_done("7 table engine")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 

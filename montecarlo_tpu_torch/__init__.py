@@ -4,9 +4,10 @@ The port of ``montecarlo_tpu`` to an NVIDIA Hopper card. The JAX package is
 the reference; this package mirrors its module names where that helps a
 reader find the counterpart:
 
-- ``cards.py``, ``handval.py``  the card and hand-value encodings (copies
-                          of the framework-free JAX-package modules; a test
-                          holds every public name equal);
+- ``cards.py``, ``handval.py``, ``actions.py``  the card, hand-value and
+                          action encodings (copies of the framework-free
+                          JAX-package modules; a test holds every public
+                          name equal);
 - ``device.py``           the card by default, the CPU when asked;
 - ``ops/evaluator.py``    the bitmask 7-card evaluator on int32 tensors;
 - ``ops/philox.py``       Philox4x32-10 in plain PyTorch (the kernels'
@@ -34,7 +35,15 @@ reader find the counterpart:
 - ``rollout/equity.py``   the user-facing equity API: hand vs hand,
                           random or range, multiway, exact enumeration of
                           hands and ranges;
-- ``engine/state.py``     ``TableConfig``;
+- ``engine/``             the table engine in plain PyTorch, tables on a
+                          leading axis (the JAX engine is XLA):
+                          ``bets.py`` the bet-layer record, ``street.py``
+                          the levels street form, ``state.py``
+                          ``TableConfig``, ``TableState``, Philox decks
+                          and hand setup, ``step.py`` ``step_action`` and
+                          ``step_table``, ``public.py`` the host JSON view,
+                          ``replay.py`` the engine on K3's injected stream
+                          and its agreement with K3;
 - ``scripts/``            ports of the repository's scripts
                           (``exp_carry_model``, ``debug_kernel_compile``,
                           ``build_pushfold_cr``) and the kernels' A/B

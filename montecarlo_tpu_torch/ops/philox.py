@@ -22,7 +22,9 @@ The sub-streams taken, with stream_lo (and stream_hi) their index:
   ``equity_vs_range`` and of ``models/pushfold.matchup_equity_matrix``
   (the rollout; ``equity.DISTINCT_SUB``);
 - 65539: ``equity_vs_range``'s villain draws (the rollout;
-  ``equity.RANGE_SUB``).
+  ``equity.RANGE_SUB``);
+- 65540: the table engine's decks (the table, stream_hi the hand;
+  ``engine/state.DECK_SUB``).
 
 ``philox_blocks`` runs the bare block function: plain for CPU tensors, the
 ``mc_philox_blocks`` kernel for CUDA tensors (a probe that holds the card's

@@ -9,6 +9,8 @@ import numpy as np
 import pytest
 import torch
 
+from montecarlo_tpu_torch.engine import replay
+from montecarlo_tpu_torch.engine import state as tstate
 from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models import bots
 from montecarlo_tpu_torch.models import policy_net as tpn
@@ -180,6 +182,58 @@ def _engine_det_kernel_equals_plain(cuda, P, rules, stack=100):
     assert ce.LAUNCHES[f"engine_det_{rules}"] == before + 1
     p = ce._run_det_plain(state, acts_t, cards_t, P, n_steps, 5, 10, rules)
     assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("rules,stack", [("reference", 100),
+                                         ("standard", 100),
+                                         ("tournament", 20)])
+def test_table_engine_card_equals_cpu_and_k3(cuda, rules, stack):
+    """The ported ``step_table`` on the card, driven on K3's injected
+    stream at four blocks, equals itself on the CPU in every field and
+    meter, and equals K3 on every table within capacity
+    (``engine/replay.against_k3``)."""
+    P, nb, n_steps, hmax = 6, 4, 48, 12
+    T = nb * ce.TABLES_PER_BLOCK
+    L = ce._L_for(rules)
+    cfg = TableConfig(num_seats=P, rules=rules, starting_stack=stack,
+                      max_layers=L, max_pot_layers=4 * L)
+    rng = np.random.default_rng(29)
+    u = rng.random((n_steps, T))
+    acts = np.where(u < 0.2, -1, np.where(u < 0.92, 0, rng.integers(
+        1, 21, u.shape))).astype(np.int32)
+    deal = np.argsort(rng.random((T, hmax, 52)), axis=-1)[..., :2 * P + 5] \
+        .astype(np.int32)
+    first = torch.from_numpy(deal[:, 0])
+    reps = {}
+    for dev in ("cpu", cuda):
+        st0 = tstate.redeal(tstate.init_state(0, cfg, T, dev),
+                            replay.decks_from_deals(first.to(dev)))
+        reps[dev] = replay.replay_injected(
+            cfg, st0, torch.from_numpy(acts).to(dev),
+            torch.from_numpy(deal).to(dev))
+    want, got = (_leaves(tstate.state_to_numpy(reps[d]))
+                 for d in ("cpu", cuda))
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    packed = ce.pack_state(cfg, first.to(cuda))
+    out = ce.run_perpetual_det(
+        packed, torch.from_numpy(acts.reshape(n_steps, nb, 8, 128)
+                                 .transpose(1, 0, 2, 3).copy()).to(cuda),
+        torch.from_numpy(deal.reshape(nb, 1024, hmax, 2 * P + 5)
+                         .transpose(0, 2, 3, 1).reshape(
+                             nb, hmax, 2 * P + 5, 8, 128).copy()).to(cuda),
+        P, n_steps, cfg.small_blind, cfg.big_blind, rules=rules)
+    agree = replay.against_k3(out, cfg, reps[cuda])
+    assert torch.equal(agree.k3_overflow, reps[cuda].overflow)
+    for name, bad in agree.mismatch.items():
+        assert not bool(bad.any()), name
+    assert float(agree.k3_overflow.float().mean()) < 0.1
+
+
+def _leaves(x):
+    if isinstance(x, tuple):
+        return [y for f in x for y in _leaves(f)]
+    return [x]
 
 
 @pytest.mark.parametrize("P,n_steps", [(6, 32), (6, 24), (2, 48)])

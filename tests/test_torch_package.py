@@ -12,12 +12,14 @@ from pathlib import Path
 import pytest
 import torch
 
+import montecarlo_tpu_torch.actions as tactions
 import montecarlo_tpu_torch.cards as tcards
 import montecarlo_tpu_torch.handval as thandval
-from montecarlo_tpu import cards, handval
+from montecarlo_tpu import actions, cards, handval
 from montecarlo_tpu.engine.state import TableConfig as JaxTableConfig
 from montecarlo_tpu.models import features as jfeatures
 from montecarlo_tpu.models import policy_net as jpolicy_net
+from montecarlo_tpu_torch.engine import state as tstate
 from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models import bots, pushfold, train_es
 from montecarlo_tpu_torch.models import features as tfeatures
@@ -40,7 +42,14 @@ MODULES = [
     "montecarlo_tpu_torch.cards",
     "montecarlo_tpu_torch.handval",
     "montecarlo_tpu_torch.device",
+    "montecarlo_tpu_torch.actions",
+    "montecarlo_tpu_torch.engine",
+    "montecarlo_tpu_torch.engine.bets",
+    "montecarlo_tpu_torch.engine.street",
     "montecarlo_tpu_torch.engine.state",
+    "montecarlo_tpu_torch.engine.step",
+    "montecarlo_tpu_torch.engine.public",
+    "montecarlo_tpu_torch.engine.replay",
     "montecarlo_tpu_torch.ops._build",
     "montecarlo_tpu_torch.ops.evaluator",
     "montecarlo_tpu_torch.ops.philox",
@@ -60,9 +69,11 @@ MODULES = [
     "montecarlo_tpu_torch.scripts.exp_carry_model",
     "montecarlo_tpu_torch.scripts.debug_kernel_compile",
     "montecarlo_tpu_torch.scripts.build_pushfold_cr",
+    "montecarlo_tpu_torch.scripts.count_engine_ops",
 ]
 # Runs the port's CPU path (equity and multiway equity, range equity and
-# push/fold, the engine under every rule set, tournaments to completion,
+# push/fold, the table engine's step and host view, the engine kernels'
+# plain versions under every rule set, tournaments to completion,
 # net evaluation, an ES generation on the population form with a rule
 # bot's league, the two ported probe scripts) in a fresh process, then
 # lists what it loaded of JAX and of the JAX package.
@@ -92,8 +103,13 @@ import numpy as np
 with np.load("data/pushfold_eq169_cr.npz") as d:
     sol = pf.solve_push_fold_cr(d["equity"], d["n_pairs"], 10.0)
 assert round(sol.jam_fraction, 4) == 0.5825
+from montecarlo_tpu_torch.engine import public as ep, state as es, step as est
 for rules in ("reference", "standard", "tournament"):
     cfg = TableConfig(num_seats=6, rules=rules)
+    st = es.init_state(3, cfg, 16, device="cpu")
+    st = est.step_table(st, est.clamp_action(st, 0), rules=rules)
+    assert int(st.time.sum()) == 16
+    assert ep.public_board(st, list("abcdef"), 1)["time"] == 1
     assert ce.selfplay_perpetual_kernel(2, cfg, 1024, 32, device="cpu")[1] > 0
 tour = TableConfig(num_seats=6, rules="tournament", starting_stack=20)
 state, _ = ce.tournaments_to_completion(2, tour, 1024, 64, device="cpu")
@@ -155,7 +171,8 @@ def test_shared_encodings_and_table_config_match_jax():
 
     assert not hasattr(montecarlo_tpu_torch, "__getattr__")
     # the port's copies: every public name, values and functions alike
-    for ours, theirs in ((tcards, cards), (thandval, handval)):
+    for ours, theirs in ((tcards, cards), (thandval, handval),
+                         (tactions, actions)):
         names = {k for k in vars(theirs) if not k.startswith("_")
                  and not isinstance(vars(theirs)[k], type(sys))}
         assert names <= set(vars(ours)), names - set(vars(ours))
@@ -258,6 +275,8 @@ ENTRY_POINTS = {
         0, bots.action_bot(1), generations=1, pop=1,
         eval_pop_fn=train_es.kernel_eval_pop_fn(STD, 1, 1024, 16)),
     "initial_packed_state": lambda: cn.initial_packed_state(0, STD, 1024),
+    "init_state": lambda: tstate.init_state(0, TableConfig(num_seats=6),
+                                            1024),
     "deal_stash": lambda: cn.deal_stash(0, 1024, 6, 2),
     "exp_carry_model.main": lambda: ecm.main(n_blocks=1, n_steps=2),
     "sample_distinct": lambda: teq.sample_distinct(0, 48, 5, 1024),
