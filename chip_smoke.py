@@ -124,7 +124,31 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    and ``step_table`` (``engine/replay.replay_injected``) equal to phase
    1's K3 output on every table within capacity, with equal overflow
    sets (``replay.against_k3``), and the engine's ns per table-step (CUDA
-   events) beside K3's, its seconds and its peak memory.
+   events) beside K3's, its seconds and its peak memory;
+8. self-play and evaluation (path h, plain PyTorch on the card, after
+   path g; K4, K5 and K6 launch only as yardsticks): (h1) random-policy
+   ``play_hands_perpetual`` at 2^20 6-max tables x 256 steps under
+   reference rules at K4's capacities, the first 1,024 tables equal to a
+   CPU run field by field, no overflow, and steps per hand (hands ending
+   over the second half) within 2% of K4's (its DEFER = 1 form, where a
+   slot is an action; the DEFER = 16 form's idle slots logged); (h2)
+   ``play_hands`` of one hand at 2^20 standard-rules tables, chips
+   conserved on every table, each position's bb/hand within 4 sigma of
+   ``data/position_winrates.json``; (h3) ``play_tournament`` at 2^20
+   tables with 20-chip stacks until every table freezes, the winner
+   holding every chip, placements permutations, the win shares by seat
+   against a K4 completion run at the same stacks (chi-squared, p >
+   1e-4); (h4) ``replay_net_det`` on phase 1b/1c's K5 inputs (2^18 tables
+   x 64 steps, one rule bot and two banks) equal to K5 and K5b on every
+   table within capacity, the overflow sets equal; (h5) es3 through
+   ``net_policy`` and ``pinned_seat_policies`` against the random policy,
+   one-hand runs at each position weighed by K6's hands there, within 4
+   sigma of K6's seat-0 meters; (h6) duplicate matches: the calling
+   station against itself exactly 0 and against the half-folder above 0.1
+   bb/hand at 2^20 tables, ``policy_hu_300`` against random over 12 hands
+   at 2^18 tables with a 95% interval above 0, negated exactly by the
+   swap. It logs each gate's numbers, each self-play form's time (CUDA
+   events), each part's seconds and the peak memory.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -220,6 +244,15 @@ EVAL_DIGEST = "fc0295d3f7577d5b"
 # of the decks' chi-squared test (two-sided p).
 DECK_CPU_TABLES = 1024
 DECK_P = 1e-4
+# Path h: the perpetual self-play's steps (K4's 512 slots cut to 256 to
+# keep the path near 200 s), the tournaments' hand bound (every table
+# freezes well before it at 20-chip stacks), the hands of the multi-hand
+# duplicate match (tests/test_selfplay.py's 12) and the gate of the win
+# shares' two-sample chi-squared test.
+H_STEPS = 256
+H_TOUR_HANDS = 200
+H_DUP_HANDS = 12
+H_P = 1e-4
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
 # Lower counts of the operations a kernel's work needs, for bound_ms,
@@ -282,6 +315,17 @@ def fnv1a_digest(table) -> str:
     return f"{digest:016x}"
 
 
+def chi2_sf(x, k):
+    """P(X > x) for X chi-squared with ``k`` degrees of freedom (exact:
+    the series for even and for odd ``k``)."""
+    h = x / 2
+    if k % 2 == 0:
+        return math.exp(-h) * sum(h ** i / math.factorial(i)
+                                  for i in range(k // 2))
+    return math.erfc(math.sqrt(h)) + math.exp(-h) * sum(
+        h ** (i - 0.5) / math.gamma(i + 0.5) for i in range(1, (k + 1) // 2))
+
+
 def bound(n_bytes, int_ops, f32_ops=0):
     """(ms, what bounds it): the least time the card could take for this
     work, bytes at the memory rate or operations at their peak rate."""
@@ -320,6 +364,9 @@ def main() -> int:
         every_hand_keys,
     )
     from montecarlo_tpu_torch.rollout import equity as teq
+    from montecarlo_tpu_torch.rollout import evaluate as tev
+    from montecarlo_tpu_torch.rollout import policy as tpol
+    from montecarlo_tpu_torch.rollout import selfplay as tsp
     from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
     from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
 
@@ -1863,6 +1910,314 @@ def main() -> int:
                     "card": smi}))
     del acts_rows, deals
     phase_done("7 table engine")
+
+    # ---- 8. self-play and evaluation (path h) ----------------------------
+    # plain PyTorch on the card (the port of the XLA self-play and
+    # evaluation modules): random perpetual self-play, independent hands,
+    # tournaments, the net pipeline and duplicate matches at the engine's
+    # and the net kernels' main-path widths. K4, K5 and K6 run here only as
+    # the yardsticks the new code is held to; no other kernel launches.
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    h_s, h, t_h = {}, {}, time.perf_counter()
+
+    def sub_done(name, t0):
+        sync()
+        h_s[name] = time.perf_counter() - t0
+
+    def same_tables(card, cpu, what):
+        """The first tables of a state on the card equal a CPU state,
+        field by field."""
+        n = cpu.n_tables
+        for name, a, b in zip(tstate.TableState._fields, card, cpu):
+            pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+            for x, y in pairs:
+                check(torch.equal(x[:n].cpu(), y), f"{what}: {name} of the "
+                      f"first {n} tables equals the CPU run's")
+
+    # (h1) random perpetual self-play, reference rules, K4's capacities
+    t0 = time.perf_counter()
+    L = ce._L_for("reference")
+    h1cfg = TableConfig(num_seats=P, max_layers=L, max_pot_layers=4 * L)
+    (h1_final, h1_hands), h1_ms = timed(lambda: tsp.play_hands_perpetual(
+        SEED, h1cfg, T_FULL, H_STEPS, device=dev))
+    h1_hands = int(h1_hands)
+    stats = {k: (v if isinstance(v, int) else v.item())
+             for k, v in tsp.selfplay_stats(h1_final).items()}
+    log(f"path h1: play_hands_perpetual {T_FULL} tables x {H_STEPS} steps, "
+        f"{h1_hands} hands, {h1_ms:.1f} ms, selfplay_stats {stats}")
+    check(stats["bet_overflow_frac"] == 0 and stats["pot_overflow_frac"] == 0,
+          "path h1: no overflow at K4's capacities")
+    h1_cpu, _ = tsp.play_hands_perpetual(SEED, h1cfg, DECK_CPU_TABLES,
+                                         H_STEPS, device="cpu")
+    same_tables(h1_final, h1_cpu, "path h1")
+    del h1_final, h1_cpu
+    # steps per hand over the run's second half: the count of hands ending
+    # in a window, renewal-theorem exact (a table's partial first and last
+    # hands cancel between the two counts), both sides alike
+    _, half = tsp.play_hands_perpetual(SEED, h1cfg, T_FULL, H_STEPS // 2,
+                                       device=dev)
+    port_sph = T_FULL * (H_STEPS - H_STEPS // 2) / (h1_hands - int(half))
+    # K4's betting steps per hand. A hand starts at a settle pass, which
+    # K4 runs once every DEFER slots, so a hand of L actions holds
+    # DEFER * ceil(L / DEFER) slots; with DEFER = 1 (K4's form for a step
+    # count that is not a multiple of 16) a slot is an action, as in
+    # step_table. Both forms from the first deal, hands counted over a
+    # second launch.
+    def k4_window(first, second):
+        st = ce.pack_state(h1cfg, ce.first_deal(SEED, T_FULL, P, dev))
+        a = ce.run_perpetual_prng(SEED, st, P, first, SB, BB)
+        b = ce.run_perpetual_prng(SEED + 1, a, P, second, SB, BB)
+        n = int(ce.unpack_field(b, h1cfg, "hand_ct").sum()
+                - ce.unpack_field(a, h1cfg, "hand_ct").sum())
+        return T_FULL * second / n
+
+    k4_steps = k4_window(H_STEPS // 2 + 1, H_STEPS // 2 - 1)  # DEFER 1
+    k4_slots = k4_window(H_STEPS, H_STEPS)                     # DEFER 16
+    h["h1"] = {"hands": h1_hands, "ms": h1_ms,
+               "ns_per_table_step": h1_ms * 1e6 / (T_FULL * H_STEPS),
+               "stats": stats, "steps_per_hand": port_sph,
+               "k4_steps_per_hand": k4_steps, "k4_slots_per_hand": k4_slots,
+               "k4_idle_slots_per_hand": k4_slots - k4_steps,
+               "k4_phase_1a_slots_per_hand": slots_per_hand,
+               "phase_1a_less_7.5": slots_per_hand - (ce.DEFER - 1) / 2}
+    log(f"path h1: steps per hand {port_sph:.4f}; K4 {k4_steps:.4f} with "
+        f"DEFER 1, {k4_slots:.4f} slots with DEFER {ce.DEFER} (idle "
+        f"{k4_slots - k4_steps:.4f} slots a hand, (DEFER - 1)/2 = "
+        f"{(ce.DEFER - 1) / 2}); phase 1a's {slots_per_hand:.4f} slots less "
+        f"7.5 = {slots_per_hand - 7.5:.4f}")
+    check(abs(port_sph / k4_steps - 1) < 0.02,
+          "path h1: steps per hand within 2% of K4's")
+    sub_done("h1", t0)
+
+    # (h2) independent hands, standard rules
+    t0 = time.perf_counter()
+    (h2_final, h2_d), h2_ms = timed(lambda: tsp.play_hands(
+        SEED, std, T_FULL, num_hands=1, collect_deltas=True, device=dev))
+    check(not bool(h2_d.sum(2).any()), "path h2: chips conserved on every "
+          "table")
+    h2_actions = int(h2_final.time.sum())
+    mean_bb, se_bb = tsp.position_winrates(h2_d.cpu().numpy(), BB)
+    rec = json.loads((ROOT / "data" / "position_winrates.json").read_text())[
+        "standard_rules_iid_hands"]["positions"]
+    zs = [(mean_bb[k] - rec[str(k)]["bb_per_hand"])
+          / math.hypot(se_bb[k], rec[str(k)]["stderr"]) for k in range(P)]
+    h["h2"] = {"ms": h2_ms, "actions": h2_actions,
+               "ns_per_table_action": h2_ms * 1e6 / h2_actions,
+               "bb_per_hand": mean_bb.tolist(), "stderr": se_bb.tolist(),
+               "z": zs}
+    log(f"path h2: play_hands {T_FULL} tables x 1 hand, {h2_ms:.1f} ms, "
+        f"{h2_actions / T_FULL:.4f} actions a hand; bb/hand by position "
+        f"{np.array2string(mean_bb, precision=4)}, z against "
+        f"data/position_winrates.json {np.array2string(np.array(zs), precision=2)}")
+    check(max(abs(z) for z in zs) < 4, "path h2: every position within 4 "
+          "sigma of data/position_winrates.json")
+    del h2_final, h2_d
+    sub_done("h2", t0)
+
+    # (h3) tournaments at phase 1d's 20-chip stacks, against K4's
+    t0 = time.perf_counter()
+    (h3_final, h3_bust, h3_seats), h3_ms = timed(
+        lambda: tsp.play_tournament(SEED, tour_short, T_FULL, H_TOUR_HANDS,
+                                    device=dev))
+    h3_hands = int(h3_final.hand_idx.sum()) + T_FULL
+    del h3_final
+    seats_np = h3_seats.cpu().numpy()
+    check(bool(((seats_np > 0).sum(1) == 1).all()), "path h3: every table "
+          "froze")
+    check(bool((seats_np.max(1) == P * TOUR_STACK).all()), "path h3: the "
+          f"winner holds {P * TOUR_STACK} chips")
+    h3_places = tsp.tournament_placements(h3_bust.cpu().numpy(), seats_np)
+    check(bool((np.sort(h3_places, 1) == np.arange(1, P + 1)).all()),
+          "path h3: placements a permutation of 1..P on every table")
+    k4_tour, _ = ce.tournaments_to_completion(
+        SEED, tour_short, T_FULL, steps_per_launch=TOUR_LAUNCH, device=dev)
+    k4_places, k4_frozen = ce.tournament_results(k4_tour, tour_short)
+    del k4_tour
+    check(bool(k4_frozen.all()), "path h3: K4's tournaments all complete")
+    wins = np.stack([np.bincount((h3_places == 1).argmax(1), minlength=P),
+                     np.bincount((k4_places == 1).argmax(1), minlength=P)])
+    chi2 = float((((wins - wins.sum(0) * wins.sum(1)[:, None]
+                    / wins.sum()) ** 2)
+                  / (wins.sum(0) * wins.sum(1)[:, None] / wins.sum())).sum())
+    p_wins = chi2_sf(chi2, P - 1)
+    h["h3"] = {"ms": h3_ms, "hands": h3_hands,
+               "last_bust_hand": int(h3_bust[h3_bust <= H_TOUR_HANDS].max()),
+               "win_share": (wins[0] / T_FULL).tolist(),
+               "k4_win_share": (wins[1] / T_FULL).tolist(),
+               "chi2": chi2, "p": p_wins}
+    log(f"path h3: play_tournament {T_FULL} tables, {TOUR_STACK}-chip "
+        f"stacks, {h3_hands} hands, the last bust at hand "
+        f"{h['h3']['last_bust_hand']}, {h3_ms:.1f} ms; win share by seat "
+        f"{np.array2string(wins[0] / T_FULL, precision=4)}, K4's "
+        f"{np.array2string(wins[1] / T_FULL, precision=4)}: chi^2 "
+        f"{chi2:.2f} over {P - 1} dof, p {p_wins:.4f}")
+    check(p_wins > H_P, "path h3: the win shares agree with K4's")
+    del h3_bust, h3_seats
+    sub_done("h3", t0)
+
+    # (h4) the net pipeline against K5 and K5b, bit for bit, on phase
+    # 1b/1c's inputs
+    t0 = time.perf_counter()
+    L = ce._L_for("standard")
+    h4cfg = TableConfig(num_seats=P, rules="standard", max_layers=L,
+                        max_pot_layers=4 * L)
+    rows = ce._stash_rows(stash_net).permute(2, 0, 1)
+    h4_decks = erp.decks_from_deals(rows.reshape(-1, 2 * P + 5)).reshape(
+        T_NET, NET_HMAX, 52)
+    del rows
+    st0 = tstate.redeal(tstate.init_state(SEED, h4cfg, T_NET, dev),
+                        h4_decks[:, 0])
+    bad = erp.against_pack_state(st_net_det, h4cfg, st0)
+    check(not bad, f"path h4: init_state + redeal equals pack_state "
+                   f"(differs in {bad})")
+    h["h4"] = {}
+    for key, banks, stb, weights in (
+            ("K5", [panel["fof_raise"]], None, w_bot),
+            ("K5b", [panel["jam_tight"], panel["fof_call"]], seat0,
+             w_det_banks)):
+        k5 = cn.run_net_det(st_net_det, stash_net, weights, P,
+                            NET_DET_STEPS, SB, BB, "standard", stb)
+        check(torch.equal(k5, {"K5": k5_out, "K5b": k5b_out}[key]),
+              f"path h4: {key} relaunched gives phase 1's output")
+        (rep, ms) = timed(lambda: erp.replay_net_det(
+            h4cfg, st0, banks, stb, h4_decks, NET_DET_STEPS))
+        agree = erp.against_k5(k5, h4cfg, rep)
+        parted = (agree.k3_overflow != rep.overflow).nonzero()
+        if len(parted):
+            t = int(parted[0])
+            log(f"path h4 {key}: the overflow sets part at table {t}: "
+                f"{key} {bool(agree.k3_overflow[t])}, the engine's first "
+                f"overflow at step {int(rep.overflow_at[t])} (-1: none)")
+        check(not len(parted), f"path h4 {key}: the overflow sets are equal")
+        for name, bad in agree.mismatch.items():
+            if bool(bad.any()):
+                log(f"path h4 {key}: {name} parts first at table "
+                    f"{int(bad.nonzero()[0])}")
+            check(not bool(bad.any()), f"path h4 {key}: {name} equals "
+                  f"{key}'s on every table within capacity")
+        clean = float((~agree.k3_overflow).float().mean())
+        check(clean > 0.9, f"path h4 {key}: over 90% of tables within "
+                           f"capacity")
+        h["h4"][key] = {"hands": int(rep.hand_ct.sum()),
+                        "overflowed": int(agree.k3_overflow.sum()),
+                        "within_capacity": clean, "ms": ms,
+                        "ns_per_table_step":
+                            ms * 1e6 / (T_NET * NET_DET_STEPS)}
+        log(f"path h4: replay_net_det ({key}: "
+            f"{'jam_tight / fof_call' if stb else 'fof_raise'}) {T_NET} "
+            f"tables x {NET_DET_STEPS} steps equals {key} on the "
+            f"{clean:.4%} within capacity, overflow sets equal "
+            f"({h['h4'][key]['overflowed']}), {h['h4'][key]['hands']} hands, "
+            f"{ms:.1f} ms")
+        del rep, agree, k5
+    del h4_decks, st0
+    sub_done("h4", t0)
+
+    # (h5) es3 against the random policy through pinned_seat_policies and
+    # net_policy, against K6's seat-0 meters. K6 starts every hand from
+    # full stacks, es3 at seat 0, the button moving one seat a hand: seat 0
+    # plays position (-h) mod P in hand h. So the port plays one-hand runs
+    # (full stacks, button 0) with es3 at each position p, and weighs
+    # position p by K6's share of hands there (from K6's per-table hand
+    # counts).
+    t0 = time.perf_counter()
+    state = st_net0
+    for done in range(0, NET_SLOTS, NET_LAUNCH):
+        state = cn.run_net_eval((SEED + done * 7919) & 0x7FFFFFFF, state,
+                                w_es3, P, NET_LAUNCH, SB, BB, SS,
+                                "standard", 1)
+    k6_meters = cn.seat_meters(state, std)
+    check(all(np.array_equal(a, b) for a, b in
+              zip(k6_meters, (net_means, net_errs, net_hands))),
+          "path h5: K6 relaunched gives phase 1b's meters")
+    n_t = ce.unpack_field(state, std, "hand_ct").cpu().numpy()
+    del state
+    share = np.array([((n_t[:, None] - 1 - ((-p) % P)) // P + 1).clip(0)
+                      .sum() for p in range(P)], np.float64) / n_t.sum()
+    pos_means, pos_errs, h5_ms = [], [], 0.0
+    for p in range(P):
+        pol = tpol.pinned_seat_policies(
+            [tpn.net_policy(es3) if s == p else tpol.random_policy
+             for s in range(P)])
+        (_, d), ms = timed(lambda: tsp.play_hands(
+            SEED + 10 + p, std, T_NET, num_hands=1, policy=pol,
+            collect_deltas=True, device=dev))
+        h5_ms += ms
+        x = d[:, 0, p].double().cpu().numpy() / BB
+        pos_means.append(x.mean())
+        pos_errs.append(x.std(ddof=1) / math.sqrt(len(x)))
+    h5_mean = float(np.dot(share, pos_means))
+    h5_err = float(np.sqrt(np.dot(share ** 2, np.square(pos_errs))))
+    z5 = (h5_mean - net_means[0]) / math.hypot(h5_err, net_errs[0])
+    h["h5"] = {"position_share": share.tolist(),
+               "bb_per_hand_by_position": pos_means,
+               "stderr_by_position": pos_errs, "bb_per_hand": h5_mean,
+               "stderr": h5_err, "k6_bb_per_hand": float(net_means[0]),
+               "k6_stderr": float(net_errs[0]), "z": z5, "ms": h5_ms}
+    log(f"path h5: es3 by position (one-hand runs, {T_NET} tables each) "
+        f"{np.array2string(np.array(pos_means), precision=4)}; weighed by "
+        f"K6's position shares {np.array2string(share, precision=4)}: "
+        f"{h5_mean:+.4f} +- {h5_err:.4f} bb/hand against K6's seat 0 "
+        f"{net_means[0]:+.4f} +- {net_errs[0]:.4f}, z {z5:+.2f}; "
+        f"{h5_ms:.1f} ms")
+    check(abs(z5) < 4, "path h5: the net's bb/hand within 4 sigma of K6's")
+    sub_done("h5", t0)
+
+    # (h6) duplicate matches, heads-up standard rules
+    t0 = time.perf_counter()
+    self_match = tev.duplicate_match(SEED, tpol.always_call,
+                                     tpol.always_call, T_FULL, device=dev)
+    check(self_match.bb_per_hand == 0.0,
+          "path h6: the calling station against itself scores exactly 0")
+    edge, h6_ms = timed(lambda: tev.duplicate_match(
+        SEED, tpol.always_call, tpol.tight_policy, T_FULL, device=dev))
+    check(edge.bb_per_hand > 0.1, "path h6: the calling station beats the "
+          "half-folder by more than 0.1 bb/hand")
+    hu = tpn.net_policy(tpn.load_params(ROOT / "data" / "policy_hu_300.npz"))
+    multi = tev.duplicate_match_multihand(SEED, hu, tpol.random_policy,
+                                          T_NET, H_DUP_HANDS, device=dev)
+    swapped = tev.duplicate_match_multihand(SEED, tpol.random_policy, hu,
+                                            T_NET, H_DUP_HANDS, device=dev)
+    check(multi.ci95[0] > 0, "path h6: policy_hu_300 beats random, 95% "
+          "interval above 0")
+    check(multi.bb_per_hand + swapped.bb_per_hand == 0.0,
+          "path h6: swapping the policies negates the estimate exactly")
+    h["h6"] = {"self_match": self_match.bb_per_hand,
+               "call_vs_tight": [edge.bb_per_hand, edge.stderr],
+               "call_vs_tight_ms": h6_ms,
+               "hu_300_vs_random": [multi.bb_per_hand, multi.stderr],
+               "swapped": swapped.bb_per_hand}
+    log(f"path h6: self-match {self_match.bb_per_hand}; call vs tight "
+        f"{edge.bb_per_hand:+.4f} +- {edge.stderr:.4f} ({T_FULL} tables, "
+        f"{h6_ms:.1f} ms); policy_hu_300 vs random over {H_DUP_HANDS} "
+        f"hands {multi.bb_per_hand:+.4f} +- {multi.stderr:.4f} ({T_NET} "
+        f"tables), swapped {swapped.bb_per_hand:+.4f}")
+    sub_done("h6", t0)
+
+    h_launches = {"K4": ce.LAUNCHES["engine_prng_reference"],
+                  "K4t": ce.LAUNCHES["engine_prng_tournament"],
+                  "K5": cn.LAUNCHES["net_det_standard"],
+                  "K5b": cn.LAUNCHES["net_det_banked_standard"],
+                  "K6": cn.LAUNCHES["net_eval_standard"]}
+    log(f"path h launches: {h_launches}")
+    check(all(v > 0 for v in h_launches.values()),
+          "path h: K4, K5 and K6 each launched")
+    others = {k: v for k, v in {**cq.LAUNCHES, **ce.LAUNCHES, **cn.LAUNCHES,
+                                **cc.LAUNCHES, **cs.LAUNCHES,
+                                **philox.LAUNCHES}.items()
+              if k not in ("engine_prng_reference", "engine_prng_tournament",
+                           "net_det_standard", "net_det_banked_standard",
+                           "net_eval_standard")}
+    check(not any(others.values()), f"path h launches no other kernel "
+          f"({ {k: v for k, v in others.items() if v} })")
+    sync()
+    h_s["path"] = time.perf_counter() - t_h
+    log(json.dumps({"path_h": h, "path_h_seconds": h_s,
+                    "path_h_launches": h_launches,
+                    "path_h_peak_bytes": torch.cuda.max_memory_allocated(dev),
+                    "card": smi}))
+    phase_done("8 self-play and evaluation")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 

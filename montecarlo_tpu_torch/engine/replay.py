@@ -8,7 +8,9 @@ functions on the same stream and computes those meters beside it, as the
 JAX test ``tests/test_pallas_engine.py:_replica`` does. ``k3_fields`` gives
 a state under K3's field names; ``against_pack_state`` and ``against_k3``
 compare a first state with ``pack_state``'s and a replay with K3's output,
-field by field through ``cuda_engine.unpack_field``.
+field by field through ``cuda_engine.unpack_field``. ``replay_net_det``
+is the engine driven the way K5 (``ops/cuda_net.run_net_det``) is, every
+seat playing a net by argmax, and ``against_k5`` holds it to K5's output.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from montecarlo_tpu_torch.engine.step import (
     settle_showdown,
     step_table,
 )
+from montecarlo_tpu_torch.models import policy_net as tpn
+from montecarlo_tpu_torch.models.features import state_features
 from montecarlo_tpu_torch.ops.cuda_engine import unpack_field
 
 I32 = torch.int32
@@ -80,22 +84,17 @@ def _roll_rows(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return x.gather(1, torch.remainder(j - shift[:, None], P).long())
 
 
-def replay_injected(cfg: TableConfig, state: TableState, actions,
-                    deals) -> Replay:
-    """``actions.shape[0]`` steps of ``clamp_action`` + ``step_table`` from
-    ``state`` on raw actions int [n_steps, T] and per-hand deals int
-    [T, hmax, 2P+5]: whenever a table's hand counter moves, its new hand is
-    redealt from deal row min(hand, hmax - 1), as K3 reads its stash.
-
-    A hand's settled stacks are recomputed with the same functions
-    (``settle_showdown`` of the acted state) for ``delta_sum``. The street's
-    overflow latch is cleared at each deal, where K3 keeps its own, so a
-    table's ``overflow_at`` is the first step whose action latched it."""
+def _replay(cfg: TableConfig, state: TableState, n_steps: int, raw_action,
+            deck_of) -> Replay:
+    """``n_steps`` steps of ``clamp_action`` + ``step_table`` from
+    ``state`` on ``raw_action(i, state)`` (int [T]); a table whose hand
+    counter moves is redealt from ``deck_of(row)`` (int32 [T, 52] for deal
+    rows int64 [T]), row min(hand, hmax - 1) as the engine kernels read
+    their stash (``deck_of`` clamps). The meters beside the state are
+    recomputed as ``replay_injected`` says."""
     rules, P = cfg.rules, cfg.num_seats
-    T, hmax = deals.shape[0], deals.shape[1]
+    T = state.n_tables
     dev = state.stacks.device
-    actions = torch.as_tensor(actions, device=dev).to(I32)
-    deals = torch.as_tensor(deals, device=dev).to(I32)
     hand_start = torch.full((T, P), cfg.starting_stack, dtype=I32,
                             device=dev)
     delta_sum = torch.zeros((T, P), dtype=I32, device=dev)
@@ -103,10 +102,10 @@ def replay_injected(cfg: TableConfig, state: TableState, actions,
     bust_at = torch.full((T, P), -1, dtype=I32, device=dev)
     overflow_at = torch.full((T,), -1, dtype=I32, device=dev)
     seats = torch.arange(P, dtype=I32, device=dev)[None]
-    for i, a in enumerate(actions):
+    for i in range(n_steps):
         st = state
         _, _, exists = head_info(st)
-        ca = clamp_action(st, a)
+        ca = clamp_action(st, raw_action(i, st))
         nxt = step_table(st, ca, rules=rules)
         applied = apply_action(st, ca, rules=rules)
         # the action's own street: an action that ends the street moves
@@ -134,12 +133,71 @@ def replay_injected(cfg: TableConfig, state: TableState, actions,
         else:
             pre = torch.roll(settled, -1, dims=1)
         hand_start = torch.where(done[:, None], pre, hand_start)
-        row = nxt.hand_idx.clamp(max=hmax - 1).long()
-        deal = deals.gather(1, row.view(T, 1, 1).expand(T, 1,
-                                                        deals.shape[2]))[:, 0]
-        redealt = redeal(nxt, decks_from_deals(deal))
+        redealt = redeal(nxt, deck_of(nxt.hand_idx.long()))
         state = _select_tree(nxt.hand_idx != st.hand_idx, redealt, nxt)
     return Replay(state, hand_ct, delta_sum, bust_at, overflow_at)
+
+
+def _rows_of(stash: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    """stash[t, min(row[t], hmax - 1)] per table, stash [T, hmax, n]."""
+    T, hmax, n = stash.shape
+    row = row.clamp(max=hmax - 1)
+    return stash.gather(1, row.view(T, 1, 1).expand(T, 1, n))[:, 0]
+
+
+def replay_injected(cfg: TableConfig, state: TableState, actions,
+                    deals) -> Replay:
+    """``actions.shape[0]`` steps of ``clamp_action`` + ``step_table`` from
+    ``state`` on raw actions int [n_steps, T] and per-hand deals int
+    [T, hmax, 2P+5]: whenever a table's hand counter moves, its new hand is
+    redealt from deal row min(hand, hmax - 1), as K3 reads its stash.
+
+    A hand's settled stacks are recomputed with the same functions
+    (``settle_showdown`` of the acted state) for ``delta_sum``. The street's
+    overflow latch is cleared at each deal, where K3 keeps its own, so a
+    table's ``overflow_at`` is the first step whose action latched it."""
+    dev = state.stacks.device
+    actions = torch.as_tensor(actions, device=dev).to(I32)
+    deals = torch.as_tensor(deals, device=dev).to(I32)
+    return _replay(cfg, state, actions.shape[0], lambda i, st: actions[i],
+                   lambda row: decks_from_deals(_rows_of(deals, row)))
+
+
+def replay_net_det(cfg: TableConfig, state: TableState, banks,
+                   seat_to_bank, decks, n_steps: int) -> Replay:
+    """The net pipeline of K5 on the engine (``tests/test_pallas_engine.py:
+    xla_net_det_reference``): ``n_steps`` steps in which each table's head
+    plays its bank by argmax, ``state_features`` -> ``policy_logits`` (the
+    fold masked where nothing is owed) -> ``action_from_index`` ->
+    ``clamp_action`` -> ``step_table``; each new hand is dealt from
+    ``decks`` int [T, hmax, 52] row min(hand_idx, hmax - 1) with
+    ``redeal``.
+
+    ``banks`` is a list of ``MLPParams``; stable seat s (= (button +
+    position) % P) plays ``banks[seat_to_bank[s]]`` (every seat bank 0
+    when ``seat_to_bank`` is None). Returns a ``Replay`` with K5's meters
+    (``replay_injected``'s)."""
+    P = cfg.num_seats
+    dev = state.stacks.device
+    decks = torch.as_tensor(decks, device=dev).to(I32)
+    stb = torch.tensor(seat_to_bank or (0,) * P, dtype=torch.int64,
+                       device=dev)
+    banks = [tpn.MLPParams(*(x.to(dev, torch.float32) for x in b))
+             for b in banks]
+
+    def argmax_action(_, st):
+        pos, _, _ = head_info(st)
+        bank = stb[torch.remainder(st.button + pos, P).long()]
+        feats = state_features(st)
+        logits = tpn.policy_logits(banks[0], feats)
+        for b in range(1, len(banks)):
+            logits = torch.where((bank == b)[:, None],
+                                 tpn.policy_logits(banks[b], feats), logits)
+        return tpn.action_from_index(
+            tpn.first_max(tpn.masked_logits(logits, st)), st)
+
+    return _replay(cfg, state, n_steps, argmax_action,
+                   lambda row: _rows_of(decks, row))
 
 
 def _bitmask(mask: torch.Tensor) -> torch.Tensor:
@@ -236,3 +294,14 @@ def against_k3(packed: torch.Tensor, cfg: TableConfig,
             bad |= diff
         mismatch[name] = bad
     return K3Agreement(k3_over, mismatch, frozen_fresh)
+
+
+def against_k5(packed: torch.Tensor, cfg: TableConfig,
+               rep: Replay) -> K3Agreement:
+    """Hold ``replay_net_det`` against K5's packed output
+    (``ops/cuda_net.run_net_det``) on the same deal stash: K3's field view
+    and comparison (``against_k3``). The net kernels run reference and
+    standard rules, where no table freezes."""
+    if cfg.rules == "tournament":
+        raise ValueError("the net kernels run reference and standard rules")
+    return against_k3(packed, cfg, rep)

@@ -143,15 +143,17 @@ def table_keys(seed: int, n_tables: int, device=None) -> torch.Tensor:
 def shuffled_decks(key: torch.Tensor, hand_idx: torch.Tensor) -> torch.Tensor:
     """int32 [T, 52]: each table's deck for hand ``hand_idx``, the stable
     sort order of the 52 words of Philox stream (key[0], key[1], hand,
-    ``DECK_SUB``) (ties, at 2^-32 a pair, go to the lower index)."""
-    k0, k1 = key[:, 0], key[:, 1]
-    zero = torch.zeros_like(k0)
-    hand = hand_idx.to(I64) & MASK
-    words = []
-    for block in range(NUM_CARDS // 4):
-        words.extend(philox4x32_10((zero + block, hand, zero + DECK_SUB,
-                                    zero), (k0, k1)))
-    words = torch.stack(words, dim=1)
+    ``DECK_SUB``) (ties, at 2^-32 a pair, go to the lower index).
+
+    The 13 Philox blocks of a deck are one [T, 13] computation, so a deck
+    costs one block's operations (word 4b + i is output i of block b)."""
+    k0, k1 = key[:, :1], key[:, 1:]
+    hand = (hand_idx.to(I64) & MASK)[:, None]
+    block = torch.arange(NUM_CARDS // 4, dtype=I64, device=key.device)[None]
+    zero = torch.zeros_like(hand) + 0 * block
+    words = philox4x32_10((zero + block, zero + hand, zero + DECK_SUB,
+                           zero), (k0, k1))
+    words = torch.stack(words, dim=2).reshape(-1, NUM_CARDS)
     return torch.sort(words, dim=1, stable=True).indices.to(I32)
 
 

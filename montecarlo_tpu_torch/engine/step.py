@@ -25,6 +25,7 @@ from montecarlo_tpu_torch.engine.bets import Layers, member_matrix
 from montecarlo_tpu_torch.engine.state import (
     TableState,
     _select_tree,
+    _tree_map,
     next_hand,
 )
 from montecarlo_tpu_torch.engine.street import (
@@ -306,6 +307,17 @@ def step_action(state: TableState, action, rules: str = "reference"
     return _select_tree(state.hand_over | ~exists, state, out)
 
 
+def _take(state: TableState, idx: torch.Tensor) -> TableState:
+    """The tables ``idx`` (int64 [n]) of a state, field by field."""
+    return _tree_map(lambda x: x.index_select(0, idx), state)
+
+
+def _put(state: TableState, idx: torch.Tensor, sub: TableState
+         ) -> TableState:
+    """``state`` with the tables ``idx`` replaced by ``sub``'s rows."""
+    return _tree_map(lambda x, y: x.index_copy(0, idx, y), state, sub)
+
+
 def step_table(state: TableState, action, rules: str = "reference"
                ) -> TableState:
     """The perpetual-table step (``gameplay.clj:122-150``): on game end,
@@ -313,13 +325,23 @@ def step_table(state: TableState, action, rules: str = "reference"
 
     A table with ``hand_over`` latched is returned unchanged: under
     tournament rules ``next_hand`` freezes a finished table that way, a
-    fixed point of this step."""
+    fixed point of this step.
+
+    Settling and dealing are per-table functions, so they run on the
+    tables whose hand ended only (gathered, then scattered back): the same
+    result as the JAX form's compute-everywhere-and-select, without a deck
+    for every table at every step. Finding those tables is one host read
+    a step."""
     _, _, exists = head_info(state)
     acted = apply_action(state, action, rules=rules)
     advanced = _advance_streets(acted, rules)
-    ended = game_end(advanced)
-    settled = settle_showdown(advanced, rules=rules)
-    settled = next_hand(settled._replace(
-        hand_over=torch.zeros_like(settled.hand_over)), rules=rules)
-    out = _select_tree(ended, settled, advanced)
-    return _select_tree(state.hand_over | ~exists, state, out)
+    live = ~state.hand_over & exists
+    idx = (game_end(advanced) & live).nonzero()[:, 0]
+    out = advanced
+    if idx.numel():
+        ended = _take(advanced, idx)
+        settled = settle_showdown(ended, rules=rules)
+        settled = next_hand(settled._replace(
+            hand_over=torch.zeros_like(settled.hand_over)), rules=rules)
+        out = _put(advanced, idx, settled)
+    return _select_tree(live, out, state)

@@ -10,6 +10,12 @@ The net kernels (``csrc/net.cuh:mc_mlp_rows``) sum in the same order
 with ``__fmul_rn``/``__fadd_rn``, so the kernel and this function give the
 same logits bit for bit. JAX's matmul sums in another order: the two
 agree within float32 rounding, not bit for bit.
+
+``net_policy`` plays the net on the table engine (``engine/``) as a
+``rollout/policy`` policy: ``state_features`` -> ``policy_logits`` -> the
+fold masked where nothing is owed -> a categorical pick (Gumbel-max on the
+key's Philox words, as K6 picks) or, with ``greedy``, the argmax (K5's
+rule) -> ``action_from_index``.
 """
 
 from __future__ import annotations
@@ -21,9 +27,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from montecarlo_tpu_torch.models.features import NUM_FEATURES
+from montecarlo_tpu_torch.engine.step import head_info
+from montecarlo_tpu_torch.engine.street import bets_needed, bets_total
+from montecarlo_tpu_torch.models.features import NUM_FEATURES, state_features
 
 F32 = torch.float32
+I32 = torch.int32
+FOLD_MASK = -1e9  # added to the fold logit when nothing is owed
 
 NUM_ACTIONS = 4  # fold, call/check, raise 2bb, raise pot
 HIDDEN = 64
@@ -74,6 +84,13 @@ def load_params(path) -> MLPParams:
     return params_from_numpy(leaves)
 
 
+def save_params(path, params: MLPParams) -> None:
+    """Write an ``.npz`` artifact (``p_0`` .. ``p_5``), as the JAX
+    ``save_params`` does; ``load_params`` reads it back."""
+    np.savez_compressed(path, **{f"p_{i}": x.detach().cpu().numpy()
+                                 for i, x in enumerate(params)})
+
+
 def _dense(x, w, b):
     """[..., n_in] -> [..., n_out]: b + x_0 w_0 + x_1 w_1 + ..., in order."""
     acc = b.expand(*x.shape[:-1], w.shape[1])
@@ -102,3 +119,58 @@ class PolicyNet(nn.Module):
 
     def forward(self, feats):
         return policy_logits(self.params(), feats)
+
+
+def action_from_index(idx, state) -> torch.Tensor:
+    """Menu index int [T] -> the engine action int32 [T] (``action.clj``
+    encoding): fold, call, raise 2bb, raise max(pot + needed, 2bb)."""
+    seat, _, _ = head_info(state)
+    live = (torch.arange(state.pots.capacity, device=seat.device)[None]
+            < state.pots.count[:, None])
+    pot = bets_total(state.bets) + torch.where(live, state.pots.amt, 0) \
+        .sum(1, dtype=I32)
+    needed = bets_needed(state.bets, seat)
+    small = 2 * state.big_blind
+    pot_raise = torch.maximum(pot + needed, small)
+    idx = torch.as_tensor(idx, device=seat.device)
+    return torch.where(idx == 0, -1, torch.where(
+        idx == 1, 0, torch.where(idx == 2, small, pot_raise))).to(I32)
+
+
+def first_max(x: torch.Tensor) -> torch.Tensor:
+    """The first index attaining the max of each row of ``x`` [T, n]."""
+    cols = torch.arange(x.shape[1], dtype=I32, device=x.device)[None]
+    return torch.where(x == x.amax(1, keepdim=True), cols,
+                       x.shape[1]).amin(1)
+
+
+def masked_logits(logits: torch.Tensor, state) -> torch.Tensor:
+    """Logits [T, NUM_ACTIONS] with ``FOLD_MASK`` added to the fold where
+    the head owes nothing (a free fold is a wasted check)."""
+    seat, _, _ = head_info(state)
+    free = bets_needed(state.bets, seat) == 0
+    mask = torch.where(free, FOLD_MASK, 0.0).to(F32)
+    return torch.cat([logits[:, :1] + mask[:, None], logits[:, 1:]], dim=1)
+
+
+def net_policy(params: MLPParams, greedy: bool = False):
+    """``params`` as a policy ``(key, state, street_raises) -> action``
+    (``rollout/policy.py``): ``masked_logits``, then a categorical
+    pick by Gumbel-max on the key's four words (u = (word >> 8) 2^-24,
+    g = -log(-log(max(u, 1e-12))), K6's pick) or, with ``greedy``, the
+    first argmax (K5's)."""
+    on_device = {}
+
+    def policy(key, state, street_raises):
+        del street_raises
+        feats = state_features(state)
+        dev = feats.device
+        if dev not in on_device:
+            on_device[dev] = MLPParams(*(x.to(dev, F32) for x in params))
+        logits = masked_logits(policy_logits(on_device[dev], feats), state)
+        if not greedy:
+            u = (key.words(NUM_ACTIONS).T >> 8).to(F32) * 2.0 ** -24
+            logits = logits - torch.log(-torch.log(u.clamp(min=1e-12)))
+        return action_from_index(first_max(logits), state)
+
+    return policy

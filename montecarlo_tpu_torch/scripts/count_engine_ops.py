@@ -3,11 +3,14 @@
 ``engine/step.step_table`` is plain PyTorch: every operation is a kernel
 launch over the whole batch, reading and writing its tensors in device
 memory. This script runs one ``clamp_action`` + ``step_table`` under each
-rule set (6-max, K3's capacities) on ``--tables`` fresh tables on the CPU
-and counts, through a dispatch mode, the operations and the bytes of
-their tensor inputs and outputs, scaled to 2^20 tables; and the same for
-``state.shuffled_decks``, the deal ``next_hand`` computes for every table
-in every step. Counts only: a time comes from a run on the card.
+rule set (6-max, K3's capacities) on ``--tables`` tables on the CPU and
+counts, through a dispatch mode, the operations and the bytes of their
+tensor inputs and outputs, scaled to 2^20 tables: a step in which no
+table's hand ends (a call on the first action, ``continues``) and one in
+which every table's hand ends (the fifth fold, ``ends``: the settlement
+and the next deal run on the ended tables only); and the same for
+``state.shuffled_decks``, the deal of ``next_hand``. Counts only: a time
+comes from a run on the card.
 
     python -m montecarlo_tpu_torch.scripts.count_engine_ops [--tables N]
 
@@ -66,8 +69,15 @@ def main(argv=None) -> dict:
         cfg = tstate.TableConfig(num_seats=6, rules=rules, max_layers=L,
                                  max_pot_layers=4 * L)
         st = tstate.init_state(0, cfg, args.tables, "cpu")
-        out[rules] = count(lambda: tstep.step_table(
-            st, tstep.clamp_action(st, 0), rules=rules), args.tables)
+        last = st
+        for _ in range(cfg.num_seats - 2):
+            last = tstep.step_table(last, -1, rules=rules)
+        out[rules] = {
+            "continues": count(lambda: tstep.step_table(
+                st, tstep.clamp_action(st, 0), rules=rules), args.tables),
+            "ends": count(lambda: tstep.step_table(
+                last, tstep.clamp_action(last, -1), rules=rules),
+                args.tables)}
     out["shuffled_decks"] = count(
         lambda: tstate.shuffled_decks(st.key, st.hand_idx), args.tables)
     print(json.dumps(out))

@@ -787,3 +787,56 @@ def test_sample_distinct_and_vs_range_card_equal_cpu(cuda):
     args = (9, AKS, qk, (1 << 16) + 5)
     assert teq.equity_vs_range(*args, weights=np.arange(1, 13), device=cuda) \
         == teq.equity_vs_range(*args, weights=np.arange(1, 13), device="cpu")
+
+
+def _states_equal(a, b):
+    for x, y in zip(tstate.state_to_numpy(a), tstate.state_to_numpy(b)):
+        for u, v in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.parametrize("rules", ["reference", "standard"])
+def test_selfplay_card_equals_cpu(cuda, rules):
+    """Perpetual and independent-hand self-play under the random policy:
+    the card's first tables equal a CPU run's field by field (the same
+    Philox decks and policy words), and no kernel launches."""
+    from montecarlo_tpu_torch.rollout import selfplay as tsp
+
+    cfg = TableConfig(num_seats=6, rules=rules)
+    ce.reset_launches()
+    card, _ = tsp.play_hands_perpetual(4, cfg, 4096, 96, device=cuda)
+    cpu, _ = tsp.play_hands_perpetual(4, cfg, 256, 96, device="cpu")
+    _states_equal(tstate._tree_map(lambda x: x[:256].cpu(), card), cpu)
+    final, deltas = tsp.play_hands(5, cfg, 4096, num_hands=3,
+                                   collect_deltas=True, device=cuda)
+    cf, cd = tsp.play_hands(5, cfg, 256, num_hands=3, collect_deltas=True,
+                            device="cpu")
+    _states_equal(tstate._tree_map(lambda x: x[:256].cpu(), final), cf)
+    assert torch.equal(deltas[:256].cpu(), cd)
+    assert not any(ce.LAUNCHES.values())
+
+
+def test_tournament_and_net_selfplay_card_equal_cpu(cuda):
+    """Tournaments to the last table, and a net pinned to a seat with
+    Gumbel draws: the card's first tables equal the CPU's (the logits are
+    the same bits on both; the Gumbel noise's logarithms may differ in the
+    last bit between the two devices, which moves a pick only on a tie
+    within an ulp)."""
+    from montecarlo_tpu_torch.rollout import policy as tpol
+    from montecarlo_tpu_torch.rollout import selfplay as tsp
+
+    tour = TableConfig(num_seats=6, rules="tournament", starting_stack=20)
+    card = tsp.play_tournament(6, tour, 4096, 200, device=cuda)
+    cpu = tsp.play_tournament(6, tour, 256, 200, device="cpu")
+    _states_equal(tstate._tree_map(lambda x: x[:256].cpu(), card[0]), cpu[0])
+    for a, b in zip(card[1:], cpu[1:]):
+        assert torch.equal(a[:256].cpu(), b)
+    std = TableConfig(num_seats=6, rules="standard")
+    es3 = tpn.load_params("data/policy_6max_es3.npz")
+    policy = tpol.pinned_seat_policies(
+        [tpn.net_policy(es3)] + [tpol.random_policy] * 5)
+    _, d = tsp.play_hands(7, std, 4096, num_hands=2, policy=policy,
+                          collect_deltas=True, device=cuda)
+    _, dc = tsp.play_hands(7, std, 256, num_hands=2, policy=policy,
+                           collect_deltas=True, device="cpu")
+    assert torch.equal(d[:256].cpu(), dc)

@@ -32,6 +32,9 @@ from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.ops import evaluator as tev
 from montecarlo_tpu_torch.ops import philox
 from montecarlo_tpu_torch.rollout import equity as teq
+from montecarlo_tpu_torch.rollout import evaluate as tev_
+from montecarlo_tpu_torch.rollout import policy as tpol
+from montecarlo_tpu_torch.rollout import selfplay as tsp
 from montecarlo_tpu_torch.scripts import build_pushfold_cr as bpc
 from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
 from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
@@ -63,17 +66,23 @@ MODULES = [
     "montecarlo_tpu_torch.models.bots",
     "montecarlo_tpu_torch.models.train_es",
     "montecarlo_tpu_torch.models.pushfold",
+    "montecarlo_tpu_torch.models",
     "montecarlo_tpu_torch.rollout",
     "montecarlo_tpu_torch.rollout.equity",
+    "montecarlo_tpu_torch.rollout.policy",
+    "montecarlo_tpu_torch.rollout.selfplay",
+    "montecarlo_tpu_torch.rollout.evaluate",
     "montecarlo_tpu_torch.scripts",
     "montecarlo_tpu_torch.scripts.exp_carry_model",
     "montecarlo_tpu_torch.scripts.debug_kernel_compile",
     "montecarlo_tpu_torch.scripts.build_pushfold_cr",
     "montecarlo_tpu_torch.scripts.count_engine_ops",
+    "montecarlo_tpu_torch.scripts.time_step_table",
 ]
 # Runs the port's CPU path (equity and multiway equity, range equity and
-# push/fold, the table engine's step and host view, the engine kernels'
-# plain versions under every rule set, tournaments to completion,
+# push/fold, the table engine's step and host view, self-play under every
+# rule set, a net policy in a duplicate match, the net pipeline's replay,
+# the engine kernels' plain versions under every rule set, tournaments to completion,
 # net evaluation, an ES generation on the population form with a rule
 # bot's league, the two ported probe scripts) in a fresh process, then
 # lists what it loaded of JAX and of the JAX package.
@@ -111,6 +120,24 @@ for rules in ("reference", "standard", "tournament"):
     assert int(st.time.sum()) == 16
     assert ep.public_board(st, list("abcdef"), 1)["time"] == 1
     assert ce.selfplay_perpetual_kernel(2, cfg, 1024, 32, device="cpu")[1] > 0
+from montecarlo_tpu_torch.rollout import evaluate as ev, policy as pol, \
+    selfplay as sp
+from montecarlo_tpu_torch.engine import replay as rp
+from montecarlo_tpu_torch.models.policy_net import net_policy
+for rules in ("reference", "standard"):
+    cfg = TableConfig(num_seats=6, rules=rules)
+    assert int(sp.play_hands_perpetual(3, cfg, 16, 40, device="cpu")[1]) > 0
+    assert bool(sp.play_hands(3, cfg, 16, device="cpu").hand_over.all())
+tour = TableConfig(num_seats=3, rules="tournament", starting_stack=20)
+assert sp.play_tournament(3, tour, 16, 60, device="cpu")[1].min() < 60
+hu = load_params("data/policy_hu_300.npz")
+assert ev.duplicate_match(3, net_policy(hu), pol.random_policy, 16,
+                          device="cpu").n_tables == 16
+std6 = TableConfig(num_seats=6, rules="standard")
+st0 = es.init_state(3, std6, 16, device="cpu")
+decks = st0.deck[:, None].expand(16, 2, 52)
+rep = rp.replay_net_det(std6, st0, [bots.panel()["fof_raise"]], None, decks, 8)
+assert rep.state.time.shape == (16,)
 tour = TableConfig(num_seats=6, rules="tournament", starting_stack=20)
 state, _ = ce.tournaments_to_completion(2, tour, 1024, 64, device="cpu")
 assert ce.tournament_results(state, tour)[1].all()
@@ -164,6 +191,24 @@ def _public(module):
     return {k: v for k, v in vars(module).items()
             if not k.startswith("_") and not callable(v)
             and not isinstance(v, type(sys))}
+
+
+def test_ported_modules_hold_every_public_name_of_jax():
+    """The self-play, policy and evaluation modules define every public
+    name their JAX counterparts define; the net modules the table-engine
+    forms."""
+    import importlib
+
+    for name in ("rollout.policy", "rollout.selfplay", "rollout.evaluate"):
+        theirs = importlib.import_module("montecarlo_tpu." + name)
+        ours = importlib.import_module("montecarlo_tpu_torch." + name)
+        names = {k for k, v in vars(theirs).items() if not k.startswith("_")
+                 and getattr(v, "__module__", None) == theirs.__name__}
+        assert names and names <= set(vars(ours)), names - set(vars(ours))
+    for mod, names in ((tfeatures, ("state_features", "features")),
+                       (tpolicy_net, ("action_from_index", "net_policy",
+                                      "save_params", "load_params"))):
+        assert all(callable(getattr(mod, n)) for n in names)
 
 
 def test_shared_encodings_and_table_config_match_jax():
@@ -237,6 +282,11 @@ def test_cuda_requests_raise_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         ce.selfplay_perpetual_kernel(0, cfg, 1024, 16, device="cuda")
     with pytest.raises((RuntimeError, AssertionError)):
+        tsp.play_hands_perpetual(0, cfg, 16, 2, device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        tev_.duplicate_match(0, tpol.always_call, tpol.always_call, 16,
+                             device="cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
         philox.philox_blocks(torch.zeros((1, 6), dtype=torch.int64,
                                          device="cuda"))
     with pytest.raises((RuntimeError, AssertionError)):
@@ -277,6 +327,16 @@ ENTRY_POINTS = {
     "initial_packed_state": lambda: cn.initial_packed_state(0, STD, 1024),
     "init_state": lambda: tstate.init_state(0, TableConfig(num_seats=6),
                                             1024),
+    "play_hands": lambda: tsp.play_hands(0, TableConfig(num_seats=6), 16),
+    "play_hands_perpetual": lambda: tsp.play_hands_perpetual(
+        0, TableConfig(num_seats=6), 16, 2),
+    "play_tournament": lambda: tsp.play_tournament(
+        0, TableConfig(num_seats=6, rules="tournament"), 16, 2),
+    "policy_key": lambda: tpol.policy_key(0, 16, tpol.SUB_HANDS),
+    "duplicate_match": lambda: tev_.duplicate_match(
+        0, tpol.always_call, tpol.tight_policy, 16),
+    "duplicate_match_multihand": lambda: tev_.duplicate_match_multihand(
+        0, tpol.always_call, tpol.tight_policy, 16, 2),
     "deal_stash": lambda: cn.deal_stash(0, 1024, 6, 2),
     "exp_carry_model.main": lambda: ecm.main(n_blocks=1, n_steps=2),
     "sample_distinct": lambda: teq.sample_distinct(0, 48, 5, 1024),

@@ -295,12 +295,17 @@ def test_replay_equals_k3_plain(rules, stack, dense):
 
 def test_count_engine_ops_script():
     """The op and byte count of a step (scripts/count_engine_ops.py):
-    every rule set's step holds the deck's Philox operations and more."""
+    every rule set's step that ends every hand holds the deck's Philox
+    operations and more; a step that ends none deals no deck, so it reads
+    less than the deck and the ending step."""
     from montecarlo_tpu_torch.scripts import count_engine_ops
 
     out = count_engine_ops.main(["--tables", "16"])
     deck = out["shuffled_decks"]
     assert deck["ops"] > 52 and deck["written_gb_at_2^20"] > 0
     for rules in RULES:
-        assert out[rules]["ops"] > deck["ops"]
-        assert out[rules]["read_gb_at_2^20"] > deck["read_gb_at_2^20"]
+        ends, continues = out[rules]["ends"], out[rules]["continues"]
+        assert ends["ops"] > deck["ops"]
+        assert ends["read_gb_at_2^20"] > deck["read_gb_at_2^20"]
+        assert continues["read_gb_at_2^20"] < ends["read_gb_at_2^20"]
+        assert continues["ops"] < ends["ops"]
