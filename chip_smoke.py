@@ -148,7 +148,30 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    bb/hand at 2^20 tables, ``policy_hu_300`` against random over 12 hands
    at 2^18 tables with a 95% interval above 0, negated exactly by the
    swap. It logs each gate's numbers, each self-play form's time (CUDA
-   events), each part's seconds and the peak memory.
+   events), each part's seconds and the peak memory;
+9. training and exploitability (path i, after path h; the ported scripts
+   of ``montecarlo_tpu_torch/scripts/``, K6, B7, B8 and B8 with two banks
+   each launched, no other kernel): (i1) ``league_eval``'s self-check
+   (identical banks on B7 equal K6) and es9 against es8, es7 and distill
+   at 2^16 tables x 512 slots, each edge within 4 sigma of
+   ``data/league_es9_vs_*.json`` (se 2 A_stderr), ``train_br.league_eval``
+   of ``data/br_vs_es9.npz`` and ``eval_attacker`` of
+   ``data/br_solver_vs_es7.npz`` within 4 sigma of their result files;
+   (i2) ``exploit_probe`` on es9 (both geometries): the same best bot and
+   its bound within 4 sigma of ``data/exploitability_es9.json`` (every
+   bot's z logged), the recorded CMA attacker of
+   ``data/exploitability_opt_es9.json`` within 4 sigma of its record, one
+   ``optimize_pair`` at ``opt_bot``'s defaults (logged); (i3)
+   ``train_es_kernel`` from ``policy_6max_200`` (pool random and
+   jam_loose, the fold leash), the start's anchor score equal to the
+   CPU's, the saved center equal to the returned one; (i4) REINFORCE
+   (``models/train.train_policy``) against the calling station improving
+   by 0.05 bb/hand, one update's loss and gradient equal on the card and
+   the CPU within 1e-5, ``train_br`` at its shape with no overflow; (i5)
+   ``fold_gate_check`` and ``policy_diff`` statistics within 4 sigma of
+   ``data/fold_gate_es9.json`` and ``data/diff_es9_es8.json`` (sigma from
+   batch means over 16 groups of tables, times sqrt 2), and
+   ``make_fold_anchor`` logged beside ``data/fold_anchor.npz.json``.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -161,7 +184,9 @@ import atexit
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -253,6 +278,18 @@ H_STEPS = 256
 H_TOUR_HANDS = 200
 H_DUP_HANDS = 12
 H_P = 1e-4
+# Path i: the gate against the recorded results, in sigma; the ES
+# generations (train_es_kernel's 120 cut to 40 to keep the path near
+# 150 s); REINFORCE's updates and tables (the JAX slow test's 60 at
+# train_policy.py's 4096 tables) and train_br's updates (10 of its 300);
+# the groups of tables whose batch means give the decision-point
+# statistics' sigma.
+I_SIGMA = 4.0
+I_ES_GENERATIONS = 40
+I_RL_UPDATES = 60
+I_RL_TABLES = 4096
+I_BR_UPDATES = 10
+I_GROUPS = 16
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
 # Lower counts of the operations a kernel's work needs, for bound_ms,
@@ -2218,6 +2255,314 @@ def main() -> int:
                     "path_h_peak_bytes": torch.cuda.max_memory_allocated(dev),
                     "card": smi}))
     phase_done("8 self-play and evaluation")
+
+    # ---- 9. training and exploitability (path i) --------------------------
+    # the ported scripts at their own sizes against the recorded results of
+    # data/ (league edges, exploitability, the learned and solver best
+    # responses) and CPU-made records (fold gate, policy diff); REINFORCE
+    # and ES training. K6, B7, B8 and B8 with two banks launch; no other
+    # kernel.
+    from montecarlo_tpu_torch.models import leash as tleash
+    from montecarlo_tpu_torch.models import train as ttr
+    from montecarlo_tpu_torch.scripts import eval_attacker as sea
+    from montecarlo_tpu_torch.scripts import exploit_probe as sep
+    from montecarlo_tpu_torch.scripts import exp_leak_anatomy as sela
+    from montecarlo_tpu_torch.scripts import fold_gate_check as sfg
+    from montecarlo_tpu_torch.scripts import league_eval as sle
+    from montecarlo_tpu_torch.scripts import make_fold_anchor as smfa
+    from montecarlo_tpu_torch.scripts import opt_bot as sob
+    from montecarlo_tpu_torch.scripts import policy_diff as spd
+    from montecarlo_tpu_torch.scripts import train_br as stb
+    from montecarlo_tpu_torch.scripts import train_es_kernel as stek
+    from montecarlo_tpu_torch.scripts import train_policy as stp
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    i_s, ires, t_i = {}, {}, time.perf_counter()
+    i_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_i_"))
+    atexit.register(shutil.rmtree, i_dir, True)
+    os.chdir(ROOT)  # the scripts name data/ relative to the root
+
+    def record(name):
+        with open(ROOT / "data" / name) as f:
+            return json.load(f)
+
+    def gate(what, port, se_port, rec, se_rec):
+        """|port - record| <= I_SIGMA sqrt(se_port^2 + se_rec^2)."""
+        z = (port - rec) / math.sqrt(se_port ** 2 + se_rec ** 2)
+        log(f"path {what}: {port:+.4f} +- {se_port:.4f} against the record "
+            f"{rec:+.4f} +- {se_rec:.4f}, z {z:+.2f}")
+        check(abs(z) <= I_SIGMA, f"path {what}: within {I_SIGMA:g} sigma "
+              f"of the record (z {z:+.2f})")
+        return {"port": port, "se": se_port, "record": rec,
+                "record_se": se_rec, "z": z}
+
+    def i_done(name, t0):
+        sync()
+        i_s[name] = time.perf_counter() - t0
+
+    std6 = TableConfig(num_seats=6, rules="standard")
+    es9 = tpn.load_params(ROOT / "data" / "policy_6max_es9.npz")
+
+    # (i1) the league (B7) against the records
+    t0 = time.perf_counter()
+    ires["i1"] = {}
+    for k, other in enumerate(("es8", "es7", "distill")):
+        rec = record(f"league_es9_vs_{other}.json")
+        res = sle.main(["--a", "data/policy_6max_es9.npz", "--b",
+                        f"data/policy_6max_{other}.npz"]
+                       + (["--skip-selfcheck"] if k else []))
+        if not k:
+            check(res["selfcheck_exact"], "path i1: league_eval's "
+                  "self-check, identical banks (B7) equal the single net "
+                  "(K6) exactly")
+        ires["i1"][f"es9_vs_{other}"] = gate(
+            f"i1 es9 vs {other} edge", res["edge_A_minus_B"],
+            2 * res["A_stderr"], rec["edge_A_minus_B"], 2 * rec["A_stderr"])
+        ires["i1"][f"es9_vs_{other}"]["hands"] = res["hands"]
+    rec = record("br_vs_es9.npz.result.json")
+    bb, se, hands = stb.league_eval(
+        std6, tpn.load_params(ROOT / "data" / "br_vs_es9.npz"), es9)
+    ires["i1"]["br_vs_es9"] = gate("i1 learned BR vs es9", bb, se,
+                                   rec["learned_br_bb_per_hand"],
+                                   rec["stderr"])
+    rec = record("solver_br_vs_es7.result.json")
+    res = sea.main(["--attacker", "data/br_solver_vs_es7.npz", "--subject",
+                    "es7=data/policy_6max_es7.npz", "--save",
+                    str(i_dir / "solver_br_vs_es7.json")])
+    ires["i1"]["solver_br_vs_es7"] = gate(
+        "i1 solver BR vs es7", res["solver_br_bb_per_hand"], res["stderr"],
+        rec["solver_br_bb_per_hand"], rec["stderr"])
+    i_done("i1", t0)
+
+    # (i2) exploitability: the panel probe, the recorded CMA attacker, one
+    # CMA run at opt_bot's defaults (logged)
+    t0 = time.perf_counter()
+    rec = record("exploitability_es9.json")["subjects"]["es9"]
+    doc = sep.main(["--subjects", "es9=data/policy_6max_es9.npz",
+                    "--geometry", "both", "--save",
+                    str(i_dir / "exploitability_es9.json")])
+    got = doc["subjects"]["es9"]
+    best = got["best_bot"]
+    check(best == rec["best_bot"], f"path i2: the best bot is the "
+          f"record's {rec['best_bot']} (got {best})")
+    row = got["per_bot"][best]
+    lone = row["max_bb"] == row["bot_bb_per_hand"]
+    ires["i2"] = {"lb": gate(
+        f"i2 exploitability LB ({best}, {'lone' if lone else 'five'})",
+        got["exploitability_lb_bb"],
+        row["stderr"] if lone else row["stderr_five"],
+        rec["exploitability_lb_bb"], rec["per_bot"][best]["stderr"]),
+        "per_bot": {}}
+    for name, row in got["per_bot"].items():
+        want = rec["per_bot"][name]
+        zs = {}
+        for key, se_key in (("bot_bb_per_hand", "stderr"),
+                            ("bot_bb_per_hand_five", "stderr_five")):
+            se2 = math.hypot(row[se_key], want[se_key])
+            zs[key] = [row[key], (row[key] - want[key]) / max(se2, 1e-12)]
+        ires["i2"]["per_bot"][name] = zs
+        log(f"path i2: {name}: lone {zs['bot_bb_per_hand'][0]:+.4f} (z "
+            f"{zs['bot_bb_per_hand'][1]:+.2f}), five "
+            f"{zs['bot_bb_per_hand_five'][0]:+.4f} (z "
+            f"{zs['bot_bb_per_hand_five'][1]:+.2f})")
+    rec = record("exploitability_opt_es9.json")["subjects"]["es9"]
+    pair = rec["best_pair"]
+    acts = tuple(int(v) for v in pair.split(":"))
+    bb, se, hands = sob.final_eval(es9, std6, rec["per_pair"][pair]["x"],
+                                   acts, 1 << 16, 512)
+    ires["i2"]["cma_record"] = gate(
+        f"i2 the recorded CMA attacker {pair}", bb, se,
+        rec["per_pair"][pair]["bot_bb_per_hand"],
+        rec["per_pair"][pair]["stderr"])
+    t1 = time.perf_counter()
+    cma_args = sob.parser().parse_args(
+        ["--save", str(i_dir / "unused.json")])
+    cma = sob.optimize_pair(es9, std6, acts, cma_args,
+                            lambda d: log(f"path i2 CMA: {json.dumps(d)}"))
+    sync()
+    ires["i2"]["cma_run"] = {k: v for k, v in cma.items() if k != "x"}
+    ires["i2"]["cma_run"]["seconds"] = time.perf_counter() - t1
+    log(f"path i2: optimize_pair({pair}) at opt_bot's defaults "
+        f"({cma_args.generations} x {cma_args.popsize}, "
+        f"{cma_args.tables} x {cma_args.steps}): "
+        f"{cma['bot_bb_per_hand']:+.4f} +- {cma['stderr']:.4f} (the "
+        f"record's run {rec['per_pair'][pair]['bot_bb_per_hand']:+.4f}), "
+        f"{ires['i2']['cma_run']['seconds']:.1f} s")
+    i_done("i2", t0)
+
+    # (i3) ES training from policy_6max_200 with the fold leash and a pool
+    t0 = time.perf_counter()
+    es_save = str(i_dir / "es.npz")
+    es_out = stek.main(["--start", "data/policy_6max_200.npz", "--opponents",
+                        "random,bot:jam_loose", "--fold-anchor",
+                        "data/fold_anchor.npz", "--generations",
+                        str(I_ES_GENERATIONS), "--save", es_save])
+    anchor = tleash.anchor_log_pfold(
+        tpn.load_params(ROOT / "data" / "policy_6max_200.npz"),
+        tleash.load_anchor(ROOT / "data" / "fold_anchor.npz"))
+    check(es_out["start_anchor_logp"] == anchor, "path i3: the start's "
+          "anchor score equals the CPU's numpy value exactly")
+    check(all(torch.equal(a, b) for a, b in zip(
+        tpn.load_params(es_save), es_out["result"].params)),
+        "path i3: the saved center reloads equal to the returned one")
+    ires["i3"] = {"generations": es_out["generations"],
+                  "seconds": es_out["training_seconds"],
+                  "seconds_per_generation": es_out["training_seconds"]
+                  / es_out["generations"],
+                  "start_anchor_logp": anchor,
+                  "hands": es_out["result"].hands_total,
+                  "final": es_out["final"]}
+    log(f"path i3: {es_out['generations']} generations of pop "
+        f"{2 * 8} at 2^14 x 256 in {es_out['training_seconds']:.1f} s "
+        f"({ires['i3']['seconds_per_generation']:.3f} s a generation), "
+        f"final {es_out['final']}")
+    i_done("i3", t0)
+
+    # (i4) REINFORCE: the JAX slow test's setting at train_policy.py's
+    # tables, one update's loss and gradient on the CPU, train_br's shape
+    t0 = time.perf_counter()
+    hu2 = TableConfig(num_seats=2, rules="standard")
+    sync()
+    t1 = time.perf_counter()
+    rl = ttr.train_policy(3, cfg=hu2, opponent=tpol.always_call,
+                          tables=I_RL_TABLES, steps=I_RL_UPDATES, lr=5e-3)
+    sync()
+    rl_s = time.perf_counter() - t1
+    hist = rl.mean_reward_bb.numpy()
+    first, last = float(hist[:15].mean()), float(hist[-15:].mean())
+    log(f"path i4: train_policy vs always_call, {I_RL_TABLES} tables x "
+        f"{I_RL_UPDATES} updates in {rl_s:.1f} s "
+        f"({rl_s / I_RL_UPDATES:.3f} s an update): first 15 {first:+.4f}, "
+        f"last 15 {last:+.4f} bb/hand")
+    check(np.isfinite(hist).all() and last > first + 0.05,
+          "path i4: REINFORCE's last 15 updates beat its first 15 by more "
+          "than 0.05 bb/hand")
+    params = tpn.init_params(torch.Generator().manual_seed(5))
+    st = tstate.init_state(SEED, hu2, I_RL_TABLES, dev)
+    pos = (torch.arange(I_RL_TABLES, device=dev) % 2).to(torch.int32)
+    rewards, recs, _ = ttr._play_hand_collect(
+        params, st, tpol.policy_key(SEED, I_RL_TABLES, ttr.SUB_TRAIN, dev),
+        pos, tpol.always_call, 48, "standard")
+
+    def loss_grad(p, recs, rewards):
+        leaves = [x.detach().clone().requires_grad_(True) for x in p]
+        loss = ttr.reinforce_loss(tpn.MLPParams(*leaves), recs,
+                                  rewards / 10.0)
+        loss.backward()
+        return float(loss.detach()), [x.grad.cpu() for x in leaves]
+
+    card_l, card_g = loss_grad([x.to(dev) for x in params], recs, rewards)
+    cpu_l, cpu_g = loss_grad(params, ttr.Records(*(x.cpu() for x in recs)),
+                             rewards.cpu())
+    rel = max(abs(card_l - cpu_l) / abs(cpu_l), *(
+        float((a - b).abs().max() / b.abs().max())
+        for a, b in zip(card_g, cpu_g)))
+    log(f"path i4: one update's {len(recs.table)} records: loss card "
+        f"{card_l:.8f}, CPU {cpu_l:.8f}; largest relative difference of "
+        f"the loss and gradients {rel:.3g}")
+    check(rel <= 1e-5, "path i4: the card's loss and gradient equal the "
+          "CPU's within 1e-5 relative")
+    br = stb.main(["--opponent", "es9=data/policy_6max_es9.npz", "--start",
+                   "data/policy_6max_200.npz", "--updates",
+                   str(I_BR_UPDATES), "--eval-every", str(I_BR_UPDATES),
+                   "--save", str(i_dir / "br.npz")])
+    check(br["overflowed_tables"] == 0, "path i4: train_br at max_layers "
+          "8 / max_pot_layers 16 overflows no table")
+    check(np.isfinite(br["train_bb"]).all() and all(
+        np.isfinite(h[1]) for h in br["holdout"]), "path i4: train_br's "
+          "rewards and holdout finite")
+    ires["i4"] = {"train_policy_seconds": rl_s,
+                  "train_policy_s_per_update": rl_s / I_RL_UPDATES,
+                  "first15": first, "last15": last,
+                  "records": len(recs.table), "loss_rel_diff": rel,
+                  "train_br_s_per_update": float(np.mean(
+                      br["update_seconds"])),
+                  "train_br_s_first_update": br["update_seconds"][0],
+                  "train_br_holdout": br["holdout"],
+                  "train_br_final": br["learned_br_bb_per_hand"]}
+    log(f"path i4: train_br {I_BR_UPDATES} updates (6-max, 4096 tables x "
+        f"72 steps, es9 frozen): {ires['i4']['train_br_s_per_update']:.3f}"
+        f" s an update (first {br['update_seconds'][0]:.3f} s), holdout "
+        f"{br['holdout']}, final {br['learned_br_bb_per_hand']:+.4f}")
+    i_done("i4", t0)
+
+    # (i5) decision points against the CPU-made records: sigma from batch
+    # means over I_GROUPS groups of tables, times sqrt(2) for the record's
+    # own (same size, no groups)
+    t0 = time.perf_counter()
+
+    def batch_sigma(fn, recs_flat, n_tables, steps):
+        feats, _, free, _, _ = recs_flat
+        per = n_tables // I_GROUPS * steps
+        vals = [fn(feats[g * per:(g + 1) * per], free[g * per:(g + 1) * per])
+                for g in range(I_GROUPS)]
+        return float(np.std(vals, ddof=1) / math.sqrt(I_GROUPS))
+
+    rec = record("fold_gate_es9.json")["subjects"]["es9"]
+    doc = sfg.main(["--subjects", "es9=data/policy_6max_es9.npz", "--save",
+                    str(i_dir / "fold_gate_es9.json")])
+    got, flat = doc["subjects"]["es9"], doc["records"]["es9"]
+    ires["i5"] = {}
+    for key, fn, want in (
+            ("fold_argmax_frac", lambda f, fr: sela.fold_gate(
+                es9, f, fr)["fold_argmax_frac"], got["fold_gate"]),
+            ("mean_p_fold", lambda f, fr: sela.fold_gate(
+                es9, f, fr)["mean_p_fold"], got["fold_gate"]),
+            ("frac_margin_lt_4.6", lambda f, fr: sela.margin_stats(
+                es9, f, fr)[2]["frac_margin_lt_4.6"], got)):
+        sig = batch_sigma(fn, flat, doc["tables"], doc["steps"])
+        ref = rec["fold_gate"][key] if key != "frac_margin_lt_4.6" \
+            else rec[key]
+        ires["i5"][key] = gate(f"i5 fold gate {key}", want[key], sig, ref,
+                               sig)
+    rec = record("diff_es9_es8.json")["on_es9_selfplay"]
+    doc = spd.main(["--a", "es9=data/policy_6max_es9.npz", "--b",
+                    "es8=data/policy_6max_es8.npz", "--save",
+                    str(i_dir / "diff_es9_es8.json")])
+    es8 = tpn.load_params(ROOT / "data" / "policy_6max_es8.npz")
+    sig = batch_sigma(lambda f, fr: float((
+        sela.masked_argmax(sela.np_logits(es9, f), fr)[0]
+        != sela.masked_argmax(sela.np_logits(es8, f), fr)[0]).mean()),
+        doc["records"]["es9"], doc["tables"], doc["steps"])
+    ires["i5"]["argmax_disagree"] = gate(
+        "i5 es9 vs es8 argmax disagreement on es9's self-play",
+        doc["on_es9_selfplay"]["argmax_disagree"], sig,
+        rec["argmax_disagree"], sig)
+    meta = smfa.main(["--subject", "data/policy_6max_es8.npz", "--save",
+                      str(i_dir / "fold_anchor.npz")])
+    anc = record("fold_anchor.npz.json")
+    ires["i5"]["fold_anchor"] = {"rows": meta["rows"],
+                                 "p_fold_ref_mean": meta["p_fold_ref_mean"],
+                                 "record_rows": anc["rows"],
+                                 "record_p_fold_ref_mean":
+                                     anc["p_fold_ref_mean"]}
+    log(f"path i5: make_fold_anchor {meta['rows']} rows, p_fold_ref_mean "
+        f"{meta['p_fold_ref_mean']} (the record: {anc['rows']}, "
+        f"{anc['p_fold_ref_mean']})")
+    i_done("i5", t0)
+
+    i_launches = {"K6": cn.LAUNCHES["net_eval_standard"],
+                  "B7": cn.LAUNCHES["net_league_standard"],
+                  "B8": cn.LAUNCHES["net_pop_standard"],
+                  "B8l": cn.LAUNCHES["net_league_pop_standard"]}
+    log(f"path i launches: {i_launches}")
+    check(all(v > 0 for v in i_launches.values()),
+          "path i: K6, B7, B8 and B8 with two banks each launched")
+    others = {k: v for k, v in {**cq.LAUNCHES, **ce.LAUNCHES, **cn.LAUNCHES,
+                                **cc.LAUNCHES, **cs.LAUNCHES,
+                                **philox.LAUNCHES}.items()
+              if k not in ("net_eval_standard", "net_league_standard",
+                           "net_pop_standard", "net_league_pop_standard")}
+    check(not any(others.values()), f"path i launches no other kernel "
+          f"({ {k: v for k, v in others.items() if v} })")
+    sync()
+    i_s["path"] = time.perf_counter() - t_i
+    log(json.dumps({"path_i": ires, "path_i_seconds": i_s,
+                    "path_i_launches": i_launches,
+                    "path_i_peak_bytes": torch.cuda.max_memory_allocated(dev),
+                    "card": smi}, default=float))
+    phase_done("9 training and exploitability")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 

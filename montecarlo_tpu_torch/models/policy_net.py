@@ -144,21 +144,31 @@ def first_max(x: torch.Tensor) -> torch.Tensor:
                        x.shape[1]).amin(1)
 
 
-def masked_logits(logits: torch.Tensor, state) -> torch.Tensor:
-    """Logits [T, NUM_ACTIONS] with ``FOLD_MASK`` added to the fold where
-    the head owes nothing (a free fold is a wasted check)."""
-    seat, _, _ = head_info(state)
-    free = bets_needed(state.bets, seat) == 0
+def fold_masked(logits: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
+    """Logits [N, NUM_ACTIONS] with ``FOLD_MASK`` added to the fold where
+    ``free`` (bool [N]: nothing owed, so a fold is a wasted check)."""
     mask = torch.where(free, FOLD_MASK, 0.0).to(F32)
     return torch.cat([logits[:, :1] + mask[:, None], logits[:, 1:]], dim=1)
 
 
+def masked_logits(logits: torch.Tensor, state) -> torch.Tensor:
+    """``fold_masked`` where each table's head owes nothing."""
+    seat, _, _ = head_info(state)
+    return fold_masked(logits, bets_needed(state.bets, seat) == 0)
+
+
+def gumbel_pick(key, logits: torch.Tensor) -> torch.Tensor:
+    """A categorical pick of each row of ``logits`` [T, NUM_ACTIONS] by
+    Gumbel-max on the key's four words (u = (word >> 8) 2^-24,
+    g = -log(-log(max(u, 1e-12))), K6's pick)."""
+    u = (key.words(NUM_ACTIONS).T >> 8).to(F32) * 2.0 ** -24
+    return first_max(logits - torch.log(-torch.log(u.clamp(min=1e-12))))
+
+
 def net_policy(params: MLPParams, greedy: bool = False):
     """``params`` as a policy ``(key, state, street_raises) -> action``
-    (``rollout/policy.py``): ``masked_logits``, then a categorical
-    pick by Gumbel-max on the key's four words (u = (word >> 8) 2^-24,
-    g = -log(-log(max(u, 1e-12))), K6's pick) or, with ``greedy``, the
-    first argmax (K5's)."""
+    (``rollout/policy.py``): ``masked_logits``, then ``gumbel_pick`` or,
+    with ``greedy``, the first argmax (K5's)."""
     on_device = {}
 
     def policy(key, state, street_raises):
@@ -168,9 +178,7 @@ def net_policy(params: MLPParams, greedy: bool = False):
         if dev not in on_device:
             on_device[dev] = MLPParams(*(x.to(dev, F32) for x in params))
         logits = masked_logits(policy_logits(on_device[dev], feats), state)
-        if not greedy:
-            u = (key.words(NUM_ACTIONS).T >> 8).to(F32) * 2.0 ** -24
-            logits = logits - torch.log(-torch.log(u.clamp(min=1e-12)))
-        return action_from_index(first_max(logits), state)
+        idx = first_max(logits) if greedy else gumbel_pick(key, logits)
+        return action_from_index(idx, state)
 
     return policy

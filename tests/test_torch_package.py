@@ -1,6 +1,7 @@
 """Package-level properties of the port: no JAX at runtime, the shared
 encodings, and no silent CPU fallback where a card was asked for."""
 
+import ast
 import dataclasses
 import json
 import os
@@ -78,7 +79,28 @@ MODULES = [
     "montecarlo_tpu_torch.scripts.build_pushfold_cr",
     "montecarlo_tpu_torch.scripts.count_engine_ops",
     "montecarlo_tpu_torch.scripts.time_step_table",
+    "montecarlo_tpu_torch.models.cma",
+    "montecarlo_tpu_torch.models.leash",
+    "montecarlo_tpu_torch.models.train",
+    "montecarlo_tpu_torch.scripts.league_eval",
+    "montecarlo_tpu_torch.scripts.exploit_probe",
+    "montecarlo_tpu_torch.scripts.opt_bot",
+    "montecarlo_tpu_torch.scripts.train_es_kernel",
+    "montecarlo_tpu_torch.scripts.train_policy",
+    "montecarlo_tpu_torch.scripts.train_br",
+    "montecarlo_tpu_torch.scripts.exp_leak_anatomy",
+    "montecarlo_tpu_torch.scripts.fold_gate_check",
+    "montecarlo_tpu_torch.scripts.policy_diff",
+    "montecarlo_tpu_torch.scripts.make_fold_anchor",
+    "montecarlo_tpu_torch.scripts.eval_attacker",
+    "montecarlo_tpu_torch.scripts.train_mix",
 ]
+# The ported training, exploitability and analysis scripts
+# (``montecarlo_tpu_torch/scripts/<name>.py`` beside ``scripts/<name>.py``,
+# every function and constant kept).
+SCRIPTS = ["league_eval", "exploit_probe", "opt_bot", "train_es_kernel",
+           "train_policy", "train_br", "exp_leak_anatomy", "fold_gate_check",
+           "policy_diff", "make_fold_anchor", "eval_attacker", "train_mix"]
 # Runs the port's CPU path (equity and multiway equity, range equity and
 # push/fold, the table engine's step and host view, self-play under every
 # rule set, a net policy in a duplicate match, the net pipeline's replay,
@@ -155,6 +177,20 @@ from montecarlo_tpu_torch.scripts import debug_kernel_compile, exp_carry_model
 assert len(exp_carry_model.main(device="cpu", n_blocks=1, n_steps=2)) == 19
 for stage in debug_kernel_compile.STAGES:
     debug_kernel_compile.compile_variant(stage, 2, 1, device="cpu")
+from montecarlo_tpu_torch.models import train as tr
+from montecarlo_tpu_torch.rollout.policy import always_call
+out = tr.train_policy(1, cfg=TableConfig(num_seats=2, rules="standard"),
+                      opponent=always_call, tables=16, steps=1, max_steps=8,
+                      device="cpu")
+assert out.mean_reward_bb.shape == (1,)
+from montecarlo_tpu_torch.models.cma import CMAES
+from montecarlo_tpu_torch.models.leash import make_anchor_score
+es = CMAES([0.0, 0.0], 0.5, popsize=4)
+es.tell(-(es.ask() ** 2).sum(1))
+assert make_anchor_score("data/fold_anchor.npz")[0](es3) < 0
+from montecarlo_tpu_torch.scripts import exp_leak_anatomy as ela
+_, recs = ela.collect(3, std, 4, es3, es3, 4, device="cpu")
+assert ela.flatten_recs(recs)[0].shape == (16, 24)
 print(json.dumps(sorted(k for k in sys.modules if k == "jax"
                         or k.startswith(("jax.", "montecarlo_tpu."))
                         or k == "montecarlo_tpu")))
@@ -194,9 +230,10 @@ def _public(module):
 
 
 def test_ported_modules_hold_every_public_name_of_jax():
-    """The self-play, policy and evaluation modules define every public
-    name their JAX counterparts define; the net modules the table-engine
-    forms."""
+    """The self-play, policy, evaluation, REINFORCE, CMA-ES and leash
+    modules define every public name their JAX counterparts define, each
+    ported script every function and constant of its JAX twin; the net
+    modules the table-engine forms."""
     import importlib
 
     for name in ("rollout.policy", "rollout.selfplay", "rollout.evaluate"):
@@ -205,6 +242,24 @@ def test_ported_modules_hold_every_public_name_of_jax():
         names = {k for k, v in vars(theirs).items() if not k.startswith("_")
                  and getattr(v, "__module__", None) == theirs.__name__}
         assert names and names <= set(vars(ours)), names - set(vars(ours))
+    for name in ("models.cma", "models.leash", "models.train"):
+        theirs = importlib.import_module("montecarlo_tpu." + name)
+        ours = importlib.import_module("montecarlo_tpu_torch." + name)
+        names = {k for k, v in vars(theirs).items() if not k.startswith("_")
+                 and getattr(v, "__module__", None) == theirs.__name__}
+        names |= {k for k in ("CLIP_LOG_P",) if hasattr(theirs, k)}
+        assert names and names <= set(vars(ours)), names - set(vars(ours))
+    # the ported scripts: every function and constant of the JAX script
+    # (its private helpers too: other scripts import them)
+    for name in SCRIPTS:
+        path = ROOT / "scripts" / f"{name}.py"
+        ours = importlib.import_module("montecarlo_tpu_torch.scripts." + name)
+        tree = ast.parse(path.read_text())
+        theirs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+        theirs |= {t.id for n in tree.body if isinstance(n, ast.Assign)
+                   for t in n.targets if isinstance(t, ast.Name)
+                   and not t.id.startswith("_I") and t.id != "I32"}
+        assert theirs <= set(vars(ours)), (name, theirs - set(vars(ours)))
     for mod, names in ((tfeatures, ("state_features", "features")),
                        (tpolicy_net, ("action_from_index", "net_policy",
                                       "save_params", "load_params"))):
