@@ -171,7 +171,23 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    ``fold_gate_check`` and ``policy_diff`` statistics within 4 sigma of
    ``data/fold_gate_es9.json`` and ``data/diff_es9_es8.json`` (sigma from
    batch means over 16 groups of tables, times sqrt 2), and
-   ``make_fold_anchor`` logged beside ``data/fold_anchor.npz.json``.
+   ``make_fold_anchor`` logged beside ``data/fold_anchor.npz.json``;
+10. the solvers (path j, after path i; plain PyTorch, TF32 checked off, no
+   kernel may launch): (j1) ``river_gap`` at ``data/river_gap.json``'s
+   6000 iterations over all 1081 combos of both boards, (j2) ``turn_gap``
+   at ``data/turn_gap.json``'s 4000 iterations over 1128 combos x 48
+   rivers, both with the records' subjects but ``untrained``: solver gap
+   <= 0.0001 bb, Nash EV P1 within 0.0005 bb, each subject's gap and best
+   responses within 0.0002 bb and its head-to-heads against Nash within
+   0.001 bb, of JAX's CPU value (``tests/rehearse_solver_records.json``)
+   and of the record where JAX reproduces it (other rows logged); (j3)
+   ``data/policy_6max_distill.npz``'s and es7's gaps at stride 4 and the
+   exact BR edge against es9 at stride 1 against their records; (j4) a
+   fresh ``distill_nash --mode nash`` from es7 (1500 iterations, 6000
+   steps, stride 4) lowering both boards' gap by 0.3 bb, and ``--mode
+   br`` against es9 (3000 steps) raising both edges. It logs each solve's
+   and subject's seconds, a CFR+ iteration's ms (CUDA events) and the
+   peak memory.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -2563,6 +2579,246 @@ def main() -> int:
                     "path_i_peak_bytes": torch.cuda.max_memory_allocated(dev),
                     "card": smi}, default=float))
     phase_done("9 training and exploitability")
+
+    # ---- 10. the solvers (path j) ------------------------------------------
+    # the ported river_gap, turn_gap and distill_nash at the records' widths
+    # (plain PyTorch on the card, no kernel: every launch count stays 0),
+    # each row against its data/ record where the JAX package reproduces
+    # that record on the CPU (tests/rehearse_solver_records.json), and
+    # every rehearsed row against the JAX CPU value.
+    from montecarlo_tpu_torch.models import distill as tdi
+    from montecarlo_tpu_torch.models import river_solver as trs
+    from montecarlo_tpu_torch.models import turn_solver as tts
+    from montecarlo_tpu_torch.scripts import distill_nash as sdn
+    from montecarlo_tpu_torch.scripts import river_gap as srg
+    from montecarlo_tpu_torch.scripts import turn_gap as stg
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "path j: TF32 is off for the solvers' float32 products")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    j_s, jres, t_j = {}, {}, time.perf_counter()
+    j_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_j_"))
+    atexit.register(shutil.rmtree, j_dir, True)
+    with open(ROOT / "tests" / "rehearse_solver_records.json") as f:
+        rehearsal = json.load(f)
+
+    def rehearsed(part, board, subject=None):
+        """The JAX CPU row of the rehearsal, or None."""
+        for row in rehearsal:
+            if (row["part"], row.get("board"), row.get("subject")) == (
+                    part, board, subject) and "record" in row:
+                return row
+        return None
+
+    def j_gate(what, port, rec, tol, jax_cpu=None, reproduced=True):
+        """|port - JAX CPU| <= tol where JAX was rehearsed; |port - record|
+        <= tol where the record is reproduced (by JAX on the CPU within
+        1e-4, the record's last digit, or as ``reproduced`` says where no
+        JAX value exists). Logged either way."""
+        row = {"port": port, "record": rec, "tol": tol,
+               "to_record": port - rec}
+        if jax_cpu is not None:
+            reproduced = abs(jax_cpu - rec) <= 1e-4 + 1e-9
+            row.update(jax_cpu=jax_cpu, to_jax=port - jax_cpu)
+            check(abs(port - jax_cpu) <= tol + 1e-9,
+                  f"path {what}: {port} within {tol} of the JAX CPU value "
+                  f"{jax_cpu}")
+        row["reproduced"] = reproduced
+        if reproduced:
+            check(abs(port - rec) <= tol + 1e-9,
+                  f"path {what}: {port} within {tol} of the record {rec}")
+        else:
+            log(f"path {what}: the record {rec} is not reproduced by JAX "
+                f"on the CPU ({jax_cpu}); the port's {port} is not held "
+                f"to it")
+        return row
+
+    def j_done(name, t0):
+        sync()
+        j_s[name] = time.perf_counter() - t0
+
+    def iteration_ms(solve, game, n):
+        """ms of one CFR+ iteration: ``n`` iterations after a warm-up of
+        ``n // 10``, CUDA events."""
+        solve(game, max(1, n // 10))
+        sync()
+        return timed(lambda: solve(game, n))[1] / n
+
+    no_solve = ("gap_bb", "br_vs_net_p1_bb", "br_vs_net_p2_bb")
+
+    def record_rows(part, rec, res, what):
+        """Gate every board and subject row of a river_gap / turn_gap
+        result ``res`` against the record ``rec`` and the rehearsal. A
+        row that needs the solve (``net_p*_vs_nash_bb``) and has no JAX
+        value (the turn rehearsal solves nothing) is held to the record
+        where the subject's no-solve rows are reproduced."""
+        out = {}
+        for bname, row in res["boards"].items():
+            rrow = rec["boards"][bname]
+            check(row["solver_gap_bb"] <= 1e-4, f"path {what} {bname}: "
+                  f"solver gap {row['solver_gap_bb']} <= 0.0001 bb")
+            jx = rehearsed(part, bname)
+            out[bname] = {"nash_ev_p1_bb": j_gate(
+                f"{what} {bname} Nash EV P1", row["nash_ev_p1_bb"],
+                rrow["nash_ev_p1_bb"], 5e-4, jx and jx["nash_ev_p1_bb"]),
+                "solver_gap_bb": row["solver_gap_bb"],
+                "solve_seconds": row["solve_seconds"]}
+            for name, srow in row["subjects"].items():
+                jx = rehearsed(part, bname, name)
+                same = all(abs(jx[k] - jx["record"][k]) <= 1e-4 + 1e-9
+                           for k in no_solve)
+                out[bname][name] = {k: j_gate(
+                    f"{what} {bname} {name} {k}", srow[k],
+                    rrow["subjects"][name][k],
+                    2e-4 if k in no_solve else 1e-3, jx.get(k), same)
+                    for k in no_solve + ("net_p1_vs_nash_bb",
+                                         "net_p2_vs_nash_bb")}
+        return out
+
+    j_subjects = [f"{n}=data/policy_6max_{n}.npz"
+                  for n in ("es2", "es3", "es4", "es5", "es6", "es7", "es8",
+                            "es9", "distill")] + [
+        "reinforce=data/policy_6max_200.npz"]
+
+    # (j1) river_gap at the record's settings: 6000 iterations, all 1081
+    # combos, both boards, the record's subjects but untrained
+    t0 = time.perf_counter()
+    rg_rec = record("river_gap.json")
+    rg = srg.main(["--iterations", str(rg_rec["iterations"]), "--subjects",
+                   *j_subjects, "--save", str(j_dir / "river_gap.json")])
+    j_done("j1", t0)
+    jres["j1"] = record_rows("river", rg_rec, rg, "j1")
+    board = srg.BOARDS["Ks8h5d2cQs"]
+    _, sizes = trs.river_node_states(board)
+    rgame, _, _ = trs.make_river_game(board, pot=sizes["pot"],
+                                      bet=sizes["bet"],
+                                      raise_=sizes["raise_"])
+    jres["j1"]["cfr_iteration_ms"] = iteration_ms(trs.solve_cfr_plus,
+                                                  rgame, 500)
+    jres["j1"]["subject_seconds"] = (
+        j_s["j1"] - sum(r["solve_seconds"] for r in rg["boards"].values())
+    ) / (len(j_subjects) * len(rg["boards"]))
+    log(f"path j1: {j_s['j1']:.1f} s, solves "
+        f"{[r['solve_seconds'] for r in rg['boards'].values()]} s, "
+        f"{jres['j1']['subject_seconds']:.2f} s a subject, "
+        f"{jres['j1']['cfr_iteration_ms']:.3f} ms a CFR+ iteration")
+
+    # (j2) turn_gap at the record's settings: stride 1 (1128 combos x 48
+    # rivers), 4000 iterations, both boards, the record's subjects but
+    # untrained
+    t0 = time.perf_counter()
+    tg_rec = record("turn_gap.json")
+    tg = stg.main(["--iterations", str(tg_rec["iterations"]),
+                   "--combo-stride", str(tg_rec["combo_stride"]),
+                   "--subjects", *j_subjects,
+                   "--save", str(j_dir / "turn_gap.json")])
+    j_done("j2", t0)
+    jres["j2"] = record_rows("turn", tg_rec, tg, "j2")
+    tgame, tcombos, tturn, triver = stg.artifact_game(
+        stg.BOARDS["Ks8h5d2c"], 1, dev)
+    jres["j2"]["cfr_iteration_ms"] = iteration_ms(tts.solve_turn_river,
+                                                  tgame, 100)
+    jres["j2"]["subject_seconds"] = {
+        b: {n: r["eval_seconds"] for n, r in row["subjects"].items()}
+        for b, row in tg["boards"].items()}
+    log(f"path j2: {j_s['j2']:.1f} s, solves "
+        f"{[r['solve_seconds'] for r in tg['boards'].values()]} s, "
+        f"{jres['j2']['cfr_iteration_ms']:.3f} ms a CFR+ iteration")
+
+    # (j3) the committed distilled artifacts on their records' games: the
+    # Nash-distilled net's gap at stride 4, the exact BR edge against es9
+    # at stride 1 (the stride whose dataset rows equal the record's)
+    t0 = time.perf_counter()
+    dis_rec = record("policy_6max_distill.npz.result.json")
+    br_rec = record("br_solver_vs_es9.npz.result.json")
+    s4_rec = record("turn_gap_stride4.json")
+    distilled = tpn.load_params(ROOT / "data" / "policy_6max_distill.npz")
+    es7 = tpn.load_params(ROOT / "data" / "policy_6max_es7.npz")
+    jres["j3"] = {}
+    for bname, board4 in stg.BOARDS.items():
+        g4, c4, ts4, rs4 = stg.artifact_game(board4, 4, dev)
+        jx = rehearsed("stride4", bname, "distill")
+        gap = round(tts.exploitability_gap(g4, tts.net_turn_river_strategy(
+            distilled, ts4, rs4, c4)) / srg.BB, 4)
+        start = round(tts.exploitability_gap(g4, tts.net_turn_river_strategy(
+            es7, ts4, rs4, c4)) / srg.BB, 4)
+        jres["j3"][bname] = {
+            "distilled_gap_bb": j_gate(
+                f"j3 {bname} distilled gap (stride 4)", gap,
+                dis_rec["boards"][bname]["gap_bb_distilled"], 2e-4,
+                jx["gap_bb"]),
+            "es7_gap_bb": j_gate(
+                f"j3 {bname} es7 gap (stride 4)", start,
+                s4_rec["boards"][bname]["subjects"]["es7"]["gap_bb"], 2e-4,
+                rehearsed("stride4", bname, "es7")["gap_bb"]),
+            "distill_record_gap_bb_start": dis_rec["boards"][bname][
+                "gap_bb_start"]}
+        log(f"path j3 {bname}: es7 at stride 4 {start} (the distillation "
+            f"record's gap_bb_start "
+            f"{dis_rec['boards'][bname]['gap_bb_start']}, not reproduced "
+            f"by JAX either)")
+        g1, c1, ts1, rs1 = (tgame, tcombos, tturn, triver) \
+            if bname == "Ks8h5d2c" else stg.artifact_game(board4, 1, dev)
+        br1, _ = tts.best_response_values(g1, tts.net_turn_river_strategy(
+            es9, ts1, rs1, c1))
+        edge = round((br1 - g1.pot / 2.0) / srg.BB, 4)
+        jx = [r for r in rehearsal if r["part"] == "br"
+              and r["subject"] == "es9"
+              and r["dataset_rows"] == br_rec["dataset_rows"]][0]
+        jres["j3"][bname]["es9_exact_br_edge_bb"] = j_gate(
+            f"j3 {bname} exact BR edge vs es9 (stride 1)", edge,
+            br_rec["boards"][bname]["exact_br_edge_bb"], 2e-4,
+            jx["exact_br_edge_bb"][bname])
+    j_done("j3", t0)
+
+    # (j4) fresh distillations: Nash from es7 at the record's 1500
+    # iterations and 6000 steps at stride 4, and BR against es9 at 3000
+    # steps at stride 1
+    t0 = time.perf_counter()
+    _, nres = sdn.main(["--mode", "nash", "--start",
+                        "data/policy_6max_es7.npz", "--combo-stride", "4",
+                        "--iterations", str(dis_rec["iterations"]),
+                        "--steps", str(dis_rec["steps"]),
+                        "--save", str(j_dir / "distill_nash.npz")])
+    j_done("j4_nash", t0)
+    jres["j4"] = {"nash": nres}
+    for bname, row in nres["boards"].items():
+        log(f"path j4 nash {bname}: gap {row['gap_bb_start']} -> "
+            f"{row['gap_bb_distilled']} (solver {row['gap_bb_solver']}); "
+            f"the record's distilled gap "
+            f"{dis_rec['boards'][bname]['gap_bb_distilled']}")
+        check(row["gap_bb_distilled"] <= row["gap_bb_start"] - 0.3,
+              f"path j4 nash {bname}: the distilled gap is at least 0.3 bb "
+              f"below the start's")
+    t0 = time.perf_counter()
+    _, bres = sdn.main(["--mode", "br", "--subject",
+                        "data/policy_6max_es9.npz", "--start",
+                        "data/policy_6max_es9.npz", "--steps", "3000",
+                        "--save", str(j_dir / "distill_br.npz")])
+    j_done("j4_br", t0)
+    jres["j4"]["br"] = bres
+    log(f"path j4 br: {bres['dataset_rows']} dataset rows (the record's "
+        f"and JAX's on the CPU {br_rec['dataset_rows']})")
+    for bname, row in bres["boards"].items():
+        log(f"path j4 br {bname}: edge {row['start_edge_bb']} -> "
+            f"{row['distilled_edge_bb']} of {row['exact_br_edge_bb']}, "
+            f"captured {row['captured_frac']} (the record's "
+            f"{br_rec['boards'][bname]['captured_frac']})")
+        check(row["distilled_edge_bb"] > row["start_edge_bb"],
+              f"path j4 br {bname}: the distilled edge is above the start's")
+
+    launched = {k: v for k, v in {**cq.LAUNCHES, **ce.LAUNCHES,
+                                  **cn.LAUNCHES, **cc.LAUNCHES,
+                                  **cs.LAUNCHES, **philox.LAUNCHES}.items()
+                if v}
+    check(not launched, f"path j launches no kernel ({launched})")
+    sync()
+    j_s["path"] = time.perf_counter() - t_j
+    log(json.dumps({"path_j": jres, "path_j_seconds": j_s,
+                    "path_j_peak_bytes": torch.cuda.max_memory_allocated(dev),
+                    "card": smi}, default=float))
+    phase_done("10 solvers")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 

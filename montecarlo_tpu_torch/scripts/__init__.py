@@ -15,7 +15,10 @@ unless a function is given ``device="cpu"``:
   leash), ``train_policy``, ``train_br`` and ``train_mix`` (REINFORCE on
   the plain table engine);
 - the decision-point analysis: ``exp_leak_anatomy``, ``fold_gate_check``,
-  ``policy_diff`` and ``make_fold_anchor``.
+  ``policy_diff`` and ``make_fold_anchor``;
+- the solver scripts: ``river_gap`` and ``turn_gap`` (the Nash-gap meters
+  of the exact river and turn+river subgames) and ``distill_nash`` (Nash
+  and solver-BR distillation).
 
 Every script that writes an artifact takes its path as a required
 ``--save``: ``data/``'s artifacts are the reference.

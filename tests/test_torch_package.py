@@ -23,6 +23,7 @@ from montecarlo_tpu.models import policy_net as jpolicy_net
 from montecarlo_tpu_torch.engine import state as tstate
 from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models import bots, pushfold, train_es
+from montecarlo_tpu_torch.models import river_solver, turn_solver
 from montecarlo_tpu_torch.models import features as tfeatures
 from montecarlo_tpu_torch.models import policy_net as tpolicy_net
 from montecarlo_tpu_torch.ops import cuda_carry as cc
@@ -38,6 +39,7 @@ from montecarlo_tpu_torch.rollout import policy as tpol
 from montecarlo_tpu_torch.rollout import selfplay as tsp
 from montecarlo_tpu_torch.scripts import build_pushfold_cr as bpc
 from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
+from montecarlo_tpu_torch.scripts import distill_nash, river_gap, turn_gap
 from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -94,19 +96,27 @@ MODULES = [
     "montecarlo_tpu_torch.scripts.make_fold_anchor",
     "montecarlo_tpu_torch.scripts.eval_attacker",
     "montecarlo_tpu_torch.scripts.train_mix",
+    "montecarlo_tpu_torch.models.river_solver",
+    "montecarlo_tpu_torch.models.turn_solver",
+    "montecarlo_tpu_torch.models.distill",
+    "montecarlo_tpu_torch.scripts.river_gap",
+    "montecarlo_tpu_torch.scripts.turn_gap",
+    "montecarlo_tpu_torch.scripts.distill_nash",
 ]
 # The ported training, exploitability and analysis scripts
 # (``montecarlo_tpu_torch/scripts/<name>.py`` beside ``scripts/<name>.py``,
 # every function and constant kept).
 SCRIPTS = ["league_eval", "exploit_probe", "opt_bot", "train_es_kernel",
            "train_policy", "train_br", "exp_leak_anatomy", "fold_gate_check",
-           "policy_diff", "make_fold_anchor", "eval_attacker", "train_mix"]
+           "policy_diff", "make_fold_anchor", "eval_attacker", "train_mix",
+           "river_gap", "turn_gap", "distill_nash"]
 # Runs the port's CPU path (equity and multiway equity, range equity and
 # push/fold, the table engine's step and host view, self-play under every
 # rule set, a net policy in a duplicate match, the net pipeline's replay,
 # the engine kernels' plain versions under every rule set, tournaments to completion,
 # net evaluation, an ES generation on the population form with a rule
-# bot's league, the two ported probe scripts) in a fresh process, then
+# bot's league, the two ported probe scripts, the river and turn+river
+# solvers) in a fresh process, then
 # lists what it loaded of JAX and of the JAX package.
 CPU_PATH = """
 import json, sys
@@ -191,6 +201,15 @@ assert make_anchor_score("data/fold_anchor.npz")[0](es3) < 0
 from montecarlo_tpu_torch.scripts import exp_leak_anatomy as ela
 _, recs = ela.collect(3, std, 4, es3, es3, 4, device="cpu")
 assert ela.flatten_recs(recs)[0].shape == (16, 24)
+from montecarlo_tpu_torch.models import river_solver as rs, turn_solver as ts
+board = [0, 13, 26, 39, 5]
+hc = rs.all_combos(board)[::40]
+g, _, _ = rs.make_river_game(board, hc, hc, device="cpu")
+assert rs.exploitability_gap(g, rs.solve_cfr_plus(g, 3)) > -1e-3
+tg, tc = ts.make_turn_river_game(board[:4], rivers=[5, 6],
+                                 combos=ts.turn_combos(board[:4])[::60],
+                                 device="cpu")
+assert ts.exploitability_gap(tg, ts.solve_turn_river(tg, 3)) > -1e-3
 print(json.dumps(sorted(k for k in sys.modules if k == "jax"
                         or k.startswith(("jax.", "montecarlo_tpu."))
                         or k == "montecarlo_tpu")))
@@ -242,7 +261,9 @@ def test_ported_modules_hold_every_public_name_of_jax():
         names = {k for k, v in vars(theirs).items() if not k.startswith("_")
                  and getattr(v, "__module__", None) == theirs.__name__}
         assert names and names <= set(vars(ours)), names - set(vars(ours))
-    for name in ("models.cma", "models.leash", "models.train"):
+    for name in ("models.cma", "models.leash", "models.train",
+                 "models.river_solver", "models.turn_solver",
+                 "models.distill"):
         theirs = importlib.import_module("montecarlo_tpu." + name)
         ours = importlib.import_module("montecarlo_tpu_torch." + name)
         names = {k for k, v in vars(theirs).items() if not k.startswith("_")
@@ -411,6 +432,17 @@ ENTRY_POINTS = {
         ["--out", str(ROOT / "montecarlo_tpu_torch" / "_build" / "pf")]),
     "debug_kernel_compile.compile_variant": lambda: dkc.compile_variant(
         "full", 2, 1),
+    "make_river_game": lambda: river_solver.make_river_game(
+        [0, 13, 26, 39, 5]),
+    "river_node_states": lambda: river_solver.river_node_states(
+        [0, 13, 26, 39, 5]),
+    "make_turn_river_game": lambda: turn_solver.make_turn_river_game(
+        [0, 13, 26, 39]),
+    "turn_river_node_states": lambda: turn_solver.turn_river_node_states(
+        [0, 13, 26, 39], [5]),
+    "river_gap.main": lambda: river_gap.main(["--save", "x.json"]),
+    "turn_gap.main": lambda: turn_gap.main(["--save", "x.json"]),
+    "distill_nash.main": lambda: distill_nash.main(["--save", "x.npz"]),
 }
 
 
