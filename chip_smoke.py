@@ -168,10 +168,14 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    (``models/train.train_policy``) against the calling station improving
    by 0.05 bb/hand, one update's loss and gradient equal on the card and
    the CPU within 1e-5, ``train_br`` at its shape with no overflow; (i5)
-   ``fold_gate_check`` and ``policy_diff`` statistics within 4 sigma of
+   ``policy_diff`` at the records' 128 tables x 512 steps: the fold-gate
+   statistics of its es9 self-play (``fold_gate_check``'s run) and the
+   es9/es8 argmax disagreement within 4 sigma of
    ``data/fold_gate_es9.json`` and ``data/diff_es9_es8.json`` (sigma from
-   batch means over 16 groups of tables, times sqrt 2), and
-   ``make_fold_anchor`` logged beside ``data/fold_anchor.npz.json``;
+   batch means over 16 groups of tables, the record's scaled to its own
+   decision count), ``fold_gate_check`` at 16 tables x 64 steps and
+   ``make_fold_anchor`` at 64 steps logged (the latter beside
+   ``data/fold_anchor.npz.json``);
 10. the solvers (path j, after path i; plain PyTorch, TF32 checked off, no
    kernel may launch): (j1) ``river_gap`` at ``data/river_gap.json``'s
    6000 iterations over all 1081 combos of both boards, (j2) ``turn_gap``
@@ -187,7 +191,26 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    steps, stride 4) lowering both boards' gap by 0.3 bb, and ``--mode
    br`` against es9 (3000 steps) raising both edges. It logs each solve's
    and subject's seconds, a CFR+ iteration's ms (CUDA events) and the
-   peak memory.
+   peak memory;
+11. the server (path k, after path j; only K1 may launch, and must): (k1)
+   the port's TCP server in-process on an ephemeral port, torch rooms on
+   the card: a reference and a standard room driven over real sockets by
+   a fixed script of calls, raises and folds, every client's transcript
+   equal to the same script's with the rooms on the CPU (Philox decks are
+   the same on both), and a tournament room jammed until it freezes with
+   the winner holding every chip (transcripts equal too); (k2) a 6-max
+   room with five house bots on ``data/policy_6max_es2.npz``: play
+   returns to the human at each of 60 actions and hands complete; how
+   many of the first 200 bot decisions differ from the CPU's is logged;
+   (k3) ``TorchBackend.act`` on the card and on the CPU and
+   ``NativeBackend.act``, median and p99 over 200 actions; (k4) the
+   ported ``bench_server`` at 16 rooms x 3 players, torch rooms on the
+   card and native, beside ``data/server_load_jax.json`` (a TPU round's
+   host, not compared); (k5) ``ci_width_at_wallclock`` for AKs vs QQ at
+   1 s on K1 (launched, the equity within 4 sigma of exact, the width
+   logged) and a ``device_trace`` of five actions (its size logged);
+   (k6) 2^16 standard tables saved after 16 steps and loaded, 32 more
+   steps equal to the uninterrupted run (file size and seconds logged).
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -306,6 +329,34 @@ I_RL_UPDATES = 60
 I_RL_TABLES = 4096
 I_BR_UPDATES = 10
 I_GROUPS = 16
+# i5's cut: fold_gate_check's tables and steps and make_fold_anchor's steps
+# (both logged, not gated; the records' 128 x 512 and 192 x 512).
+I5_CUT = (16, 64)
+# Path k: the server. The script of k1's reference and standard rooms (the
+# head's amounts, 3 seats); the tournament room's blinds and jam bound; the
+# human actions of k2's bot room and the bot decisions compared between
+# the card and the CPU; k3's timed actions; k4's bench_server size (socket
+# and direct actions a room, torch chosen to keep k4 near 30 s at ~20 ms
+# an action); k5's budget and the exact AKs vs QQ equity; k6's tables and
+# steps before the save and after the load.
+K_SCRIPT = [0, 20, 0, 0, -1, 0, 30, 0, 0, 0, 0, 500, 0, -1, 0, 10, 0, 0,
+            0, 0, 0, -1, 40, 0, 0, 0, 0, 0, 15, 0, -1, 0, 0, 0, 60, 0, 0,
+            0, 0, -1]
+K_TOUR_BLINDS = {"small": 25, "big": 50}
+K_TOUR_ACTIONS = 200
+K_BOT_ACTIONS = 60
+K_BOT_COMPARED = 200
+K_TIMED_ACTIONS = 200
+K_BENCH_ROOMS = 16
+K_BENCH_PLAYERS = 3
+K_BENCH_TORCH = (64, 200)     # socket actions a room, direct actions
+K_BENCH_NATIVE = (200, 2000)
+K_CI_SECONDS = 1.0
+K_EXACT_AKS_QQ = 0.458708
+K_CKPT_TABLES = 1 << 16
+K_CKPT_STEPS = (16, 32)       # before the save, after the load
+
+
 # Rollouts per chunk of a plain version on the card.
 PLAIN_CHUNK = 1 << 24
 # Lower counts of the operations a kernel's work needs, for bound_ms,
@@ -386,6 +437,343 @@ def bound(n_bytes, int_ops, f32_ops=0):
          "operations": max(int_ops / INT_OPS_PER_S, f32_ops / F32_OPS_PER_S)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
+
+
+def path_k(dev, smi):
+    """Path k (phase 11): the port's server on the card. Returns (the
+    results, each part's seconds, K1's launches in the path)."""
+    import asyncio
+
+    import torch
+
+    from montecarlo_tpu_torch import native
+    from montecarlo_tpu_torch.engine import state as tstate
+    from montecarlo_tpu_torch.engine import step as tstep
+    from montecarlo_tpu_torch.ops import cuda_carry as cc
+    from montecarlo_tpu_torch.ops import cuda_engine as ce
+    from montecarlo_tpu_torch.ops import cuda_equity as cq
+    from montecarlo_tpu_torch.ops import cuda_net as cn
+    from montecarlo_tpu_torch.ops import cuda_stages as cs
+    from montecarlo_tpu_torch.ops import philox
+    from montecarlo_tpu_torch.rollout import equity as teq
+    from montecarlo_tpu_torch.scripts import bench_server as sbs
+    from montecarlo_tpu_torch.server import backends as sb
+    from montecarlo_tpu_torch.server.host import Registry
+    from montecarlo_tpu_torch.server.tcp import start_server
+    from montecarlo_tpu_torch.utils import checkpoint as uck
+    from montecarlo_tpu_torch.utils import profiling as upr
+
+    cpu = torch.device("cpu")
+    mods = (cq, ce, cn, cc, cs, philox)
+    for mod in mods:
+        mod.reset_launches()
+    k_s, kres, t_k = {}, {}, time.perf_counter()
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def done(name, t0):
+        sync()
+        k_s[name] = time.perf_counter() - t0
+
+    class Counting(Registry):
+        """A registry that counts the requests it handled and the messages
+        it sent to a client, so ``drive`` knows when both ends are idle."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.handled = self.sent = 0
+
+        def dispatch(self, pid, req):
+            super().dispatch(pid, req)
+            self.handled += 1
+
+        def send(self, pid, msg):
+            if pid in self.sinks:
+                self.sent += 1
+            super().send(pid, msg)
+
+    async def drive(device, rules, amounts, n=3, blinds=None,
+                    until_frozen=False):
+        """One room of ``n`` clients over TCP: create, join, then each
+        amount played by the room's head (an in-process read), each
+        request sent once the server handled the last. Returns (every
+        client's messages in order, the stacks by join order, the room's
+        last info)."""
+        reg = Counting(backend="torch", device=device)
+        server, _ = await start_server(reg, host="127.0.0.1", port=0)
+        port = server.sockets[0].getsockname()[1]
+        conns = [await asyncio.open_connection("127.0.0.1", port)
+                 for _ in range(n)]
+        got = [[] for _ in range(n)]
+
+        async def read(i):
+            while True:
+                line = await conns[i][0].readline()
+                if not line:
+                    return
+                got[i].append(json.loads(line.decode()))
+
+        readers = [asyncio.ensure_future(read(i)) for i in range(n)]
+
+        async def send(i, obj):
+            want = reg.handled + 1
+            conns[i][1].write((json.dumps(obj) + "\r\n").encode())
+            await conns[i][1].drain()
+            while reg.handled < want:
+                await asyncio.sleep(0)
+
+        for i in range(n):
+            await send(i, {"type": "whoami"})
+        room = {"type": "new_room", "name": "k", "n": n, "rules": rules}
+        if blinds:
+            room["blinds"] = blinds
+        await send(0, room)
+        for i in range(n):
+            await send(i, {"type": "join_room", "name": "k"})
+        while sum(map(len, got)) < reg.sent:
+            await asyncio.sleep(0.001)
+        pids = [m[0] for m in got]
+        for amt in amounts:
+            head = reg.rooms["k"].head_pid()
+            if head is None:
+                check(until_frozen, f"path k1 {rules}: the room has a head")
+                break
+            await send(pids.index(head), {"type": "play", "name": "k",
+                                          "amt": amt})
+        while sum(map(len, got)) < reg.sent:
+            await asyncio.sleep(0.001)
+        info = reg.rooms["k"].engine.info()
+        stacks = [reg.stacks[p] for p in pids]
+        for r in readers:
+            r.cancel()
+        for _, w in conns:
+            w.close()
+        server.close()
+        await server.wait_closed()
+        return got, stacks, info
+
+    # (k1) reference and standard rooms over TCP: the card's transcripts
+    # equal the CPU's (Philox decks are the same on both), cards included
+    t0 = time.perf_counter()
+    kres["k1"] = {}
+    for rules in ("reference", "standard"):
+        t1 = time.perf_counter()
+        card = asyncio.run(drive(dev, rules, K_SCRIPT))
+        card_s = time.perf_counter() - t1
+        host = asyncio.run(drive(cpu, rules, K_SCRIPT))
+        n_msgs = sum(map(len, card[0]))
+        check(card == host, f"path k1 {rules}: the card's transcripts "
+              f"equal the CPU's ({n_msgs} messages)")
+        check(card[2]["hand_idx"] >= 2, f"path k1 {rules}: the script "
+              f"crossed hands ({card[2]})")
+        kres["k1"][rules] = {"messages": n_msgs, "actions": len(K_SCRIPT),
+                             "info": card[2], "stacks": card[1],
+                             "card_seconds": card_s}
+        log(f"path k1 {rules}: {len(K_SCRIPT)} actions over TCP, {n_msgs} "
+            f"messages, transcripts equal to the CPU's; {card[2]}, "
+            f"{card_s:.2f} s on the card")
+    card = asyncio.run(drive(dev, "tournament", [500] * K_TOUR_ACTIONS,
+                             blinds=K_TOUR_BLINDS, until_frozen=True))
+    host = asyncio.run(drive(cpu, "tournament", [500] * K_TOUR_ACTIONS,
+                             blinds=K_TOUR_BLINDS, until_frozen=True))
+    check(card == host, "path k1 tournament: the card's transcripts equal "
+          "the CPU's")
+    check(sorted(card[1]) == [0, 0, 300], f"path k1 tournament: the "
+          f"winner holds every chip ({card[1]})")
+    kres["k1"]["tournament"] = {"stacks": card[1], "info": card[2]}
+    log(f"path k1 tournament: jams until frozen, stacks {card[1]}, "
+        f"{card[2]}")
+    done("k1", t0)
+
+    # (k2) a 6-max room with five house bots on the default artifact
+    t0 = time.perf_counter()
+
+    def bot_room(device):
+        reg = Registry(backend="torch", device=device)
+        inbox = []
+        pid = reg.add_player(inbox.append)
+        reg.dispatch(pid, {"type": "new_room", "name": "b", "n": 6,
+                           "bots": 5})
+        check(inbox[-1] == {"status": 0, "msg": "OK"},
+              f"path k2: the bot room opens ({inbox[-1]})")
+        room = reg.rooms["b"]
+        reg.dispatch(pid, {"type": "join_room", "name": "b"})
+        check(room.started, "path k2: the room starts")
+        decisions = []
+        act = room.engine.bot_action
+
+        def recording(fn, key):
+            decisions.append(act(fn, key))
+            return decisions[-1]
+
+        room.engine.bot_action = recording
+        for k in range(K_BOT_ACTIONS):
+            check(room.head_pid() == pid, f"path k2: play returns to the "
+                  f"human (action {k})")
+            reg.dispatch(pid, {"type": "play", "name": "b", "amt": 0})
+        return room.engine.info(), decisions, room
+
+    t1 = time.perf_counter()
+    info, dec_card, room = bot_room(dev)
+    bot_s = time.perf_counter() - t1
+    check(room.engine.device.type == "cuda", "path k2: the room runs on "
+          "the card")
+    check(info["hand_idx"] >= 2, f"path k2: hands complete ({info})")
+    _, dec_cpu, _ = bot_room(cpu)
+    k = min(K_BOT_COMPARED, len(dec_card), len(dec_cpu))
+    differ = sum(a != b for a, b in zip(dec_card[:k], dec_cpu[:k]))
+    first = next((i for i in range(k) if dec_card[i] != dec_cpu[i]), None)
+    kres["k2"] = {"human_actions": K_BOT_ACTIONS, "info": info,
+                  "bot_decisions": len(dec_card), "compared": k,
+                  "differ": differ, "first_difference": first,
+                  "card_seconds": bot_s}
+    log(f"path k2: {K_BOT_ACTIONS} human actions against five es2 bots, "
+        f"{len(dec_card)} bot decisions, {info}, {bot_s:.2f} s; of the "
+        f"first {k} bot decisions {differ} differ between the card and "
+        f"the CPU (first at {first})")
+    done("k2", t0)
+
+    # (k3) one action's time: TorchBackend on the card and on the CPU,
+    # NativeBackend (3 seats, reference rules, every action a call)
+    t0 = time.perf_counter()
+    kres["k3"] = {}
+
+    def timed_acts(engine, device):
+        engine.act(0)  # warm
+        lat = []
+        for _ in range(K_TIMED_ACTIONS):
+            t1 = time.perf_counter()
+            engine.act(0)
+            if device is not None and device.type == "cuda":
+                sync()
+            lat.append(time.perf_counter() - t1)
+        lat.sort()
+        return {"p50_ms": lat[len(lat) // 2] * 1e3,
+                "p99_ms": lat[int(0.99 * len(lat))] * 1e3,
+                "mean_ms": sum(lat) / len(lat) * 1e3}
+
+    for name, engine, device in (
+            ("torch_card", sb.TorchBackend(3, 5, 10, 0, [100] * 3,
+                                           device=dev), dev),
+            ("torch_cpu", sb.TorchBackend(3, 5, 10, 0, [100] * 3,
+                                          device=cpu), cpu),
+            ("native", sb.NativeBackend(3, 5, 10, 0, [100] * 3), None)):
+        kres["k3"][name] = timed_acts(engine, device)
+        log(f"path k3 {name}: act p50 {kres['k3'][name]['p50_ms']:.4f} ms, "
+            f"p99 {kres['k3'][name]['p99_ms']:.4f} ms over "
+            f"{K_TIMED_ACTIONS} actions ({smi})")
+    done("k3", t0)
+
+    # (k4) the ported bench_server: 16 rooms x 3 players over TCP
+    t0 = time.perf_counter()
+    k_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_k_"))
+    atexit.register(shutil.rmtree, k_dir, True)
+    kres["k4"] = {}
+    for backend, (m, direct) in (("torch", K_BENCH_TORCH),
+                                 ("native", K_BENCH_NATIVE)):
+        kres["k4"][backend] = sbs.main([
+            "--backend", backend, "--device", "cuda", "--rooms",
+            str(K_BENCH_ROOMS), "--players", str(K_BENCH_PLAYERS),
+            "--actions", str(m), "--direct-actions", str(direct),
+            "--save", str(k_dir / "server_load.json")])
+    with open(ROOT / "data" / "server_load_jax.json") as f:
+        kres["k4"]["jax_record_tpu_round_host"] = json.load(f)["jax"]
+    log(f"path k4: {json.dumps(kres['k4'])} (the JAX record is a TPU "
+        f"round's host CPU, not compared; {smi})")
+    done("k4", t0)
+
+    # (k5) the equity CI95 width at 1 s on K1, and a profiler trace
+    t0 = time.perf_counter()
+    aks = [teq.make_card(0, 14), teq.make_card(0, 13)]
+    qq = [teq.make_card(1, 12), teq.make_card(2, 12)]
+    res, elapsed = upr.ci_width_at_wallclock(SEED, aks, qq, K_CI_SECONDS,
+                                             device=dev)
+    z = (res.equity - K_EXACT_AKS_QQ) / res.stderr
+    lo, hi = res.ci95
+    k1_launches = cq.LAUNCHES["equity"]
+    check(k1_launches > 0, "path k5: K1 launched")
+    check(abs(z) <= 4, f"path k5: equity {res.equity:.7f} within 4 sigma "
+          f"of exact {K_EXACT_AKS_QQ} (z {z:+.2f})")
+    kres["k5"] = {"rollouts": res.n, "elapsed": elapsed,
+                  "equity": res.equity, "z": z, "ci95_width": hi - lo,
+                  "k1_launches": k1_launches}
+    log(f"path k5: CI95 width {hi - lo:.3e} at {elapsed:.3f} s "
+        f"({res.n} rollouts, {k1_launches} K1 launches), equity "
+        f"{res.equity:.7f}, z {z:+.2f} ({smi})")
+    engine = sb.TorchBackend(3, 5, 10, 1, [100] * 3, device=dev)
+    engine.act(0)
+    with upr.device_trace(str(k_dir / "trace"), device=dev):
+        t1 = time.perf_counter()
+        for _ in range(5):
+            engine.act(0)
+        sync()
+        traced_s = time.perf_counter() - t1
+    trace = k_dir / "trace" / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kinds = {}
+    for e in events:
+        kinds[e.get("cat", "")] = kinds.get(e.get("cat", ""), 0) + 1
+    kernel_us = sum(e.get("dur", 0) for e in events
+                    if e.get("cat") == "kernel")
+    kres["k5"].update({"trace_bytes": trace.stat().st_size,
+                       "trace_events": kinds, "kernel_us": kernel_us,
+                       "traced_s": traced_s})
+    log(f"path k5: device_trace over 5 actions: {trace.stat().st_size} "
+        f"bytes, events by category {kinds}; kernels {kernel_us:.1f} us "
+        f"of {traced_s * 1e6:.1f} us (traced, host clock)")
+    done("k5", t0)
+
+    # (k6) a checkpoint round trip at 2^16 tables on the card
+    t0 = time.perf_counter()
+    cfg6 = tstate.TableConfig(num_seats=6, rules="standard")
+    gen = torch.Generator().manual_seed(SEED)
+    n_steps = sum(K_CKPT_STEPS)
+    u = torch.rand((n_steps, K_CKPT_TABLES), generator=gen)
+    raises = torch.randint(1, 60, (n_steps, K_CKPT_TABLES), generator=gen)
+    acts = torch.where(u < 0.2, -1, torch.where(u < 0.8, 0, raises)) \
+        .to(torch.int32).to(dev)
+
+    def steps(st, rows):
+        for a in rows:
+            st = tstep.step_table(st, tstep.clamp_action(st, a),
+                                  rules=cfg6.rules)
+        return st
+
+    st = steps(tstate.init_state(SEED, cfg6, K_CKPT_TABLES, dev),
+               acts[:K_CKPT_STEPS[0]])
+    path = str(k_dir / "tables.npz")
+    t1 = time.perf_counter()
+    uck.save_states(path, st)
+    save_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    back = uck.load_states(path, device=dev)
+    load_s = time.perf_counter() - t1
+    a = steps(st, acts[K_CKPT_STEPS[0]:])
+    b = steps(back, acts[K_CKPT_STEPS[0]:])
+    same = all(torch.equal(x, y) for x, y in zip(
+        tstate._tree_map(lambda v: v, a), tstate._tree_map(lambda v: v, b))
+        for x, y in (zip(x, y) if isinstance(x, tuple) else [(x, y)]))
+    check(same, "path k6: the resumed batch equals the uninterrupted run")
+    hands = int(a.hand_idx.sum())
+    kres["k6"] = {"tables": K_CKPT_TABLES, "steps": list(K_CKPT_STEPS),
+                  "file_bytes": os.path.getsize(path), "save_s": save_s,
+                  "load_s": load_s, "hands_after": hands}
+    log(f"path k6: {K_CKPT_TABLES} tables, save after {K_CKPT_STEPS[0]} "
+        f"steps ({os.path.getsize(path)} bytes, {save_s:.2f} s), load "
+        f"{load_s:.2f} s, {K_CKPT_STEPS[1]} more steps equal the "
+        f"uninterrupted run ({hands} hands dealt in all)")
+    done("k6", t0)
+
+    kres["auto"] = type(sb.make_backend("auto", 3, 5, 10, 0, [100] * 3,
+                                        device=dev)).__name__
+    kres["native_available"] = native.available()
+    log(f"path k: backend 'auto' chooses {kres['auto']}")
+    others = {k: v for mod in mods for k, v in mod.LAUNCHES.items()
+              if v and k != "equity"}
+    check(not others, f"path k launches no kernel but K1 ({others})")
+    k_s["path"] = time.perf_counter() - t_k
+    return kres, k_s, k1_launches
 
 
 def main() -> int:
@@ -2503,9 +2891,15 @@ def main() -> int:
         f"{br['holdout']}, final {br['learned_br_bb_per_hand']:+.4f}")
     i_done("i4", t0)
 
-    # (i5) decision points against the CPU-made records: sigma from batch
-    # means over I_GROUPS groups of tables, times sqrt(2) for the record's
-    # own (same size, no groups)
+    # (i5) decision points against the CPU-made records. policy_diff runs
+    # at the records' size (128 tables x 512 steps): the statistics drift
+    # with the steps of perpetual play (es9's fold-argmax share is 0.51 at
+    # 128 steps, 0.71 at 512), so fewer steps would move them. Its es9
+    # self-play is fold_gate_check's (seed 7, 128 x 512, standard 6-max),
+    # so the fold-gate gates read its records, and fold_gate_check and
+    # make_fold_anchor (not gated) run cut to I5_CUT. Sigma: batch means
+    # over I_GROUPS groups of tables, and the record's the same scaled to
+    # its own decision count.
     t0 = time.perf_counter()
 
     def batch_sigma(fn, recs_flat, n_tables, steps):
@@ -2515,10 +2909,20 @@ def main() -> int:
                 for g in range(I_GROUPS)]
         return float(np.std(vals, ddof=1) / math.sqrt(I_GROUPS))
 
+    def gate_sized(what, port, sig, n_port, rec_value, n_rec):
+        return gate(what, port, sig, rec_value,
+                    sig * math.sqrt(n_port / n_rec))
+
+    drec = record("diff_es9_es8.json")["on_es9_selfplay"]
+    doc = spd.main(["--a", "es9=data/policy_6max_es9.npz", "--b",
+                    "es8=data/policy_6max_es8.npz", "--save",
+                    str(i_dir / "diff_es9_es8.json")])
+    flat = doc["records"]["es9"]
+    feats, _, free, _, _ = flat
+    n_dec = len(feats)
+    got = sela.margin_stats(es9, feats, free)[2]
+    got["fold_gate"] = sela.fold_gate(es9, feats, free)
     rec = record("fold_gate_es9.json")["subjects"]["es9"]
-    doc = sfg.main(["--subjects", "es9=data/policy_6max_es9.npz", "--save",
-                    str(i_dir / "fold_gate_es9.json")])
-    got, flat = doc["subjects"]["es9"], doc["records"]["es9"]
     ires["i5"] = {}
     for key, fn, want in (
             ("fold_argmax_frac", lambda f, fr: sela.fold_gate(
@@ -2530,32 +2934,41 @@ def main() -> int:
         sig = batch_sigma(fn, flat, doc["tables"], doc["steps"])
         ref = rec["fold_gate"][key] if key != "frac_margin_lt_4.6" \
             else rec[key]
-        ires["i5"][key] = gate(f"i5 fold gate {key}", want[key], sig, ref,
-                               sig)
-    rec = record("diff_es9_es8.json")["on_es9_selfplay"]
-    doc = spd.main(["--a", "es9=data/policy_6max_es9.npz", "--b",
-                    "es8=data/policy_6max_es8.npz", "--save",
-                    str(i_dir / "diff_es9_es8.json")])
+        ires["i5"][key] = gate_sized(f"i5 fold gate {key}", want[key], sig,
+                                     n_dec, ref, rec["decisions"])
     es8 = tpn.load_params(ROOT / "data" / "policy_6max_es8.npz")
     sig = batch_sigma(lambda f, fr: float((
         sela.masked_argmax(sela.np_logits(es9, f), fr)[0]
         != sela.masked_argmax(sela.np_logits(es8, f), fr)[0]).mean()),
-        doc["records"]["es9"], doc["tables"], doc["steps"])
-    ires["i5"]["argmax_disagree"] = gate(
+        flat, doc["tables"], doc["steps"])
+    ires["i5"]["argmax_disagree"] = gate_sized(
         "i5 es9 vs es8 argmax disagreement on es9's self-play",
-        doc["on_es9_selfplay"]["argmax_disagree"], sig,
-        rec["argmax_disagree"], sig)
+        doc["on_es9_selfplay"]["argmax_disagree"], sig, n_dec,
+        drec["argmax_disagree"], drec["decisions"])
+    cut = ["--tables", str(I5_CUT[0]), "--steps", str(I5_CUT[1])]
+    small = sfg.main(["--subjects", "es9=data/policy_6max_es9.npz",
+                      "--save", str(i_dir / "fold_gate_es9.json")] + cut)
+    ires["i5"]["fold_gate_check_cut"] = {
+        "tables": I5_CUT[0], "steps": I5_CUT[1],
+        "fold_argmax_frac": small["subjects"]["es9"]["fold_gate"]
+        ["fold_argmax_frac"]}
+    log(f"path i5: fold_gate_check at {I5_CUT[0]} tables x {I5_CUT[1]} "
+        f"steps: fold-argmax share "
+        f"{ires['i5']['fold_gate_check_cut']['fold_argmax_frac']:.4f} "
+        f"(logged; the gates read policy_diff's 128 x 512 es9 records)")
     meta = smfa.main(["--subject", "data/policy_6max_es8.npz", "--save",
-                      str(i_dir / "fold_anchor.npz")])
+                      str(i_dir / "fold_anchor.npz"), "--steps",
+                      str(I5_CUT[1])])
     anc = record("fold_anchor.npz.json")
     ires["i5"]["fold_anchor"] = {"rows": meta["rows"],
+                                 "steps": I5_CUT[1],
                                  "p_fold_ref_mean": meta["p_fold_ref_mean"],
                                  "record_rows": anc["rows"],
                                  "record_p_fold_ref_mean":
                                      anc["p_fold_ref_mean"]}
-    log(f"path i5: make_fold_anchor {meta['rows']} rows, p_fold_ref_mean "
-        f"{meta['p_fold_ref_mean']} (the record: {anc['rows']}, "
-        f"{anc['p_fold_ref_mean']})")
+    log(f"path i5: make_fold_anchor at {I5_CUT[1]} steps: {meta['rows']} "
+        f"rows, p_fold_ref_mean {meta['p_fold_ref_mean']} (the record, "
+        f"512 steps: {anc['rows']}, {anc['p_fold_ref_mean']})")
     i_done("i5", t0)
 
     i_launches = {"K6": cn.LAUNCHES["net_eval_standard"],
@@ -2819,6 +3232,16 @@ def main() -> int:
                     "path_j_peak_bytes": torch.cuda.max_memory_allocated(dev),
                     "card": smi}, default=float))
     phase_done("10 solvers")
+
+    # ---- 11. the server (path k) -------------------------------------------
+    # the port's TCP server, TorchBackend on the card against the CPU and
+    # the native table, bench_server, the CI meter on K1, a checkpoint
+    kres, k_s, k1_path_k = path_k(dev, smi)
+    launches["K1"] += k1_path_k
+    log(json.dumps({"path_k": kres, "path_k_seconds": k_s,
+                    "path_k_launches": {"K1": k1_path_k}, "card": smi},
+                   default=float))
+    phase_done("11 server")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 

@@ -44,6 +44,16 @@ reader find the counterpart:
                           ``step_table``, ``public.py`` the host JSON view,
                           ``replay.py`` the engine on K3's injected stream
                           and its agreement with K3;
+- ``native.py``           the ctypes loader of ``native/mcpoker.cpp``
+                          (the C++ single-table engine and evaluators),
+                          built with g++ into ``_build/native/``;
+- ``server/``             the TCP/JSON poker server: ``host.py`` rooms and
+                          the registry, ``backends.py`` ``NativeBackend``
+                          and ``TorchBackend`` (one table of ``engine/``),
+                          ``tcp.py`` the asyncio transport; ``python -m
+                          montecarlo_tpu_torch`` serves it;
+- ``utils/``              table-state checkpoints and ``torch.profiler``
+                          traces, the equity CI meter at a wall clock;
 - ``scripts/``            ports of the repository's scripts
                           (``exp_carry_model``, ``debug_kernel_compile``,
                           ``build_pushfold_cr``) and the kernels' A/B

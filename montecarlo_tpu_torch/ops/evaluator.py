@@ -14,6 +14,9 @@ Two keys:
   payload``) that the kernels use; its ``<``/``==`` relations equal the
   packed key's.
 
+``eval_masks`` and ``eval_masks_cmp`` are the two under the JAX module's
+public names.
+
 torch has no ``clz``/``popcount`` on int tensors: ``_popcount`` is the SWAR
 count and ``_msb`` a bit smear followed by it. Both are exact for the
 non-negative int32 values used here. The device form of the comparison key
@@ -222,6 +225,12 @@ def eval_masks_cmp_impl(m0, m1, m2, m3):
     for cond, c, payload in reversed(table):
         key = torch.where(cond, (c << 19) | payload, key)
     return key
+
+
+# The JAX module's public names: there the jitted forms of the two
+# functions above; eager torch has nothing to compile, so they are aliases.
+eval_masks = eval_masks_impl
+eval_masks_cmp = eval_masks_cmp_impl
 
 
 def eval7_from_cards(cards):

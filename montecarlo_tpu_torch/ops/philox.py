@@ -24,7 +24,11 @@ The sub-streams taken, with stream_lo (and stream_hi) their index:
 - 65539: ``equity_vs_range``'s villain draws (the rollout;
   ``equity.RANGE_SUB``);
 - 65540: the table engine's decks (the table, stream_hi the hand;
-  ``engine/state.DECK_SUB``).
+  ``engine/state.DECK_SUB``);
+- k << 16 for the policies' streams (the table, stream_hi the step):
+  ``rollout/policy.SUB_HANDS``, ``SUB_PERPETUAL``, ``SUB_TOURNAMENT``
+  and ``SUB_BOT`` (the server's house bots), ``models/train.SUB_TRAIN``,
+  each with its policies' 1 + j above it.
 
 ``philox_blocks`` runs the bare block function: plain for CPU tensors, the
 ``mc_philox_blocks`` kernel for CUDA tensors (a probe that holds the card's

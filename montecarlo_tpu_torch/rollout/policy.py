@@ -18,7 +18,10 @@ gives policy j of a combination its own sub-stream, as JAX's
 ``fold_in(key, j)`` does. The sub-streams of this module are
 ``SUB_HANDS``, ``SUB_PERPETUAL`` and ``SUB_TOURNAMENT`` (the JAX
 ``fold_in`` constants 0x5E1F, 0x5CAD and 0x70A8, shifted past the ids
-``ops/philox.py`` lists) plus 1 + j for policy j.
+``ops/philox.py`` lists) plus 1 + j for policy j, and ``SUB_BOT``, the
+server's house bots (``server/host.Room``: one table, the counter the
+room's bot decision count, where JAX folds the count into
+``key(7919 seed + 13)``).
 
 Draws are integer compares on 32-bit words, as K4's ``mc_policy``
 (``csrc/engine.cuh``; ``ops/cuda_engine._policy``): the random policy folds
@@ -46,6 +49,7 @@ I64 = torch.int64
 SUB_HANDS = 0x5E1F << 16
 SUB_PERPETUAL = 0x5CAD << 16
 SUB_TOURNAMENT = 0x70A8 << 16
+SUB_BOT = 0x7919 << 16
 
 
 class PolicyKey(NamedTuple):

@@ -18,7 +18,9 @@ unless a function is given ``device="cpu"``:
   ``policy_diff`` and ``make_fold_anchor``;
 - the solver scripts: ``river_gap`` and ``turn_gap`` (the Nash-gap meters
   of the exact river and turn+river subgames) and ``distill_nash`` (Nash
-  and solver-BR distillation).
+  and solver-BR distillation);
+- the server's load test: ``bench_server`` (N rooms x M actions over TCP
+  against an in-process server, native or torch rooms).
 
 Every script that writes an artifact takes its path as a required
 ``--save``: ``data/``'s artifacts are the reference.

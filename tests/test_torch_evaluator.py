@@ -67,3 +67,15 @@ def test_popcount_and_msb_emulation():
     np.testing.assert_array_equal(tev._popcount(x).numpy(), want_pop)
     want_msb = np.array([v.bit_length() - 1 for v in range(1 << 16)])
     np.testing.assert_array_equal(tev._msb(x).numpy(), want_msb)
+
+
+@pytest.mark.parametrize("name", ["eval_masks", "eval_masks_cmp"])
+@pytest.mark.parametrize("k", [5, 6, 7])
+def test_public_names_match_jax_jitted(name, k):
+    """The JAX module's public names (its jitted forms) exist in the port
+    and give the same keys on a few thousand seeded hands."""
+    hands = _random_hands(4096, k, seed=100 + k)
+    jm, tm = _both(hands)
+    ours = getattr(tev, name)(*tm).numpy().astype(np.int64)
+    theirs = np.asarray(getattr(jev, name)(*jm)).astype(np.int64)
+    np.testing.assert_array_equal(ours, theirs)

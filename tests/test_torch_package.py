@@ -41,6 +41,11 @@ from montecarlo_tpu_torch.scripts import build_pushfold_cr as bpc
 from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
 from montecarlo_tpu_torch.scripts import distill_nash, river_gap, turn_gap
 from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
+from montecarlo_tpu_torch.scripts import bench_server
+from montecarlo_tpu_torch.server import backends as server_backends
+from montecarlo_tpu_torch.utils import checkpoint as utils_checkpoint
+from montecarlo_tpu_torch.utils import profiling as utils_profiling
+import montecarlo_tpu_torch.__main__ as port_main
 
 ROOT = Path(__file__).resolve().parent.parent
 MODULES = [
@@ -102,6 +107,16 @@ MODULES = [
     "montecarlo_tpu_torch.scripts.river_gap",
     "montecarlo_tpu_torch.scripts.turn_gap",
     "montecarlo_tpu_torch.scripts.distill_nash",
+    "montecarlo_tpu_torch.native",
+    "montecarlo_tpu_torch.server",
+    "montecarlo_tpu_torch.server.backends",
+    "montecarlo_tpu_torch.server.host",
+    "montecarlo_tpu_torch.server.tcp",
+    "montecarlo_tpu_torch.__main__",
+    "montecarlo_tpu_torch.utils",
+    "montecarlo_tpu_torch.utils.checkpoint",
+    "montecarlo_tpu_torch.utils.profiling",
+    "montecarlo_tpu_torch.scripts.bench_server",
 ]
 # The ported training, exploitability and analysis scripts
 # (``montecarlo_tpu_torch/scripts/<name>.py`` beside ``scripts/<name>.py``,
@@ -376,6 +391,20 @@ def test_cuda_requests_raise_without_a_card():
 
 STD = TableConfig(num_seats=6, rules="standard")
 ENTRY_POINTS = {
+    "TorchBackend": lambda: server_backends.TorchBackend(2, 5, 10, 0,
+                                                         [100, 100]),
+    "make_backend(torch)": lambda: server_backends.make_backend(
+        "torch", 2, 5, 10, 0, [100, 100]),
+    "make_backend(native, standard rules)": lambda:
+        server_backends.make_backend("native", 2, 5, 10, 0, [100, 100],
+                                     rules="standard"),
+    "load_states": lambda: utils_checkpoint.load_states("missing.npz"),
+    "device_trace": lambda: utils_profiling.device_trace(
+        "trace").__enter__(),
+    "ci_width_at_wallclock": lambda: utils_profiling.ci_width_at_wallclock(
+        0, [0, 1], [2, 3], 0.1),
+    "bench_server.main": lambda: bench_server.main(["--save", "x.json"]),
+    "__main__.main": lambda: port_main.main(["--port", "0"]),
     "equity_vs_hand": lambda: teq.equity_vs_hand(0, [0, 1], [2, 3], 1024),
     "equity_vs_random": lambda: teq.equity_vs_random(0, [0, 1], 1024),
     "equity_exact": lambda: teq.equity_exact([0, 1], [2, 3], [4, 5, 6, 7]),
