@@ -210,7 +210,28 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    1 s on K1 (launched, the equity within 4 sigma of exact, the width
    logged) and a ``device_trace`` of five actions (its size logged);
    (k6) 2^16 standard tables saved after 16 steps and loaded, 32 more
-   steps equal to the uninterrupted run (file size and seconds logged).
+   steps equal to the uninterrupted run (file size and seconds logged);
+12. scale-out (path l, after path k; only K1, K2, K3, K4 and K5 may
+   launch, each at least once): (l1) a world of one over NCCL that
+   ``parallel/mesh.make_mesh`` starts in this process: the plain sharded
+   rollouts on the card equal to the same through a gloo group on the CPU
+   (AKs vs QQ at 2^20 near 0.460, AA > KQs > 72o), ``sharded_equity_pallas``
+   at 2^30 equal to the single K1 call, the plain engine's shards
+   (2^14 tables, 32 steps; 2^12 heads-up tournaments at 20-chip stacks)
+   equal to the unsharded calls, ``sharded_selfplay_kernel`` at 2^20 x
+   512 equal to ``selfplay_perpetual_kernel``'s launch, K3 and K5 (banked)
+   sharded equal to phase 1's outputs, two data-parallel REINFORCE steps
+   at 256 tables equal to the update written without collectives, and
+   ``solve_turn_river(mesh=)`` at ``turn_gap``'s width (1128 combos x 48
+   rivers, 300 iterations, eager) equal to the CUDA-graph solve, each
+   form's ms an iteration logged; (l2) K1 (2^30), K4 (2^20 x 512) and
+   the dp step on a gloo world of two ranks on this card: the reduced
+   counts equal to the sum of each rank's single call, the parameters
+   equal on both ranks and, at 128 tables a rank, to W = 1 on 256 within
+   1e-6; (l3) the
+   ported ``run_configs`` at its full sizes (config 5 on K2), its lines
+   printed. It logs the NCCL start's seconds, each part's and the peak
+   memory.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -355,6 +376,18 @@ K_CI_SECONDS = 1.0
 K_EXACT_AKS_QQ = 0.458708
 K_CKPT_TABLES = 1 << 16
 K_CKPT_STEPS = (16, 32)       # before the save, after the load
+# path l: the plain rows' rollouts (row 2 at one batch a chunk of 2^18,
+# row 3 three heroes) and engine shards (cut: 2^14 tables x 32 steps,
+# 2^12 heads-up tournaments at 20-chip stacks x 8 hands), the dp step's
+# tables (l1 on one rank; l2 half of them a rank, against l1's run), seeds
+# and tolerance (W ranks against W = 1: the float32 sums' order), the
+# turn solve's iterations (a multiple of the chunk)
+L_EQ_N, L_EQ_BATCH = 1 << 20, 1 << 18
+L_SWEEP_N, L_SWEEP_BATCH = 1 << 16, 1 << 14
+L_PLAIN_TABLES, L_PLAIN_STEPS = 1 << 14, 32
+L_TOUR_TABLES, L_TOUR_HANDS = 1 << 12, 8
+L_DP_TABLES, L_DP_SEEDS, L_DP_TOL = 256, (1, 2), 1e-6
+L_TURN_ITERATIONS = 300
 
 
 # Rollouts per chunk of a plain version on the card.
@@ -774,6 +807,346 @@ def path_k(dev, smi):
     check(not others, f"path k launches no kernel but K1 ({others})")
     k_s["path"] = time.perf_counter() - t_k
     return kres, k_s, k1_launches
+
+
+def _dp_steps(mesh, params, tables):
+    """``parallel/train_dp.make_dp_train_step`` on ``mesh`` (heads-up,
+    standard rules, the JAX defaults) at the seeds ``L_DP_SEEDS`` in turn,
+    from ``params`` (numpy leaves): each step's parameters (numpy) and
+    mean reward."""
+    from montecarlo_tpu_torch.engine.state import TableConfig
+    from montecarlo_tpu_torch.models.policy_net import params_from_numpy
+    from montecarlo_tpu_torch.parallel.train_dp import make_dp_train_step
+
+    opt_init, step = make_dp_train_step(
+        mesh, TableConfig(num_seats=2, rules="standard"),
+        tables_per_device=tables)
+    p = params_from_numpy(params)
+    opt, out = opt_init(p), []
+    for seed in L_DP_SEEDS:
+        p, opt, mean_r = step(p, opt, seed)
+        out.append(([x.cpu().numpy() for x in p], mean_r))
+    return out
+
+
+def _l2_rank(mesh, n_k1, k4_tables, k4_slots, dp_tables, params):
+    """Path l2 on one rank of a gloo world on one card: K1 and K4 sharded,
+    each beside this rank's single call at its own seed, and two
+    data-parallel REINFORCE steps. Returns what the parent compares."""
+    import torch
+
+    from montecarlo_tpu_torch.engine.state import TableConfig
+    from montecarlo_tpu_torch.ops import cuda_engine as ce
+    from montecarlo_tpu_torch.ops import cuda_equity as cq
+    from montecarlo_tpu_torch.parallel import mesh as pm
+    from montecarlo_tpu_torch.rollout.equity import make_card
+
+    started = time.time()
+    r, dev = mesh.rank, mesh.device
+    aks = [make_card(0, 14), make_card(0, 13)]
+    qq = [make_card(1, 12), make_card(2, 12)]
+    out = {"rank": r, "size": mesh.size, "backend": mesh.backend,
+           "device": str(dev)}
+    k1 = pm.sharded_equity_pallas(mesh, SEED, aks, qq, n_k1)
+    dead, hm, vm = cq._hand_masks(aks, qq, (), dev)
+    single = cq.equity_counts((SEED + pm.K1_RANK_STRIDE * r) & 0xFFFFFFFF,
+                              dead, hm, vm, n_k1 // mesh.size)
+    out["k1"] = (tuple(k1), single.tolist())
+    cfg = TableConfig(num_seats=6)
+    P, T = cfg.num_seats, k4_tables // mesh.size
+    state, hands = pm.sharded_selfplay_kernel(
+        mesh, SEED, cfg, T // ce.TABLES_PER_BLOCK, k4_slots)
+    mine = ce.run_perpetual_prng(
+        (SEED + pm.K4_RANK_STRIDE * r) & 0x7FFFFFFF,
+        ce.pack_state(cfg, ce.first_deal(SEED, T, P, dev, r * T)), P,
+        k4_slots, cfg.small_blind, cfg.big_blind)
+    out["k4"] = (bool(torch.equal(state, mine)), hands,
+                 int(ce.unpack_field(mine, cfg, "hand_ct").sum()))
+    out["dp"] = _dp_steps(mesh, params, dp_tables)
+    out["started"], out["work_s"] = started, time.time() - started
+    return out
+
+
+def path_l(dev, smi, phase1):
+    """Path l (phase 12): the scale-out layer (``parallel/``), its sharded
+    entries and ``solve_turn_river(mesh=)`` on a world of one over NCCL in
+    this process (l1), K1, K4 and the data-parallel step on a gloo world
+    of two ranks on this card (l2), and the ported ``run_configs`` at its
+    full sizes (l3). ``phase1`` holds phase 1's K3 and K5b inputs and
+    outputs. Returns (the results, each part's seconds, the launches in
+    the path by kernel)."""
+    import torch
+    import torch.distributed as dist
+
+    from montecarlo_tpu_torch.engine.state import TableConfig, init_state
+    from montecarlo_tpu_torch.models import policy_net as tpn
+    from montecarlo_tpu_torch.models import train as ttrain
+    from montecarlo_tpu_torch.models import turn_solver as tts
+    from montecarlo_tpu_torch.ops import cuda_carry as cc
+    from montecarlo_tpu_torch.ops import cuda_engine as ce
+    from montecarlo_tpu_torch.ops import cuda_equity as cq
+    from montecarlo_tpu_torch.ops import cuda_net as cn
+    from montecarlo_tpu_torch.ops import cuda_stages as cs
+    from montecarlo_tpu_torch.ops import philox
+    from montecarlo_tpu_torch.parallel import local
+    from montecarlo_tpu_torch.parallel import mesh as pm
+    from montecarlo_tpu_torch.parallel import train_dp
+    from montecarlo_tpu_torch.rollout import equity as teq
+    from montecarlo_tpu_torch.rollout import policy as tpol
+    from montecarlo_tpu_torch.rollout import selfplay as tsp
+    from montecarlo_tpu_torch.scripts import run_configs as src
+    from montecarlo_tpu_torch.scripts import turn_gap as stg
+
+    mods = (cq, ce, cn, cc, cs, philox)
+    for mod in mods:
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    l_s, lres, t_l = {}, {}, time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def done(name, t0):
+        sync()
+        l_s[name] = time.perf_counter() - t0
+        log(f"path {name}: {l_s[name]:.2f} s")
+
+    def cuda_ms(fn):
+        """(result, ms) of one run of ``fn`` (CUDA events)."""
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    def equal_trees(a, b):
+        if isinstance(a, tuple):
+            return all(equal_trees(x, y) for x, y in zip(a, b))
+        return bool(torch.equal(a, b))
+
+    cfg = TableConfig(num_seats=6)
+    std = TableConfig(num_seats=6, rules="standard")
+    P, SB, BB = cfg.num_seats, cfg.small_blind, cfg.big_blind
+    AKS = [teq.make_card(0, 14), teq.make_card(0, 13)]
+    QQ = [teq.make_card(1, 12), teq.make_card(2, 12)]
+    HEROES = [[teq.make_card(0, 14), teq.make_card(1, 14)],
+              [teq.make_card(0, 13), teq.make_card(0, 12)],
+              [teq.make_card(0, 7), teq.make_card(1, 2)]]
+
+    # (l1) a world of one over NCCL in this process: make_mesh starts it
+    # (the machine has no network: NCCL's bootstrap listens on loopback)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    check(not dist.is_initialized(), "path l1: no process group before")
+    t0 = time.perf_counter()
+    mesh = pm.make_mesh(dev)
+    pm.all_reduce(mesh, torch.zeros(1, device=dev))  # the communicator
+    done("l1 init", t0)
+    check((mesh.rank, mesh.size, mesh.backend) == (0, 1, "nccl"),
+          f"path l1: a world of one over NCCL ({mesh[1:]})")
+    # the plain rollouts on the card against the same on the CPU, through
+    # a gloo group of the same world
+    host = pm.Mesh(dist.new_group(backend="gloo"), 0, 1, cpu, "gloo")
+    t0 = time.perf_counter()
+    r_card = pm.sharded_equity_vs_hand(mesh, SEED, AKS, QQ, L_EQ_N,
+                                       L_EQ_BATCH)
+    r_cpu = pm.sharded_equity_vs_hand(host, SEED, AKS, QQ, L_EQ_N,
+                                      L_EQ_BATCH)
+    check(r_card == r_cpu and abs(r_card.equity - 0.460) < 0.008,
+          f"path l1 row 2: card {r_card} == CPU {r_cpu}, near 0.460")
+    s_card = pm.equity_sweep(mesh, SEED, HEROES, L_SWEEP_N, L_SWEEP_BATCH)
+    s_cpu = pm.equity_sweep(host, SEED, HEROES, L_SWEEP_N, L_SWEEP_BATCH)
+    check(s_card[1] == s_cpu[1] and np.array_equal(s_card[0], s_cpu[0])
+          and s_card[0][0] > s_card[0][1] > s_card[0][2],
+          f"path l1 row 3: card {s_card} == CPU {s_cpu}, AA > KQs > 72o")
+    lres["rows_2_3"] = {"equity": r_card.equity, "n": r_card.n,
+                        "sweep": s_card[0].tolist(), "sweep_n": s_card[1]}
+    done("l1 rows 2-3", t0)
+
+    # row 4: K1 at 2^30 on one rank is the single K1 call
+    t0 = time.perf_counter()
+    k1 = pm.sharded_equity_pallas(mesh, SEED, AKS, QQ, N_EQUITY)
+    w, t, n = cq.equity_vs_hand_kernel(SEED, AKS, QQ, N_EQUITY, device=dev)
+    check((k1.wins, k1.ties, k1.n) == (w, t, n),
+          f"path l1 row 4: sharded K1 {k1} == the single call")
+    lres["row_4"] = {"equity": k1.equity, "n": k1.n}
+    done("l1 row 4", t0)
+
+    # row 5: the plain engine's sharded entries (cut: 2^14 tables, 64
+    # steps; 2^12 heads-up tournaments at 20-chip stacks, 16 hands)
+    t0 = time.perf_counter()
+    T5 = L_PLAIN_TABLES
+    a = pm.sharded_selfplay(mesh, SEED, cfg, T5)
+    check(equal_trees(a, tsp.play_hands(SEED, cfg, T5, device=dev))
+          and bool(a.hand_over.all()),
+          "path l1 row 5: sharded_selfplay == play_hands")
+    a, hands = pm.sharded_selfplay_perpetual(mesh, SEED, cfg, T5,
+                                             L_PLAIN_STEPS)
+    b, b_hands = tsp.play_hands_perpetual(SEED, cfg, T5, L_PLAIN_STEPS,
+                                          device=dev)
+    check(equal_trees(a, b) and hands == int(b_hands) > 0,
+          "path l1 row 5: sharded_selfplay_perpetual == the unsharded call")
+    tour = TableConfig(num_seats=2, rules="tournament",
+                       starting_stack=TOUR_STACK)
+    a = pm.sharded_tournaments(mesh, SEED, tour, L_TOUR_TABLES,
+                               L_TOUR_HANDS)
+    b = tsp.play_tournament(SEED, tour, L_TOUR_TABLES, L_TOUR_HANDS,
+                            device=dev)
+    check(equal_trees(a[0], b[0]) and torch.equal(a[1], b[1])
+          and torch.equal(a[2], b[2])
+          and bool((a[2].sum(1) == 2 * TOUR_STACK).all()),
+          "path l1 row 5: sharded_tournaments == play_tournament, chips "
+          "conserved")
+    lres["row_5"] = {"perpetual_hands": hands,
+                     "tournaments_done": float((a[2] > 0).sum(1).eq(1)
+                                               .float().mean())}
+    done("l1 row 5", t0)
+
+    # rows 6-8: K4 at 2^20 x 512, K3 and K5b on phase 1's inputs
+    t0 = time.perf_counter()
+    k4, k4_hands = pm.sharded_selfplay_kernel(
+        mesh, SEED, cfg, T_FULL // ce.TABLES_PER_BLOCK, SP_SLOTS)
+    want, want_hands, _ = ce.selfplay_perpetual_kernel(
+        SEED, cfg, T_FULL, SP_SLOTS, steps_per_launch=SP_SLOTS, device=dev)
+    check(torch.equal(k4, want) and k4_hands == want_hands,
+          "path l1 row 6: sharded K4 == selfplay_perpetual_kernel's launch")
+    del k4, want
+    k3, k3_hands = pm.sharded_selfplay_kernel_det(
+        mesh, cfg, phase1["st_full"], phase1["acts_full"],
+        phase1["cards_full"], DET_STEPS)
+    check(torch.equal(k3, phase1["det_out"])
+          and k3_hands == int(ce.unpack_field(k3, cfg, "hand_ct").sum()),
+          "path l1 row 7: sharded K3 == phase 1's K3 output")
+    k5, k5_hands = pm.sharded_net_kernel_det(
+        mesh, std, phase1["st_net_det"], phase1["stash_net"],
+        phase1["w_det_banks"], NET_DET_STEPS, (0,) + (1,) * (P - 1))
+    check(torch.equal(k5, phase1["k5b_out"]),
+          "path l1 row 8: sharded K5 (banked) == phase 1's K5b output")
+    lres["rows_6_8"] = {"k4_hands": k4_hands, "k3_hands": k3_hands,
+                        "k5_hands": k5_hands}
+    del k3, k5
+    done("l1 rows 6-8", t0)
+
+    # row 9: two data-parallel steps at 256 tables against the same update
+    # written without collectives
+    t0 = time.perf_counter()
+    params = [x.numpy() for x in
+              tpn.init_params(torch.Generator().manual_seed(SEED))]
+    dp1 = _dp_steps(mesh, params, L_DP_TABLES)
+    hu = TableConfig(num_seats=2, rules="standard")
+    leaves = [torch.tensor(x, device=dev).requires_grad_(True)
+              for x in params]
+    opt = torch.optim.Adam(leaves, lr=3e-3)
+    row9 = []
+    for seed, (got, mean_r) in zip(L_DP_SEEDS, dp1):
+        st = init_state(seed, hu, L_DP_TABLES, dev)
+        pos = (torch.arange(L_DP_TABLES, device=dev) % 2).to(torch.int32)
+        rewards, rec, _ = ttrain._play_hand_collect(
+            tpn.MLPParams(*leaves), st,
+            tpol.policy_key(seed, L_DP_TABLES, ttrain.SUB_TRAIN, dev), pos,
+            tpol.random_policy, 48, hu.rules)
+        r = rewards / hu.big_blind
+        loss = train_dp.dp_loss(
+            ttrain.log_prob_sums(tpn.MLPParams(*leaves), rec, L_DP_TABLES),
+            r, r.mean(), ((r - r.mean()) ** 2).mean())
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        diff = max(float(np.abs(x - y.detach().cpu().numpy()).max())
+                   for x, y in zip(got, leaves))
+        row9.append({"mean_r": mean_r, "max_abs_diff": diff})
+        check(diff <= L_DP_TOL and abs(mean_r - float(r.mean())) <= L_DP_TOL,
+              f"path l1 row 9: the dp step at seed {seed} == the update "
+              f"without collectives ({diff})")
+    lres["row_9"] = row9
+    done("l1 row 9", t0)
+
+    # row 10: the turn solver at turn_gap's width (1128 combos x 48
+    # rivers), 300 iterations: eager over the mesh == the CUDA-graph solve
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "path l1 row 10: TF32 is off")
+    t0 = time.perf_counter()
+    tgame = stg.artifact_game(stg.BOARDS["Ks8h5d2c"], 1, dev)[0]
+    sharded, mesh_ms = cuda_ms(lambda: tts.solve_turn_river(
+        tgame, L_TURN_ITERATIONS, mesh=mesh))
+    single, graph_ms = cuda_ms(lambda: tts.solve_turn_river(
+        tgame, L_TURN_ITERATIONS))
+    check(equal_trees(tuple(sharded), tuple(single)),
+          "path l1 row 10: the mesh solve == the single solve")
+    lres["row_10"] = {"mesh_ms_per_iteration": mesh_ms / L_TURN_ITERATIONS,
+                      "graph_ms_per_iteration": graph_ms / L_TURN_ITERATIONS,
+                      "gap": tts.exploitability_gap(tgame, single),
+                      "combos": int(tgame.mask0.shape[0]),
+                      "rivers": int(tgame.keys.shape[0])}
+    log(f"path l1 row 10: {lres['row_10']}")
+    del tgame, sharded, single
+    done("l1 row 10", t0)
+
+    # (l2) K1, K4 and the dp step on a gloo world of two ranks on this
+    # card, against each rank's single calls and W = 1 on 2T tables (row
+    # 9's run)
+    t0, t_spawn = time.perf_counter(), time.time()
+    ranks = local.spawn(_l2_rank, 2, "gloo", dev, N_EQUITY, T_FULL,
+                        SP_SLOTS, L_DP_TABLES // 2, params)
+    # process start, imports and the gloo group's start, to the last rank
+    ready_s = max(x["started"] for x in ranks) - t_spawn
+    log(f"path l2: ranks ready (process start, imports, gloo init) in "
+        f"{ready_s:.2f} s, their work {[round(x['work_s'], 2) for x in ranks]}"
+        f" s")
+    check([x["rank"] for x in ranks] == [0, 1]
+          and all(x["backend"] == "gloo" for x in ranks),
+          "path l2: two gloo ranks")
+    counts = [x["k1"][1] for x in ranks]
+    w, t = (sum(c[i] for c in counts) for i in range(2))
+    check(all(x["k1"][0] == (w, t, N_EQUITY - w - t, N_EQUITY)
+              for x in ranks),
+          "path l2: sharded K1 == the sum of each rank's single call")
+    check(all(x["k4"][0] for x in ranks)
+          and all(x["k4"][1] == sum(y["k4"][2] for y in ranks)
+                  for x in ranks),
+          "path l2: each rank's K4 == its single launch, hands summed")
+    l2_dp = []
+    for step, one in enumerate(dp1):
+        a, b = ranks[0]["dp"][step], ranks[1]["dp"][step]
+        check(all(np.array_equal(x, y) for x, y in zip(a[0], b[0]))
+              and a[1] == b[1], f"path l2: both ranks' step {step} equal")
+        diff = max(float(np.abs(x - y).max()) for x, y in zip(a[0], one[0]))
+        l2_dp.append({"mean_r": a[1], "w1_mean_r": one[1],
+                      "max_abs_diff": diff})
+        check(diff <= L_DP_TOL and abs(a[1] - one[1]) <= L_DP_TOL,
+              f"path l2: dp step {step} on 2 x {L_DP_TABLES // 2} tables == "
+              f"W = 1 on {L_DP_TABLES} within {L_DP_TOL} ({diff})")
+    lres["l2"] = {"k1_equity": (w + 0.5 * t) / N_EQUITY,
+                  "k4_hands": ranks[0]["k4"][1], "dp": l2_dp,
+                  "ranks_ready_s": ready_s,
+                  "rank_work_s": [x["work_s"] for x in ranks]}
+    done("l2", t0)
+
+    # (l3) the ported run_configs at its full sizes (config 5 on K2)
+    t0 = time.perf_counter()
+    rc = src.main([], device=dev)
+    check(rc["config4"][0] == 1.0 and rc["config5"][1] == 10_000_000,
+          "path l3: run_configs completes every table and sweeps 10^7")
+    lres["l3"] = {"config3_equity": rc["config3"].equity,
+                  "config4_stats": rc["config4"][1],
+                  "config5_top": float(rc["config5"][0].max())}
+    done("l3", t0)
+    dist.destroy_process_group()
+
+    counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+    path_launches = {"K1": counts.pop("equity", 0),
+                     "K2": counts.pop("sweep", 0),
+                     "K3": counts.pop("engine_det_reference", 0),
+                     "K4": counts.pop("engine_prng_reference", 0),
+                     "K5b": counts.pop("net_det_banked_standard", 0)}
+    check(not counts, f"path l launches only K1-K5 ({counts})")
+    check(all(path_launches.values()),
+          f"path l launched K1, K2, K3, K4 and K5 ({path_launches})")
+    lres["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    l_s["path"] = time.perf_counter() - t_l
+    return lres, l_s, path_launches
 
 
 def main() -> int:
@@ -3242,6 +3615,22 @@ def main() -> int:
                     "path_k_launches": {"K1": k1_path_k}, "card": smi},
                    default=float))
     phase_done("11 server")
+
+    # ---- 12. scale-out (path l) --------------------------------------------
+    # the parallel/ layer: every sharded entry on a world of one over NCCL
+    # against its unsharded call (K3 and K5b against phase 1's outputs),
+    # K1, K4 and the dp step on two gloo ranks on this card, run_configs
+    lres, l_s, l_launches = path_l(dev, smi, {
+        "st_full": st_full, "acts_full": acts_full,
+        "cards_full": cards_full, "det_out": det_out,
+        "st_net_det": st_net_det, "stash_net": stash_net,
+        "w_det_banks": w_det_banks, "k5b_out": k5b_out})
+    for key, n in l_launches.items():
+        launches[key] += n
+    log(json.dumps({"path_l": lres, "path_l_seconds": l_s,
+                    "path_l_launches": l_launches, "card": smi},
+                   default=float))
+    phase_done("12 scale-out")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 

@@ -54,6 +54,11 @@ reader find the counterpart:
                           montecarlo_tpu_torch`` serves it;
 - ``utils/``              table-state checkpoints and ``torch.profiler``
                           traces, the equity CI meter at a wall clock;
+- ``parallel/``           scale-out over ``torch.distributed``: tables and
+                          rollouts sharded over ranks, counters and
+                          gradients ``all_reduce``d (``mesh.py``,
+                          ``train_dp.py``), N ranks on one machine
+                          (``local.py``);
 - ``scripts/``            ports of the repository's scripts
                           (``exp_carry_model``, ``debug_kernel_compile``,
                           ``build_pushfold_cr``) and the kernels' A/B

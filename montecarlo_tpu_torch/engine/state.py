@@ -132,12 +132,15 @@ def _check_config(cfg: TableConfig) -> None:
                          "(a zero-chip post must not create a layer)")
 
 
-def table_keys(seed: int, n_tables: int, device=None) -> torch.Tensor:
-    """int64 [n_tables, 2]: (seed mod 2^32, table index)."""
+def table_keys(seed: int, n_tables: int, device=None,
+               first_table: int = 0) -> torch.Tensor:
+    """int64 [n_tables, 2]: (seed mod 2^32, table index), the tables
+    ``first_table`` .. ``first_table + n_tables - 1``."""
     dev = resolve(device)
     return torch.stack([
         torch.full((n_tables,), int(seed) & MASK, dtype=I64, device=dev),
-        torch.arange(n_tables, dtype=I64, device=dev)], dim=1)
+        torch.arange(first_table, first_table + n_tables, dtype=I64,
+                     device=dev)], dim=1)
 
 
 def shuffled_decks(key: torch.Tensor, hand_idx: torch.Tensor) -> torch.Tensor:
@@ -169,10 +172,12 @@ def _deal(deck: torch.Tensor, P: int):
 
 
 def init_state(seed: int, cfg: TableConfig, n_tables: int,
-               device=None) -> TableState:
+               device=None, first_table: int = 0) -> TableState:
     """``n_tables`` fresh tables on ``device`` (the card when None): full
     stacks, button at seat 0, the first hand dealt from each table's
-    Philox deck."""
+    Philox deck. The tables are ``first_table`` .. ``first_table +
+    n_tables - 1`` of the seed: a table's deck is a function of its index,
+    so a shard of a larger batch deals as that batch's rows do."""
     _check_config(cfg)
     dev = resolve(device)
     P, T = cfg.num_seats, n_tables
@@ -181,7 +186,7 @@ def init_state(seed: int, cfg: TableConfig, n_tables: int,
         return torch.full((T, *shape), value, dtype=dtype, device=dev)
 
     state = TableState(
-        key=table_keys(seed, T, dev),
+        key=table_keys(seed, T, dev, first_table),
         hand_idx=full(0),
         deck=torch.arange(NUM_CARDS, dtype=I32, device=dev).repeat(T, 1),
         hole=full(0, P, 2),

@@ -356,21 +356,47 @@ def _avg_turn_reaches(strat: TurnRiverStrategy):
 
 @torch.no_grad()
 def solve_turn_river(game: TurnRiverGame, iterations: int = 1000,
-                     progress_every: int = 0, log=None) -> TurnRiverStrategy:
+                     progress_every: int = 0, log=None,
+                     mesh=None) -> TurnRiverStrategy:
     """CFR+ (alternating updates, linear averaging) over both streets, on
     the game's device. ``progress_every`` > 0 logs the certified gap of
     the running average via ``log`` (default: print) at the JAX module's
     points: every that-many iterations counted in chunks of
     min(50, progress_every), and at the end.
 
-    The JAX form's ``mesh=`` (the rivers sharded over devices) is not
-    here: it belongs to the port's ``torch.distributed`` layer."""
+    ``mesh``: an optional ``parallel/mesh.Mesh``. The rivers split over
+    its ranks (rank r holds rivers r Rn/W .. (r + 1) Rn/W - 1: their
+    panels, regrets and averages), each rank sweeps its own, and the
+    per-line street-boundary entry values V1 and V2 are summed over the
+    ranks (``all_reduce``); the turn updates, O(C) next to the O(Rn C^2)
+    river work, are replicated. The river count must divide by the world
+    size. As in JAX's mesh mode a ragged tail is rounded up to a full
+    chunk of iterations, and the river averages are gathered once at the
+    end (and at each progress point), so every rank returns the whole
+    strategy. The iterations run eagerly (no CUDA graph: a collective is
+    not captured). Equal to the single solve up to the order of the
+    float32 sums over rivers; at one rank, bit for bit."""
     C = game.mask0.shape[0]
     Rn = game.keys.shape[0]
     dev = game.mask0.device
     g = _gates(game)
     sizes = _river_sizes(game)
-    M, MW = _panels(game)
+    if mesh is not None:
+        from montecarlo_tpu_torch.parallel.mesh import all_gather, all_reduce
+
+        if Rn % mesh.size:
+            raise ValueError(f"river count {Rn} must divide by the world "
+                             f"size {mesh.size}")
+        Rn //= mesh.size
+        rivers = slice(mesh.rank * Rn, (mesh.rank + 1) * Rn)
+        M, MW = _panels(game._replace(keys=game.keys[rivers],
+                                      has_r=game.has_r[rivers]))
+    else:
+        M, MW = _panels(game)
+
+    def street_sum(V):
+        """The entry values summed over every rank's rivers."""
+        return V if mesh is None else all_reduce(mesh, V)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=F32, device=dev)
@@ -400,7 +426,7 @@ def solve_turn_river(game: TurnRiverGame, iterations: int = 1000,
         s0, s1, s2, s3, s4 = normed(rr, rgates)
         v0, v2, v4 = _river_p1_values(M, MW, sizes, rho2, s1, s2, s3, s4)
         update(rr, ((0, s0, v0), (2, s2, v2), (4, s4, v4)))
-        V1 = (s0 * v0).sum(-1).sum(1)
+        V1 = street_sum((s0 * v0).sum(-1).sum(1))
         u0, u2, u4 = _turn_p1_values(game, t1, t2, t3, t4, V1)
         update(tr, ((0, t0, u0), (2, t2, u2), (4, t4, u4)))
         ta[0] += w * t0
@@ -413,7 +439,7 @@ def solve_turn_river(game: TurnRiverGame, iterations: int = 1000,
         s0n, _, s2n, _, s4n = normed(rr, rgates)
         v1, v3 = _river_p2_values(M, MW, sizes, rho1n, s0n, s2n, s4n)
         update(rr, ((1, s1, v1), (3, s3, v3)))
-        V2 = ((s1 * v1).sum(-1) + (s3 * v3).sum(-1)).sum(1)
+        V2 = street_sum(((s1 * v1).sum(-1) + (s3 * v3).sum(-1)).sum(1))
         u1, u3 = _turn_p2_values(game, t0n, t2n, t4n, V2)
         update(tr, ((1, t1, u1), (3, t3, u3)))
         ta[1] += w * t1
@@ -431,9 +457,10 @@ def solve_turn_river(game: TurnRiverGame, iterations: int = 1000,
         ra[3] += w2 * s3
 
     def to_strategy():
+        whole = ra if mesh is None else [all_gather(mesh, a, 1) for a in ra]
         return TurnRiverStrategy(
             *[_average(a, x) for a, x in zip(ta, gates)],
-            *[_average(a, x) for a, x in zip(ra, rgates)])
+            *[_average(a, x) for a, x in zip(whole, rgates)])
 
     chunk = max(1, min(50, progress_every or 50))
     log = log or (lambda d: print(d, flush=True))
@@ -441,7 +468,13 @@ def solve_turn_river(game: TurnRiverGame, iterations: int = 1000,
     t = 0
     while t < iterations:
         n = min(chunk, iterations - t)
-        loop.run(t, t + n)
+        if mesh is None:
+            loop.run(t, t + n)
+        else:  # a full chunk, eagerly
+            n = chunk
+            for i in range(t, t + n):
+                w.fill_(i + 1)
+                step()
         t += n
         if progress_every and (t % progress_every == 0 or t >= iterations):
             log({"iteration": t,

@@ -801,12 +801,15 @@ def run_perpetual_prng(seed: int, state, P: int, n_steps: int, sb: int,
     return out
 
 
-def first_deal(seed: int, n_tables: int, P: int, device=None):
+def first_deal(seed: int, n_tables: int, P: int, device=None,
+               first_table: int = 0):
     """[n_tables, 2P+5] distinct cards per table on ``device`` (the card
-    when None): table t's are drawn like an in-kernel deal from Philox
-    stream (seed, t, 0, 1), which no kernel draws from, so every device
-    deals the same cards."""
-    t = torch.arange(n_tables, dtype=I64, device=resolve(device))
+    when None) for tables ``first_table`` .. ``first_table + n_tables -
+    1``: table t's are drawn like an in-kernel deal from Philox stream
+    (seed, t, 0, 1), which no kernel draws from, so every device deals
+    the same cards."""
+    t = torch.arange(first_table, first_table + n_tables, dtype=I64,
+                     device=resolve(device))
     words = stream_words(seed, t, 0, 1, 0, 2 * P + 5)
     return torch.stack(_sample_cards(words, []), dim=1)
 

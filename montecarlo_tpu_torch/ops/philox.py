@@ -28,7 +28,13 @@ The sub-streams taken, with stream_lo (and stream_hi) their index:
 - k << 16 for the policies' streams (the table, stream_hi the step):
   ``rollout/policy.SUB_HANDS``, ``SUB_PERPETUAL``, ``SUB_TOURNAMENT``
   and ``SUB_BOT`` (the server's house bots), ``models/train.SUB_TRAIN``,
-  each with its policies' 1 + j above it.
+  each with its policies' 1 + j above it;
+- 65541: ``models/train.fold_seed`` (the data);
+- ``parallel/mesh.SUB_MESH_HAND`` (0x3E5A << 16) and
+  ``SUB_MESH_SWEEP`` + h (0x3E5B << 16, hero h): the sharded plain
+  equity rollouts, keyed (seed, the row of the chunk) with the counter
+  words (block, chunk, sub, rank), the one place the fourth counter
+  word is not 0.
 
 ``philox_blocks`` runs the bare block function: plain for CPU tensors, the
 ``mc_philox_blocks`` kernel for CUDA tensors (a probe that holds the card's

@@ -67,10 +67,12 @@ class PolicyKey(NamedTuple):
                             self.sub, 0, n)
 
 
-def policy_key(seed: int, n_tables: int, sub: int, device=None) -> PolicyKey:
-    """The key of tables 0 .. n_tables - 1 on ``device`` (the card when
-    None), counter 0."""
-    table = torch.arange(n_tables, dtype=I64, device=resolve(device))
+def policy_key(seed: int, n_tables: int, sub: int, device=None,
+               first_table: int = 0) -> PolicyKey:
+    """The key of tables ``first_table`` .. ``first_table + n_tables - 1``
+    on ``device`` (the card when None), counter 0."""
+    table = torch.arange(first_table, first_table + n_tables, dtype=I64,
+                         device=resolve(device))
     return PolicyKey(int(seed) & MASK, table, 0, sub)
 
 

@@ -106,9 +106,12 @@ def play_one_hand(state: TableState, key: PolicyKey,
 def play_hands(seed: int, cfg: TableConfig, n_tables: int,
                num_hands: int = 1, max_steps: Optional[int] = None,
                policy: Callable = random_policy,
-               collect_deltas: bool = False, device=None):
+               collect_deltas: bool = False, device=None,
+               first_table: int = 0):
     """``num_hands`` consecutive hands on ``n_tables`` tables of
-    ``init_state(seed)``; policy words on ``SUB_HANDS``.
+    ``init_state(seed)``; policy words on ``SUB_HANDS``. The tables are
+    ``first_table`` .. ``first_table + n_tables - 1`` (decks and words go
+    by table index, so a shard plays as those rows of a larger batch).
 
     Returns the final (settled) states; with ``collect_deltas=True``
     ``(final, deltas)``, ``deltas`` int32 [tables, hands, P] the settled
@@ -117,8 +120,8 @@ def play_hands(seed: int, cfg: TableConfig, n_tables: int,
     rules up to the n-inflation minting (``engine/bets.py``)."""
     steps = max_steps or hand_action_bound(cfg)
     dev = resolve(device)
-    st = init_state(seed, cfg, n_tables, dev)
-    key = policy_key(seed, n_tables, SUB_HANDS, dev)
+    st = init_state(seed, cfg, n_tables, dev, first_table)
+    key = policy_key(seed, n_tables, SUB_HANDS, dev, first_table)
     deltas = []
     for i in range(num_hands):
         if i > 0:  # pre-hand stacks in this hand's position space
@@ -136,17 +139,17 @@ def play_hands(seed: int, cfg: TableConfig, n_tables: int,
 
 def play_hands_perpetual(seed: int, cfg: TableConfig, n_tables: int,
                          n_steps: int, policy: Callable = random_policy,
-                         device=None):
+                         device=None, first_table: int = 0):
     """Perpetual tables: ``n_steps`` of ``step_table`` on every table of
     ``init_state(seed)`` (each hand settles and the next deals inside the
     step, the reference's endless game); policy words on
-    ``SUB_PERPETUAL``.
+    ``SUB_PERPETUAL``; tables from ``first_table`` as in ``play_hands``.
 
     Returns ``(final_states, hands_completed)``, the latter the sum of
     the hand counters (a 0-dim tensor)."""
     dev = resolve(device)
-    st = init_state(seed, cfg, n_tables, dev)
-    key = policy_key(seed, n_tables, SUB_PERPETUAL, dev)
+    st = init_state(seed, cfg, n_tables, dev, first_table)
+    key = policy_key(seed, n_tables, SUB_PERPETUAL, dev, first_table)
     street_raises = torch.zeros_like(st.stage)
     for i in range(n_steps):
         action = clamp_action(st, policy(at_step(key, i), st,
@@ -170,11 +173,13 @@ def _seat_view(stacks: torch.Tensor, button: torch.Tensor) -> torch.Tensor:
 
 def play_tournament(seed: int, cfg: TableConfig, n_tables: int,
                     max_hands: int, max_steps: Optional[int] = None,
-                    policy: Callable = random_policy, device=None):
+                    policy: Callable = random_policy, device=None,
+                    first_table: int = 0):
     """Up to ``max_hands`` tournament hands on every table of
     ``init_state(seed)`` (busted seats leave the deal, the blinds skip
     them, a table freezes when one player holds every chip); policy words
-    on ``SUB_TOURNAMENT``. A frozen table is a fixed point of the hands
+    on ``SUB_TOURNAMENT``; tables from ``first_table`` as in
+    ``play_hands``. A frozen table is a fixed point of the hands
     that follow, so each hand plays only the tables not frozen, and the
     loop stops when none is left.
 
@@ -187,8 +192,8 @@ def play_tournament(seed: int, cfg: TableConfig, n_tables: int,
         raise ValueError("play_tournament needs tournament rules")
     steps = max_steps or hand_action_bound(cfg)
     dev = resolve(device)
-    st = init_state(seed, cfg, n_tables, dev)
-    key = policy_key(seed, n_tables, SUB_TOURNAMENT, dev)
+    st = init_state(seed, cfg, n_tables, dev, first_table)
+    key = policy_key(seed, n_tables, SUB_TOURNAMENT, dev, first_table)
     busted = torch.full(st.stacks.shape, max_hands + 1, dtype=I32,
                         device=dev)
     # the tables not frozen: a frozen table is a fixed point of every

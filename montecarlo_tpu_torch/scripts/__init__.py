@@ -20,7 +20,9 @@ unless a function is given ``device="cpu"``:
   of the exact river and turn+river subgames) and ``distill_nash`` (Nash
   and solver-BR distillation);
 - the server's load test: ``bench_server`` (N rooms x M actions over TCP
-  against an in-process server, native or torch rooms).
+  against an in-process server, native or torch rooms);
+- the five BASELINE configs: ``run_configs`` (config 5 on the sweep
+  kernel, or the sharded plain sweep on the CPU).
 
 Every script that writes an artifact takes its path as a required
 ``--save``: ``data/``'s artifacts are the reference.

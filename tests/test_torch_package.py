@@ -41,7 +41,9 @@ from montecarlo_tpu_torch.scripts import build_pushfold_cr as bpc
 from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
 from montecarlo_tpu_torch.scripts import distill_nash, river_gap, turn_gap
 from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
-from montecarlo_tpu_torch.scripts import bench_server
+from montecarlo_tpu_torch.scripts import bench_server, run_configs
+from montecarlo_tpu_torch.parallel import local as parallel_local
+from montecarlo_tpu_torch.parallel import mesh as parallel_mesh
 from montecarlo_tpu_torch.server import backends as server_backends
 from montecarlo_tpu_torch.utils import checkpoint as utils_checkpoint
 from montecarlo_tpu_torch.utils import profiling as utils_profiling
@@ -117,6 +119,11 @@ MODULES = [
     "montecarlo_tpu_torch.utils.checkpoint",
     "montecarlo_tpu_torch.utils.profiling",
     "montecarlo_tpu_torch.scripts.bench_server",
+    "montecarlo_tpu_torch.parallel",
+    "montecarlo_tpu_torch.parallel.mesh",
+    "montecarlo_tpu_torch.parallel.train_dp",
+    "montecarlo_tpu_torch.parallel.local",
+    "montecarlo_tpu_torch.scripts.run_configs",
 ]
 # The ported training, exploitability and analysis scripts
 # (``montecarlo_tpu_torch/scripts/<name>.py`` beside ``scripts/<name>.py``,
@@ -124,14 +131,14 @@ MODULES = [
 SCRIPTS = ["league_eval", "exploit_probe", "opt_bot", "train_es_kernel",
            "train_policy", "train_br", "exp_leak_anatomy", "fold_gate_check",
            "policy_diff", "make_fold_anchor", "eval_attacker", "train_mix",
-           "river_gap", "turn_gap", "distill_nash"]
+           "river_gap", "turn_gap", "distill_nash", "run_configs"]
 # Runs the port's CPU path (equity and multiway equity, range equity and
 # push/fold, the table engine's step and host view, self-play under every
 # rule set, a net policy in a duplicate match, the net pipeline's replay,
 # the engine kernels' plain versions under every rule set, tournaments to completion,
 # net evaluation, an ES generation on the population form with a rule
 # bot's league, the two ported probe scripts, the river and turn+river
-# solvers) in a fresh process, then
+# solvers, the scale-out layer on a world of one) in a fresh process, then
 # lists what it loaded of JAX and of the JAX package.
 CPU_PATH = """
 import json, sys
@@ -225,6 +232,17 @@ tg, tc = ts.make_turn_river_game(board[:4], rivers=[5, 6],
                                  combos=ts.turn_combos(board[:4])[::60],
                                  device="cpu")
 assert ts.exploitability_gap(tg, ts.solve_turn_river(tg, 3)) > -1e-3
+from montecarlo_tpu_torch.parallel import mesh as pm, train_dp
+from montecarlo_tpu_torch.models.policy_net import init_params
+m = pm.make_mesh("cpu")
+assert pm.sharded_equity_vs_hand(m, 1, [0, 12], [25, 38], 4096).n == 4096
+assert pm.sharded_selfplay_kernel(m, 2, cfg, 1, 16)[1] > 0
+opt_init, dp_step = train_dp.make_dp_train_step(
+    m, TableConfig(num_seats=2, rules="standard"), tables_per_device=8,
+    max_steps=8)
+p0 = init_params(torch.Generator().manual_seed(0))
+assert np.isfinite(dp_step(p0, opt_init(p0), 1)[2])
+assert ts.exploitability_gap(tg, ts.solve_turn_river(tg, 3, mesh=m)) > -1e-3
 print(json.dumps(sorted(k for k in sys.modules if k == "jax"
                         or k.startswith(("jax.", "montecarlo_tpu."))
                         or k == "montecarlo_tpu")))
@@ -278,7 +296,7 @@ def test_ported_modules_hold_every_public_name_of_jax():
         assert names and names <= set(vars(ours)), names - set(vars(ours))
     for name in ("models.cma", "models.leash", "models.train",
                  "models.river_solver", "models.turn_solver",
-                 "models.distill"):
+                 "models.distill", "parallel.mesh", "parallel.train_dp"):
         theirs = importlib.import_module("montecarlo_tpu." + name)
         ours = importlib.import_module("montecarlo_tpu_torch." + name)
         names = {k for k, v in vars(theirs).items() if not k.startswith("_")
@@ -472,6 +490,10 @@ ENTRY_POINTS = {
     "river_gap.main": lambda: river_gap.main(["--save", "x.json"]),
     "turn_gap.main": lambda: turn_gap.main(["--save", "x.json"]),
     "distill_nash.main": lambda: distill_nash.main(["--save", "x.npz"]),
+    "make_mesh": lambda: parallel_mesh.make_mesh(),
+    "spawn": lambda: parallel_local.spawn(parallel_mesh.make_mesh, 2,
+                                          "nccl", None),
+    "run_configs.main": lambda: run_configs.main([]),
 }
 
 

@@ -20,7 +20,8 @@ combo strides of ``tests/test_turn_solver.py``.
   the rows (the rest ties: es3 always calls, so P1's check and bet values
   at the turn root are both 680 up to rounding), and either side's mixed
   with the profile reproduces br1 and br2 (``tests/test_distill.py``).
-- The two reductions and certificates of ``tests/test_turn_solver.py``.
+- The two reductions and certificates of ``tests/test_turn_solver.py``,
+  and its mesh-sharded solve on a gloo world of two ranks.
 - ``turn_river_node_states`` (with the prelude) equal to JAX's field by
   field but the key (the street through the port's layer view);
   ``net_turn_river_strategy`` on the port's states carried into JAX
@@ -35,6 +36,8 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from jax.sharding import Mesh as JaxMesh
 
 from montecarlo_tpu.models import bots as jbots
 from montecarlo_tpu.models import policy_net as jpn
@@ -44,7 +47,10 @@ from montecarlo_tpu_torch.models import bots as tbots
 from montecarlo_tpu_torch.models import policy_net as tpn
 from montecarlo_tpu_torch.models import river_solver as pr
 from montecarlo_tpu_torch.models import turn_solver as pt
+from montecarlo_tpu_torch.parallel import local
+from montecarlo_tpu_torch.parallel import mesh as tm
 
+import torch_parallel_workers as workers
 from test_torch_river_solver import assert_state_equal, jax_node, jax_state
 
 torch.set_num_threads(1)
@@ -250,6 +256,71 @@ def test_turn_check_down_single_river_is_the_river_subgame():
     assert float(game.mask0.sum()) == pytest.approx(float(ref.mask.sum()))
     assert gap2 < 0.05 and gap1 < 0.05, (gap2, gap1)
     assert abs(ev1 - rev1) <= gap1 + gap2 + 1e-3
+
+
+# ---------------------------------------------------------------------------
+# The rivers sharded over ranks (solve_turn_river(mesh=)), mirroring
+# tests/test_turn_solver.py::test_mesh_sharded_solve_matches_single_device:
+# 8 rivers, stride-24 combos, 300 iterations, on a gloo world of two CPU
+# ranks. The EVs agree within the two gaps plus 1e-3 (the unique
+# zero-sum Nash EV), with the port's single solve and with JAX's 8-device
+# mesh solve: two ranks sum V1 and V2 in another float32 order. A world of
+# one equals the single solve bit for bit.
+# ---------------------------------------------------------------------------
+
+MESH_ITERATIONS = 300
+
+
+@pytest.fixture(scope="module")
+def mesh_world():
+    return local.spawn(workers.turn_solve, 2, "gloo", "cpu",
+                       MESH_ITERATIONS)
+
+
+@pytest.fixture(scope="module")
+def mesh1():
+    assert not dist.is_initialized()
+    mesh = tm.make_mesh("cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
+def test_mesh_sharded_solve_matches_single_and_jax(mesh_world):
+    (strat0, refused), (strat1, _) = mesh_world
+    for a, b in zip(strat0, strat1):
+        np.testing.assert_array_equal(a, b)
+    game = workers.turn_game(8, 24)
+    sharded = to_port(strat0)
+    single = pt.solve_turn_river(game, iterations=MESH_ITERATIONS)
+    g1 = pt.exploitability_gap(game, single)
+    g2 = pt.exploitability_gap(game, sharded)
+    assert g1 < 0.05 and g2 < 0.05, (g1, g2)
+    ev1, _ = pt.strategy_values(game, single)
+    ev2, _ = pt.strategy_values(game, sharded)
+    assert abs(ev1 - ev2) <= g1 + g2 + 1e-3, (ev1, ev2)
+
+    dead = {int(c) for c in BOARD4}
+    jgame, _ = jt.make_turn_river_game(
+        BOARD4, rivers=[c for c in range(52) if c not in dead][:8],
+        combos=jt.turn_combos(BOARD4)[::24], pot=4.0, bet=4.0, raise_=12.0)
+    jmesh = JaxMesh(np.array(jax.devices()[:8]), ("r",))
+    jstrat = jt.solve_turn_river(jgame, iterations=MESH_ITERATIONS,
+                                 mesh=jmesh)
+    g3 = jt.exploitability_gap(jgame, jstrat)
+    ev3, _ = jt.strategy_values(jgame, jstrat)
+    assert g3 < 0.05 and abs(ev2 - ev3) <= g2 + g3 + 1e-3, (ev2, ev3)
+    assert refused and "must divide" in refused
+
+
+def test_mesh_of_one_is_the_single_solve(mesh1):
+    game = workers.turn_game(8, 24)
+    for a, b in zip(pt.solve_turn_river(game, 100, mesh=mesh1),
+                    pt.solve_turn_river(game, 100)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # a ragged tail runs a full chunk, as JAX's mesh mode: 70 -> 100
+    for a, b in zip(pt.solve_turn_river(game, 70, mesh=mesh1),
+                    pt.solve_turn_river(game, 100)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
 # ---------------------------------------------------------------------------
