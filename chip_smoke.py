@@ -232,6 +232,24 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    ported ``run_configs`` at its full sizes (config 5 on K2), its lines
    printed. It logs the NCCL start's seconds, each part's and the peak
    memory.
+13. the layers street form (path m, after path l; only K3 may launch, once
+   under reference and once under standard rules): the plain engine's
+   default ``bets_impl="layers"`` (every earlier path passes
+   ``"levels"``). (m1) the ported ``exp_levels_ab`` at 2^20 6-max tables
+   x 128 steps of ``play_hands_perpetual`` in each form (L = 8, PL = 16,
+   reference rules), a warm-up and the best of 2 (CUDA events): overflow
+   0, equal hand counts, the layers run's final state equal to the
+   levels run's under ``bets_as_layers`` field by field; (m2) the layers
+   engine on phase 1's injected stream (2^20 x 64) against K3 relaunched
+   under reference and standard rules (equal to phase 1's K3): the first
+   state equal to ``pack_state``'s, every compared field equal on every
+   table within capacity, the overflow sets equal; (m3) zero-chip blinds
+   (0/10 and 0/0, reference rules, which the levels form refuses) at 2^20
+   tables x 64 steps, the first 1,024 tables equal to the same run on the
+   CPU, zero-amount pot layers present; (m4) 2^16 layers-form tables
+   saved mid-hand: the file says "layers", the loaded batch is equal and
+   16 more steps equal the uninterrupted run. It logs each form's ns per
+   table-step, each part's seconds and the peak memory.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -388,6 +406,16 @@ L_PLAIN_TABLES, L_PLAIN_STEPS = 1 << 14, 32
 L_TOUR_TABLES, L_TOUR_HANDS = 1 << 12, 8
 L_DP_TABLES, L_DP_SEEDS, L_DP_TOL = 256, (1, 2), 1e-6
 L_TURN_ITERATIONS = 300
+# Path m (the layers street form): the A/B's runs after its warm-up (the
+# JAX script's best of 3 cut to 2; its 2^20 tables x 128 steps uncut), the
+# rule sets of the K3 comparison, the zero-chip blinds and their run (2^20
+# tables x 64 steps, the first DECK_CPU_TABLES against the CPU), the
+# checkpoint's tables and its steps before the save and after the load
+M_AB_RUNS = 2
+M_K3_RULES = ("reference", "standard")
+M_ZERO_BLINDS = ((0, 10), (0, 0))
+M_ZERO_TABLES, M_ZERO_STEPS = 1 << 20, 64
+M_CKPT_TABLES, M_CKPT_STEPS = 1 << 16, (16, 16)
 
 
 # Rollouts per chunk of a plain version on the card.
@@ -759,7 +787,8 @@ def path_k(dev, smi):
 
     # (k6) a checkpoint round trip at 2^16 tables on the card
     t0 = time.perf_counter()
-    cfg6 = tstate.TableConfig(num_seats=6, rules="standard")
+    cfg6 = tstate.TableConfig(num_seats=6, rules="standard",
+                              bets_impl="levels")
     gen = torch.Generator().manual_seed(SEED)
     n_steps = sum(K_CKPT_STEPS)
     u = torch.rand((n_steps, K_CKPT_TABLES), generator=gen)
@@ -819,7 +848,7 @@ def _dp_steps(mesh, params, tables):
     from montecarlo_tpu_torch.parallel.train_dp import make_dp_train_step
 
     opt_init, step = make_dp_train_step(
-        mesh, TableConfig(num_seats=2, rules="standard"),
+        mesh, TableConfig(num_seats=2, rules="standard", bets_impl="levels"),
         tables_per_device=tables)
     p = params_from_numpy(params)
     opt, out = opt_init(p), []
@@ -852,7 +881,7 @@ def _l2_rank(mesh, n_k1, k4_tables, k4_slots, dp_tables, params):
     single = cq.equity_counts((SEED + pm.K1_RANK_STRIDE * r) & 0xFFFFFFFF,
                               dead, hm, vm, n_k1 // mesh.size)
     out["k1"] = (tuple(k1), single.tolist())
-    cfg = TableConfig(num_seats=6)
+    cfg = TableConfig(num_seats=6, bets_impl="levels")
     P, T = cfg.num_seats, k4_tables // mesh.size
     state, hands = pm.sharded_selfplay_kernel(
         mesh, SEED, cfg, T // ce.TABLES_PER_BLOCK, k4_slots)
@@ -927,8 +956,8 @@ def path_l(dev, smi, phase1):
             return all(equal_trees(x, y) for x, y in zip(a, b))
         return bool(torch.equal(a, b))
 
-    cfg = TableConfig(num_seats=6)
-    std = TableConfig(num_seats=6, rules="standard")
+    cfg = TableConfig(num_seats=6, bets_impl="levels")
+    std = TableConfig(num_seats=6, rules="standard", bets_impl="levels")
     P, SB, BB = cfg.num_seats, cfg.small_blind, cfg.big_blind
     AKS = [teq.make_card(0, 14), teq.make_card(0, 13)]
     QQ = [teq.make_card(1, 12), teq.make_card(2, 12)]
@@ -989,7 +1018,7 @@ def path_l(dev, smi, phase1):
     check(equal_trees(a, b) and hands == int(b_hands) > 0,
           "path l1 row 5: sharded_selfplay_perpetual == the unsharded call")
     tour = TableConfig(num_seats=2, rules="tournament",
-                       starting_stack=TOUR_STACK)
+                       starting_stack=TOUR_STACK, bets_impl="levels")
     a = pm.sharded_tournaments(mesh, SEED, tour, L_TOUR_TABLES,
                                L_TOUR_HANDS)
     b = tsp.play_tournament(SEED, tour, L_TOUR_TABLES, L_TOUR_HANDS,
@@ -1035,7 +1064,7 @@ def path_l(dev, smi, phase1):
     params = [x.numpy() for x in
               tpn.init_params(torch.Generator().manual_seed(SEED))]
     dp1 = _dp_steps(mesh, params, L_DP_TABLES)
-    hu = TableConfig(num_seats=2, rules="standard")
+    hu = TableConfig(num_seats=2, rules="standard", bets_impl="levels")
     leaves = [torch.tensor(x, device=dev).requires_grad_(True)
               for x in params]
     opt = torch.optim.Adam(leaves, lr=3e-3)
@@ -1147,6 +1176,222 @@ def path_l(dev, smi, phase1):
     lres["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     l_s["path"] = time.perf_counter() - t_l
     return lres, l_s, path_launches
+
+
+def path_m(dev, smi, phase1):
+    """Path m (phase 13): the plain engine's layers street form
+    (``bets_impl="layers"``, the default; ``engine/bets.py``) on the card.
+    (m1) the ported ``exp_levels_ab`` at full width, both forms; (m2) the
+    layers engine on K3's injected stream against K3, relaunched once per
+    rule set of ``M_K3_RULES``; (m3) zero-chip blinds under reference rules
+    against the same run on the CPU; (m4) a layers-form checkpoint round
+    trip. ``phase1`` holds phase 1's K3 inputs and outputs. Returns (the
+    results, each part's seconds, the launches in the path by kernel)."""
+    import torch
+
+    from montecarlo_tpu_torch.engine import replay as erp
+    from montecarlo_tpu_torch.engine import state as tstate
+    from montecarlo_tpu_torch.engine import step as tstep
+    from montecarlo_tpu_torch.engine.bets import Layers
+    from montecarlo_tpu_torch.engine.state import TableConfig
+    from montecarlo_tpu_torch.engine.street import Street, bets_as_layers
+    from montecarlo_tpu_torch.ops import cuda_carry as cc
+    from montecarlo_tpu_torch.ops import cuda_engine as ce
+    from montecarlo_tpu_torch.ops import cuda_equity as cq
+    from montecarlo_tpu_torch.ops import cuda_net as cn
+    from montecarlo_tpu_torch.ops import cuda_stages as cs
+    from montecarlo_tpu_torch.ops import philox
+    from montecarlo_tpu_torch.rollout import selfplay as tsp
+    from montecarlo_tpu_torch.scripts import exp_levels_ab as ela
+    from montecarlo_tpu_torch.utils import checkpoint as uck
+
+    mods = (cq, ce, cn, cc, cs, philox)
+    for mod in mods:
+        mod.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
+    m_s, mres, t_m = {}, {}, time.perf_counter()
+
+    def done(name, t0):
+        torch.cuda.synchronize(dev)
+        m_s[name] = time.perf_counter() - t0
+        log(f"path {name}: {m_s[name]:.2f} s")
+
+    def equal_states(a, b, what, n=None):
+        """Every field of two states equal (the first ``n`` tables of
+        ``a`` against ``b`` on the CPU when ``n`` is given)."""
+        for name, x, y in zip(tstate.TableState._fields, a, b):
+            pairs = zip(x, y) if isinstance(x, tuple) else [(x, y)]
+            for u, v in pairs:
+                u = u if n is None else u[:n].cpu()
+                check(u.dtype == v.dtype and torch.equal(u, v),
+                      f"{what}: {name} equal")
+
+    # (m1) the ported exp_levels_ab: both forms at 2^20 x 128, a warm-up
+    # and the best of M_AB_RUNS (CUDA events); overflow 0 and equal hands
+    # asserted there; the final states equal under bets_as_layers
+    t0 = time.perf_counter()
+    base = dict(num_seats=6, max_layers=8, max_pot_layers=16)
+    ab = {impl: ela.run(impl, TableConfig(bets_impl=impl, **base), dev,
+                        ela.N_TABLES, ela.N_STEPS, M_AB_RUNS)
+          for impl in ("layers", "levels")}
+    (ly_line, ly), (lv_line, lv) = ab["layers"], ab["levels"]
+    check(isinstance(ly.bets, Layers) and isinstance(lv.bets, Street),
+          "path m1: each run holds its street form")
+    check(ly_line["hands"] == lv_line["hands"] > 0,
+          f"path m1: equal hand counts ({ly_line['hands']}, "
+          f"{lv_line['hands']})")
+    equal_states(lv._replace(bets=bets_as_layers(lv.bets, lv.folded)), ly,
+                 "path m1: the layers run's final state == the levels "
+                 "run's under bets_as_layers")
+    mres["m1"] = {"layers": ly_line, "levels": lv_line,
+                  "layers_over_levels": ly_line["ns_per_table_step"]
+                  / lv_line["ns_per_table_step"]}
+    log(f"path m1: {ela.N_TABLES} tables x {ela.N_STEPS} steps, "
+        f"{ly_line['hands']} hands in each form, overflow 0, final states "
+        f"equal; ns per table-step layers "
+        f"{ly_line['ns_per_table_step']:.3f}, levels "
+        f"{lv_line['ns_per_table_step']:.3f} ({smi})")
+    del ab, ly, lv
+    done("m1", t0)
+
+    # (m2) the layers engine on K3's injected stream, K3 relaunched
+    t0 = time.perf_counter()
+    acts_full, cards_full = phase1["acts_full"], phase1["cards_full"]
+    n_steps, T = acts_full.shape[1], acts_full.shape[0] * 1024
+    acts_rows = acts_full.permute(1, 0, 2, 3).reshape(n_steps, T)
+    deals = ce._stash_rows(cards_full).permute(2, 0, 1).contiguous()
+    P, cfg0 = 6, TableConfig(num_seats=6)
+    mres["m2"] = {}
+    for rules in M_K3_RULES:
+        L = ce._L_for(rules)
+        cfg = TableConfig(num_seats=P, rules=rules, max_layers=L,
+                          max_pot_layers=4 * L)
+        packed0, det0 = phase1[rules]
+        det = ce.run_perpetual_det(packed0, acts_full, cards_full, P,
+                                   n_steps, cfg0.small_blind,
+                                   cfg0.big_blind, rules=rules)
+        check(torch.equal(det, det0),
+              f"path m2 {rules}: K3 relaunched == phase 1's K3")
+        st0 = tstate.redeal(tstate.init_state(SEED, cfg, T, dev),
+                            erp.decks_from_deals(deals[:, 0]))
+        check(isinstance(st0.bets, Layers), f"path m2 {rules}: a Layers "
+              f"street")
+        bad = erp.against_pack_state(packed0, cfg, st0)
+        check(not bad, f"path m2 {rules}: init_state + redeal equals "
+                       f"pack_state (differs in {bad})")
+        t1 = time.perf_counter()
+        rep = erp.replay_injected(cfg, st0, acts_rows, deals)
+        torch.cuda.synchronize(dev)
+        replay_s = time.perf_counter() - t1
+        agree = erp.against_k3(det, cfg, rep)
+        check(torch.equal(agree.k3_overflow, rep.overflow),
+              f"path m2 {rules}: the overflow sets are equal")
+        clean = float((~agree.k3_overflow).float().mean())
+        check(clean > 0.9, f"path m2 {rules}: over 90% of tables within "
+                           f"capacity")
+        for name, bad in agree.mismatch.items():
+            check(not bool(bad.any()), f"path m2 {rules}: {name} equals "
+                  f"K3's on every table within capacity")
+        mres["m2"][rules] = {"tables": T, "steps": n_steps,
+                             "hands": int(rep.hand_ct.sum()),
+                             "overflowed": int(agree.k3_overflow.sum()),
+                             "within_capacity": clean,
+                             "replay_s": replay_s}
+        log(f"path m2 {rules}: the layers engine equals K3 on the "
+            f"{clean:.4%} of {T} tables within capacity over {n_steps} "
+            f"steps, overflow sets equal ({int(agree.k3_overflow.sum())}), "
+            f"{int(rep.hand_ct.sum())} hands; replay {replay_s:.2f} s")
+        del det, st0, rep, agree
+    del acts_rows, deals
+    done("m2", t0)
+
+    # (m3) zero-chip posts: reference rules, the levels form refuses them
+    t0 = time.perf_counter()
+    mres["m3"] = {}
+    for sb, bb in M_ZERO_BLINDS:
+        cfg = TableConfig(num_seats=6, small_blind=sb, big_blind=bb)
+        card, hands = tsp.play_hands_perpetual(SEED, cfg, M_ZERO_TABLES,
+                                               M_ZERO_STEPS, device=dev)
+        cpu, cpu_hands = tsp.play_hands_perpetual(
+            SEED, cfg, DECK_CPU_TABLES, M_ZERO_STEPS, device="cpu")
+        equal_states(card, cpu, f"path m3 {sb}/{bb}: the first "
+                     f"{DECK_CPU_TABLES} tables == the CPU run",
+                     DECK_CPU_TABLES)
+        live = torch.arange(card.pots.capacity, device=dev)[None] \
+            < card.pots.count[:, None]
+        zero_pots = int((live & (card.pots.amt == 0)).any(1).sum())
+        check(int(hands) > 0 and zero_pots > 0,
+              f"path m3 {sb}/{bb}: hands dealt, zero-amount pot layers")
+        mres["m3"][f"{sb}/{bb}"] = {
+            "tables": M_ZERO_TABLES, "steps": M_ZERO_STEPS,
+            "hands": int(hands), "tables_with_zero_pot_layers": zero_pots,
+            "overflow_frac": float((card.bets.overflow
+                                    | card.pots.overflow).float().mean())}
+        log(f"path m3 {sb}/{bb}: {M_ZERO_TABLES} tables x {M_ZERO_STEPS} "
+            f"steps, {int(hands)} hands, {zero_pots} tables hold a "
+            f"zero-amount pot layer; the first {DECK_CPU_TABLES} tables "
+            f"equal the CPU run")
+        del card, cpu
+    try:
+        tstate.init_state(SEED, TableConfig(num_seats=6, small_blind=0,
+                                            bets_impl="levels"), 4, "cpu")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "path m3: the levels form refuses a zero blind")
+    done("m3", t0)
+
+    # (m4) a layers-form batch saved mid-hand, loaded, stepped on
+    t0 = time.perf_counter()
+    m_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_m_"))
+    atexit.register(shutil.rmtree, m_dir, True)
+    cfg = TableConfig(num_seats=6)
+    gen = torch.Generator().manual_seed(SEED + 13)
+    n = sum(M_CKPT_STEPS)
+    u = torch.rand((n, M_CKPT_TABLES), generator=gen)
+    raises = torch.randint(1, 60, (n, M_CKPT_TABLES), generator=gen)
+    acts = torch.where(u < 0.2, -1, torch.where(u < 0.8, 0, raises)) \
+        .to(torch.int32).to(dev)
+
+    def steps(st, rows):
+        for a in rows:
+            st = tstep.step_table(st, tstep.clamp_action(st, a),
+                                  rules=cfg.rules)
+        return st
+
+    st = steps(tstate.init_state(SEED, cfg, M_CKPT_TABLES, dev),
+               acts[:M_CKPT_STEPS[0]])
+    mid = int(((st.stage > 0) | (st.time > 0)).sum())
+    check(isinstance(st.bets, Layers) and mid > 0,
+          f"path m4: a layers batch mid-hand ({mid} tables)")
+    path = str(m_dir / "layers.npz")
+    uck.save_states(path, st)
+    with np.load(path) as data:
+        impl = str(data["bets_impl"])
+    check(impl == "layers", f"path m4: the file says {impl!r}")
+    back = uck.load_states(path, device=dev)
+    equal_states(back, st, "path m4: the loaded batch == the saved one")
+    equal_states(steps(back, acts[M_CKPT_STEPS[0]:]),
+                 steps(st, acts[M_CKPT_STEPS[0]:]),
+                 f"path m4: {M_CKPT_STEPS[1]} more steps == the "
+                 f"uninterrupted run")
+    mres["m4"] = {"tables": M_CKPT_TABLES, "steps": list(M_CKPT_STEPS),
+                  "mid_hand": mid, "file_bytes": os.path.getsize(path)}
+    log(f"path m4: {M_CKPT_TABLES} layers tables saved after "
+        f"{M_CKPT_STEPS[0]} steps ({mid} mid-hand, "
+        f"{os.path.getsize(path)} bytes, bets_impl {impl!r}), loaded "
+        f"equal, {M_CKPT_STEPS[1]} more steps equal")
+    done("m4", t0)
+
+    counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+    path_launches = {"K3": counts.pop("engine_det_reference", 0),
+                     "K3s": counts.pop("engine_det_standard", 0)}
+    check(not counts, f"path m launches only K3 ({counts})")
+    check(path_launches == {"K3": 1, "K3s": 1},
+          f"path m launched K3 once per rule set ({path_launches})")
+    mres["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    m_s["path"] = time.perf_counter() - t_m
+    return mres, m_s, path_launches
 
 
 def main() -> int:
@@ -1292,8 +1537,8 @@ def main() -> int:
     AKS = [teq.make_card(0, 14), teq.make_card(0, 13)]
     QQ = [teq.make_card(1, 12), teq.make_card(2, 12)]
     FLOP = [teq.make_card(3, 2), teq.make_card(1, 7), teq.make_card(2, 13)]
-    cfg = TableConfig(num_seats=6)
-    std = TableConfig(num_seats=6, rules="standard")
+    cfg = TableConfig(num_seats=6, bets_impl="levels")
+    std = TableConfig(num_seats=6, rules="standard", bets_impl="levels")
     P, SB, BB, SS = cfg.num_seats, cfg.small_blind, cfg.big_blind, \
         cfg.starting_stack
     heroes = torch.tensor([list(c) for _, c in teq.canonical_hands()],
@@ -1317,8 +1562,8 @@ def main() -> int:
     st_full = ce.pack_state(cfg, deal_full[:, 0])
     st_full_std = ce.pack_state(std, deal_full[:, 0])
     tour_short = TableConfig(num_seats=6, rules="tournament",
-                             starting_stack=TOUR_STACK)
-    tour = TableConfig(num_seats=6, rules="tournament")
+                             starting_stack=TOUR_STACK, bets_impl="levels")
+    tour = TableConfig(num_seats=6, rules="tournament", bets_impl="levels")
     st_full_tour = ce.pack_state(tour_short, deal_full[:, 0])
     del u, raises, deal_full
     exact_pre = teq.equity_exact(AKS, QQ, device=dev)
@@ -2654,7 +2899,8 @@ def main() -> int:
             ("tournament", st_full_tour, det_tour, TOUR_STACK)):
         L = ce._L_for(rules)
         gcfg = TableConfig(num_seats=P, rules=rules, starting_stack=stack,
-                           max_layers=L, max_pot_layers=4 * L)
+                           max_layers=L, max_pot_layers=4 * L,
+                           bets_impl="levels")
         st0 = tstate.redeal(tstate.init_state(SEED, gcfg, T_FULL, dev),
                             erp.decks_from_deals(deals[:, 0]))
         bad = erp.against_pack_state(packed0, gcfg, st0)
@@ -2752,7 +2998,8 @@ def main() -> int:
     # (h1) random perpetual self-play, reference rules, K4's capacities
     t0 = time.perf_counter()
     L = ce._L_for("reference")
-    h1cfg = TableConfig(num_seats=P, max_layers=L, max_pot_layers=4 * L)
+    h1cfg = TableConfig(num_seats=P, max_layers=L, max_pot_layers=4 * L,
+                        bets_impl="levels")
     (h1_final, h1_hands), h1_ms = timed(lambda: tsp.play_hands_perpetual(
         SEED, h1cfg, T_FULL, H_STEPS, device=dev))
     h1_hands = int(h1_hands)
@@ -2875,7 +3122,7 @@ def main() -> int:
     t0 = time.perf_counter()
     L = ce._L_for("standard")
     h4cfg = TableConfig(num_seats=P, rules="standard", max_layers=L,
-                        max_pot_layers=4 * L)
+                        max_pot_layers=4 * L, bets_impl="levels")
     rows = ce._stash_rows(stash_net).permute(2, 0, 1)
     h4_decks = erp.decks_from_deals(rows.reshape(-1, 2 * P + 5)).reshape(
         T_NET, NET_HMAX, 52)
@@ -3078,7 +3325,7 @@ def main() -> int:
         sync()
         i_s[name] = time.perf_counter() - t0
 
-    std6 = TableConfig(num_seats=6, rules="standard")
+    std6 = TableConfig(num_seats=6, rules="standard", bets_impl="levels")
     es9 = tpn.load_params(ROOT / "data" / "policy_6max_es9.npz")
 
     # (i1) the league (B7) against the records
@@ -3199,7 +3446,7 @@ def main() -> int:
     # (i4) REINFORCE: the JAX slow test's setting at train_policy.py's
     # tables, one update's loss and gradient on the CPU, train_br's shape
     t0 = time.perf_counter()
-    hu2 = TableConfig(num_seats=2, rules="standard")
+    hu2 = TableConfig(num_seats=2, rules="standard", bets_impl="levels")
     sync()
     t1 = time.perf_counter()
     rl = ttr.train_policy(3, cfg=hu2, opponent=tpol.always_call,
@@ -3631,6 +3878,20 @@ def main() -> int:
                     "path_l_launches": l_launches, "card": smi},
                    default=float))
     phase_done("12 scale-out")
+
+    # ---- 13. the layers street form (path m) -------------------------------
+    # the plain engine's default bets_impl: the A/B against the levels
+    # form, the layers engine against K3 (relaunched once per rule set),
+    # zero-chip blinds against the CPU, a layers-form checkpoint
+    mres, m_s, m_launches = path_m(dev, smi, {
+        "acts_full": acts_full, "cards_full": cards_full,
+        "reference": (st_full, det_out), "standard": (st_full_std, det_std)})
+    for key, n in m_launches.items():
+        launches[key] += n
+    log(json.dumps({"path_m": mres, "path_m_seconds": m_s,
+                    "path_m_launches": m_launches, "card": smi},
+                   default=float))
+    phase_done("13 layers street form")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 

@@ -37,8 +37,9 @@ reader find the counterpart:
                           hands and ranges;
 - ``engine/``             the table engine in plain PyTorch, tables on a
                           leading axis (the JAX engine is XLA):
-                          ``bets.py`` the bet-layer record, ``street.py``
-                          the levels street form, ``state.py``
+                          ``bets.py`` the layer algebra (the default
+                          street form), ``street.py`` the levels street
+                          form and the dispatch, ``state.py``
                           ``TableConfig``, ``TableState``, Philox decks
                           and hand setup, ``step.py`` ``step_action`` and
                           ``step_table``, ``public.py`` the host JSON view,

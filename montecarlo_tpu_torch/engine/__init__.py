@@ -1,8 +1,10 @@
 """The table engine: ``montecarlo_tpu/engine`` in plain PyTorch, tables on
 a leading axis.
 
-- ``bets.py``    the bet-layer record (``Layers``, seat bitmasks);
-- ``street.py``  the levels street form and its layer view;
+- ``bets.py``    the layer algebra of ``bet.clj`` (``Layers``, seat
+                 bitmasks): the "layers" street form and the pot record;
+- ``street.py``  the "levels" street form, its layer view, and the
+                 dispatch between the two forms;
 - ``state.py``   ``TableConfig``, ``TableState``, the Philox deck and hand
                  setup (``init_state``, ``begin_hand``, ``redeal``,
                  ``next_hand``), and the numpy carry to and from a JAX state;
@@ -10,12 +12,17 @@ a leading axis.
                  ``step_table``;
 - ``public.py``  the host JSON view of one table;
 - ``replay.py``  the engine on K3's injected stream, with K3's field view.
-
-The layer algebra of the JAX ``bets.py`` is not ported: the levels form
-is the only street form here (see ``street.py``).
 """
 
-from montecarlo_tpu_torch.engine.bets import Layers, empty_layers  # noqa: F401
+from montecarlo_tpu_torch.engine.bets import (  # noqa: F401
+    Layers,
+    empty_layers,
+    merge_bets,
+    needed_bet,
+    remove_player,
+    total_bet,
+    update_bets,
+)
 from montecarlo_tpu_torch.engine.street import (  # noqa: F401
     Street,
     bets_as_layers,

@@ -15,17 +15,19 @@ seat playing a net by argmax, and ``against_k5`` holds it to K5's output.
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
 from montecarlo_tpu_torch.cards import NUM_CARDS
+from montecarlo_tpu_torch.engine.bets import member_matrix
 from montecarlo_tpu_torch.engine.state import (
     TableConfig,
     TableState,
     _select_tree,
     redeal,
 )
+from montecarlo_tpu_torch.engine.street import Street
 from montecarlo_tpu_torch.engine.step import (
     _advance_streets,
     apply_action,
@@ -206,11 +208,31 @@ def _bitmask(mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, bits, 0).sum(1, dtype=I32)
 
 
+def _levels_of(bets, num_seats: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(level, contrib, n) of a street in either form: K3 holds the levels
+    form. For ``Layers`` the exact inverse of ``street_to_layers``: a
+    level is the running sum of the live rows' amounts, a seat's
+    contribution the sum of the amounts of the rows whose original
+    members hold it, ``n`` as it is."""
+    if isinstance(bets, Street):
+        return bets.level, bets.contrib, bets.n
+    valid = torch.arange(bets.capacity, device=bets.amt.device)[None] \
+        < bets.count[:, None]
+    amt = torch.where(valid, bets.amt, 0)
+    level = torch.where(valid, amt.cumsum(1, dtype=I32), 0)
+    held = member_matrix(bets.orig, num_seats) & valid[:, :, None]
+    contrib = torch.where(held, amt[:, :, None], 0).sum(1, dtype=I32)
+    return level, contrib, bets.n
+
+
 def k3_fields(state: TableState, **meters) -> Dict[str, torch.Tensor]:
     """The engine state under K3's packed field names (``cuda_engine.
     _field_layout``): int32 [T] for one-row fields, [T, rows] for the
-    others; seat masks as bitmasks. ``meters`` adds K3's own fields
-    (``hand_ct``, ``delta_sum``, ``bust_at``) where given."""
+    others; seat masks as bitmasks; the street in the levels form
+    whichever form the state holds (``_levels_of``). ``meters`` adds K3's
+    own fields (``hand_ct``, ``delta_sum``, ``bust_at``) where given."""
+    level, contrib, ln = _levels_of(state.bets, state.num_seats)
     fields = {
         "stage": state.stage, "cursor": state.cursor,
         "street_raises": state.street_raises,
@@ -219,10 +241,9 @@ def k3_fields(state: TableState, **meters) -> Dict[str, torch.Tensor]:
         "to_act": _bitmask(state.to_act),
         "order": _bitmask(state.order_mask), "button": state.button,
         "all_in": _bitmask(state.all_in),
-        "stacks": state.stacks, "contrib": state.bets.contrib,
+        "stacks": state.stacks, "contrib": contrib,
         "hole0": state.hole[:, :, 0], "hole1": state.hole[:, :, 1],
-        "board": state.community, "lvl": state.bets.level,
-        "ln": state.bets.n,
+        "board": state.community, "lvl": level, "ln": ln,
     }
     fields.update(meters)
     return fields

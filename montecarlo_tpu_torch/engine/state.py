@@ -18,13 +18,15 @@ stable sort order of 52 Philox4x32-10 words of stream (seed, table, h,
 card. ``redeal`` injects an explicit deck, which is how the tests hold the
 port to the JAX engine.
 
-Rules are a Python string, as the JAX ``static_argnames`` are.
+Rules are a Python string, as the JAX ``static_argnames`` are. The
+street is in the form ``TableConfig.bets_impl`` names (``engine/street.py``):
+a ``Layers`` for "layers", a ``Street`` for "levels".
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
@@ -55,9 +57,12 @@ class TableConfig:
     Defaults mirror the reference: 100-chip starting stacks, 5/10 blinds.
     ``rules`` is "reference", "standard" or "tournament"; the engine
     kernels run all three (the net kernels the first two).
-    ``bets_impl`` names the street bet form ("layers" or "levels") of the
-    JAX engine; the port's engine and kernels run the levels form for
-    either, and so refuse non-positive blinds.
+    ``bets_impl`` is the street bet form of the plain engine: "layers"
+    (the default) the literal layer algebra of ``bet.clj``
+    (``engine/bets.py``), "levels" the minimal boundary/contribution form
+    (``engine/street.py``), trajectory-equal to it but refusing
+    non-positive blinds (a zero-chip post must not create a layer). The
+    engine kernels hold their own street and ignore it.
     """
 
     num_seats: int
@@ -90,7 +95,7 @@ class TableState(NamedTuple):
     order_mask: torch.Tensor   # bool [T, P] play-order membership
     to_act: torch.Tensor       # bool [T, P] reference :remaining-players
     stacks: torch.Tensor       # int32 [T, P] chips (may go negative)
-    bets: Street               # current street
+    bets: Union[Layers, Street]  # current street, bets_impl's form
     pots: Layers               # accumulated pot layers
     small_blind: torch.Tensor  # int32 [T]
     big_blind: torch.Tensor    # int32 [T]
@@ -127,7 +132,8 @@ def _check_config(cfg: TableConfig) -> None:
         raise ValueError(f"rules={cfg.rules!r}: expected one of {RULES}")
     if cfg.num_seats < 2:
         raise ValueError(f"num_seats={cfg.num_seats}: at least 2")
-    if cfg.small_blind <= 0 or cfg.big_blind <= 0:
+    if cfg.bets_impl == "levels" and (cfg.small_blind <= 0
+                                      or cfg.big_blind <= 0):
         raise ValueError("the levels street form requires positive blinds "
                          "(a zero-chip post must not create a layer)")
 
@@ -215,7 +221,8 @@ def init_state(seed: int, cfg: TableConfig, n_tables: int,
 
 def _post(stacks, bets, pos, amount):
     """Post a blind of ``amount`` at position ``pos`` (both int32 [T]),
-    capped at the stack (standard and tournament rules)."""
+    capped at the stack (standard and tournament rules); a post of no chip
+    leaves the street as it was, in either form."""
     seats = torch.arange(stacks.shape[1], dtype=I32, device=stacks.device)
     sel = seats[None] == pos[:, None]
     stack_at = torch.where(sel, stacks, 0).sum(1, dtype=I32)
@@ -233,7 +240,9 @@ def begin_hand(state: TableState, rules: str = "reference") -> TableState:
     standard rules blind posts cap at the stack and busted seats sit out
     as all-in-for-nothing; tournament rules deal only alive seats, the big
     blind at the first alive position >= 1; the reference posts full
-    blinds unconditionally (stacks go negative, ``gameplay.clj:83-88``).
+    blinds unconditionally (stacks go negative, ``gameplay.clj:83-88``),
+    and in the layers form a zero-chip post threads a zero-amount layer,
+    as the JAX engine's does.
     """
     P, T = state.num_seats, state.n_tables
     dev = state.stacks.device
@@ -359,15 +368,13 @@ def _from_numpy(x, dev) -> torch.Tensor:
 
 def state_from_numpy(st, seed: int = 0, device=None) -> TableState:
     """A batched state whose fields are numpy arrays (for example a JAX
-    ``TableState`` of ``jax.vmap(init_state)`` in the levels form, mapped
-    through ``np.asarray``) -> the port's ``TableState`` on ``device`` (the
-    card when None).
+    ``TableState`` of ``jax.vmap(init_state)``, its street in either form,
+    mapped through ``np.asarray``) -> the port's ``TableState`` on
+    ``device`` (the card when None). A street with a ``level`` field is a
+    ``Street``, any other a ``Layers``.
 
     Every field but ``key`` carries across. A JAX key is a threefry key,
     which the port cannot use: the port's keys are ``table_keys(seed)``."""
-    if not hasattr(st.bets, "level"):
-        raise ValueError("the port holds the levels street form: make the "
-                         "JAX state with bets_impl='levels'")
     dev = resolve(device)
     fields = {}
     for name in TableState._fields:
@@ -375,7 +382,7 @@ def state_from_numpy(st, seed: int = 0, device=None) -> TableState:
         if name == "key":
             continue
         if name in ("bets", "pots"):
-            kind = Street if name == "bets" else Layers
+            kind = Street if hasattr(x, "level") else Layers
             fields[name] = kind(*(_from_numpy(getattr(x, f), dev)
                                   for f in kind._fields))
         else:

@@ -1,8 +1,8 @@
 """Levels street bet state: ``montecarlo_tpu/engine/street.py`` on tables
-held on a leading axis.
+held on a leading axis, and the dispatch between the two street forms.
 
-A street is stored in its minimal form and the reference layer list
-(``bet.clj``) is derived only at observation points:
+A street in the levels form is stored minimally and the reference layer
+list (``bet.clj``) is derived only at observation points:
 
 - ``level``   int32 [T, L]: ascending cumulative boundaries; layer ``j`` is
   the chip range ``(level[j-1], level[j]]``;
@@ -17,11 +17,15 @@ module's docstring gives the proofs.
 ``street_update`` is ``update-bets`` (a sorted insert of the new total),
 ``street_merge`` is ``merge-bets`` after a fold or check (levels no
 contribution sits on are dropped), ``street_to_layers`` materializes the
-reference layers. Levels are strictly positive, so a zero-chip post must not
-create a layer: the port runs this form for ``bets_impl`` "layers" and
-"levels" alike and refuses non-positive blinds (``engine/state.py``).
+reference layers. Levels are strictly positive, so a zero-chip post must
+not create a layer: ``engine/state.py`` refuses non-positive blinds for
+this form. The literal layer algebra (``engine/bets.py``) is the other
+form and covers that corner bit for bit.
 
-The ``bets_*`` names of the JAX dispatch stay, reduced to this form.
+``TableConfig.bets_impl`` picks the form: "layers" (the default, a
+``Layers`` street) or "levels" (a ``Street``). The ``bets_*`` adapters at
+the bottom dispatch on the street's type, as the JAX ones do, so one
+engine runs both and the tests hold their trajectories equal.
 """
 
 from __future__ import annotations
@@ -31,7 +35,16 @@ from typing import NamedTuple
 import torch
 
 from montecarlo_tpu_torch.device import resolve
-from montecarlo_tpu_torch.engine.bets import Layers
+from montecarlo_tpu_torch.engine.bets import (
+    Layers,
+    _vec,
+    empty_layers,
+    merge_bets,
+    needed_bet,
+    remove_player,
+    total_bet,
+    update_bets,
+)
 
 I32 = torch.int32
 
@@ -61,12 +74,6 @@ def empty_street(max_layers: int, num_seats: int, n_tables: int,
         count=torch.zeros(n_tables, dtype=I32, device=dev),
         overflow=torch.zeros(n_tables, dtype=torch.bool, device=dev),
     )
-
-
-def _vec(x, like: torch.Tensor) -> torch.Tensor:
-    """An int or a per-table tensor as int32 [T] on ``like``'s device."""
-    x = torch.as_tensor(x, device=like.device).to(I32)
-    return x.expand(like.shape[0])
 
 
 def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -181,36 +188,63 @@ def street_to_layers(s: Street, folded) -> Layers:
 
 
 # ---------------------------------------------------------------------------
-# The JAX dispatch names, reduced to the levels form.
+# Dispatch on the street form: one engine, two street implementations.
 # ---------------------------------------------------------------------------
 
-bets_total = street_total
-bets_needed = street_needed
-bets_thread = street_update
+def bets_total(bets) -> torch.Tensor:
+    if isinstance(bets, Street):
+        return street_total(bets)
+    return total_bet(bets)
 
 
-def bets_fold_check_merge(bets: Street, is_fold, seat) -> Street:
-    """The fold/check path (``board.clj:37-41`` / ``:67-71``): member sets
-    are derived from the state's fold mask, so both are one merge."""
-    del is_fold, seat
-    return street_merge(bets)
+def bets_needed(bets, seat) -> torch.Tensor:
+    if isinstance(bets, Street):
+        return street_needed(bets, seat)
+    return needed_bet(bets, seat)
 
 
-def bets_empty_like(bets: Street, num_seats: int) -> Street:
-    return empty_street(bets.capacity, num_seats, bets.count.shape[0],
-                        bets.count.device)
+def bets_thread(bets, amount, seat):
+    if isinstance(bets, Street):
+        return street_update(bets, amount, seat)
+    return update_bets(bets, amount, seat)
 
 
-def bets_as_layers(bets: Street, folded) -> Layers:
-    """A reference layer-list view of the street."""
-    return street_to_layers(bets, folded)
+def bets_fold_check_merge(bets, is_fold, seat):
+    """The fold/check path (``board.clj:37-41`` / ``:67-71``): a fold
+    removes the seat from member sets, then both merge. In the levels form
+    member sets are derived from the state's fold mask, so both are one
+    merge; in the layers form a table folds where ``is_fold`` (bool [T])
+    holds."""
+    if isinstance(bets, Street):
+        del is_fold, seat
+        return street_merge(bets)
+    removed = remove_player(bets, seat)
+    return merge_bets(bets._replace(
+        mem=torch.where(is_fold[:, None], removed.mem, bets.mem)))
+
+
+def bets_empty_like(bets, num_seats: int):
+    n_tables, dev = bets.count.shape[0], bets.count.device
+    if isinstance(bets, Street):
+        return empty_street(bets.capacity, num_seats, n_tables, dev)
+    return empty_layers(bets.capacity, num_seats, n_tables, dev)
+
+
+def bets_as_layers(bets, folded) -> Layers:
+    """A reference layer-list view of the street (identity for
+    ``Layers``)."""
+    if isinstance(bets, Street):
+        return street_to_layers(bets, folded)
+    return bets
 
 
 def make_empty_bets(impl: str, max_layers: int, num_seats: int,
-                    n_tables: int, device=None) -> Street:
-    """The street form for ``TableConfig.bets_impl``: levels for "layers"
-    and "levels" alike."""
-    if impl not in ("layers", "levels"):
+                    n_tables: int, device=None):
+    """The street form ``TableConfig.bets_impl`` names: ``Layers`` for
+    "layers", ``Street`` for "levels"."""
+    if impl == "levels":
+        return empty_street(max_layers, num_seats, n_tables, device)
+    if impl != "layers":
         raise ValueError(f"bets_impl={impl!r}: expected 'layers' or "
                          f"'levels'")
-    return empty_street(max_layers, num_seats, n_tables, device)
+    return empty_layers(max_layers, num_seats, n_tables, device)

@@ -412,7 +412,7 @@ def river_node_states(board: Sequence[int], pot_bb: int = 2, device=None):
 
     if pot_bb != 2:
         raise ValueError("the scripted prelude produces a 2bb river pot")
-    cfg = TableConfig(num_seats=2, rules="standard")
+    cfg = TableConfig(num_seats=2, rules="standard", bets_impl="levels")
     dev = resolve(device)
     board = np.asarray(board, np.int32)
     pot = 2 * cfg.big_blind

@@ -241,7 +241,8 @@ def make_update_step(cfg: TableConfig, opponent: Callable = random_policy,
 
 def train_policy(seed: int,
                  cfg: TableConfig = TableConfig(num_seats=2,
-                                                rules="standard"),
+                                                rules="standard",
+                                                bets_impl="levels"),
                  opponent: Callable = random_policy, tables: int = 2048,
                  steps: int = 100, lr: float = 3e-3, max_steps: int = 48,
                  device=None) -> TrainResult:

@@ -666,7 +666,7 @@ def turn_river_node_states(board4: Sequence[int],
 
     if pot_bb != 2:
         raise ValueError("the scripted prelude produces a 2bb turn pot")
-    cfg = TableConfig(num_seats=2, rules="standard")
+    cfg = TableConfig(num_seats=2, rules="standard", bets_impl="levels")
     dev = resolve(device)
     rivers = np.asarray(rivers, np.int32)
     pot = 2 * cfg.big_blind

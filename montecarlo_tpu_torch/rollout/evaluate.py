@@ -36,7 +36,7 @@ class MatchResult(NamedTuple):
 
 
 def _heads_up(cfg):
-    cfg = cfg or TableConfig(num_seats=2, rules="standard")
+    cfg = cfg or TableConfig(num_seats=2, rules="standard", bets_impl="levels")
     if cfg.num_seats != 2:
         raise ValueError("duplicate matches are heads-up")
     return cfg

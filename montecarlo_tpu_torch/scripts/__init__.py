@@ -6,8 +6,9 @@ unless a function is given ``device="cpu"``:
   (``exp_carry_model``, ``debug_kernel_compile``), the push/fold
   artifacts' build (``build_pushfold_cr``), the A/B of this tree's
   kernels against another tree's (``ab_engine``), the operation and byte
-  count of a table-engine step (``count_engine_ops``) and its time
-  (``time_step_table``);
+  count of a table-engine step (``count_engine_ops``), its time
+  (``time_step_table``) and the A/B of its two street forms
+  (``exp_levels_ab``);
 - the league and exploitability scripts: ``league_eval`` (B7 head to
   head), ``exploit_probe`` (the rule-bot panel), ``opt_bot`` (CMA-ES
   attackers), ``eval_attacker`` (a net attacker);

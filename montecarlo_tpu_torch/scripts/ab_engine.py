@@ -175,11 +175,11 @@ def inputs(dev, libs):
     """The main-path calls of the engine and net kernels as a dict of
     thunks, on inputs made once (the completion run's launch states by
     ``libs``)."""
-    cfg = TableConfig(num_seats=P)
-    std = TableConfig(num_seats=P, rules="standard")
-    tour = TableConfig(num_seats=P, rules="tournament")
+    cfg = TableConfig(num_seats=P, bets_impl="levels")
+    std = TableConfig(num_seats=P, rules="standard", bets_impl="levels")
+    tour = TableConfig(num_seats=P, rules="tournament", bets_impl="levels")
     tour_short = TableConfig(num_seats=P, rules="tournament",
-                             starting_stack=TOUR_STACK)
+                             starting_stack=TOUR_STACK, bets_impl="levels")
     g = torch.Generator(device=dev).manual_seed(SEED)
     u = torch.rand((DET_STEPS, T_FULL), generator=g, device=dev)
     raises = torch.randint(1, 21, (DET_STEPS, T_FULL), generator=g,

@@ -67,7 +67,7 @@ def main(argv=None) -> dict:
     for rules in RULES:
         L = _L_for(rules)
         cfg = tstate.TableConfig(num_seats=6, rules=rules, max_layers=L,
-                                 max_pot_layers=4 * L)
+                                 max_pot_layers=4 * L, bets_impl="levels")
         st = tstate.init_state(0, cfg, args.tables, "cpu")
         last = st
         for _ in range(cfg.num_seats - 2):

@@ -31,7 +31,7 @@ from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.scripts._timing import best_ms, device_name
 
 P = 6
-cfg = TableConfig(num_seats=P)
+cfg = TableConfig(num_seats=P, bets_impl="levels")
 layout, F = ce._field_layout(P)
 STAGES = cs.STAGES
 

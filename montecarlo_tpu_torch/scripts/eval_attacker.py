@@ -45,7 +45,8 @@ def main(argv=None, device=None):
     """Print and save the JAX script's result; return it."""
     args = parser().parse_args(argv)
     name, path = args.subject.split("=", 1)
-    cfg = TableConfig(num_seats=args.seats, rules="standard")
+    cfg = TableConfig(num_seats=args.seats, rules="standard",
+                      bets_impl="levels")
     P = cfg.num_seats
     attacker = load_params(args.attacker)
     subject = load_params(path)

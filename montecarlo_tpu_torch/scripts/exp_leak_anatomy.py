@@ -240,7 +240,7 @@ def main(argv=None, device=None):
     out = {"tables": args.tables, "steps": args.steps, "seed": args.seed}
 
     # ---------- 6-max artifacts ----------
-    cfg6 = TableConfig(num_seats=6, rules="standard")
+    cfg6 = TableConfig(num_seats=6, rules="standard", bets_impl="levels")
     es3 = load_params("data/policy_6max_es3.npz")
     es4 = load_params("data/policy_6max_es4.npz")
     _, recs = collect(args.seed, cfg6, args.steps, es3, es3, args.tables,
@@ -286,7 +286,7 @@ def main(argv=None, device=None):
     # (the repository holds no policy_hu_mix.npz, which the JAX script
     # loads unconditionally and so fails here; the port compares it when
     # present, as it does the es5 decode above)
-    cfg2 = TableConfig(num_seats=2, rules="standard")
+    cfg2 = TableConfig(num_seats=2, rules="standard", bets_impl="levels")
     hu = load_params("data/policy_hu_300.npz")
     subjects = [("hu300", hu)]
     if os.path.exists("data/policy_hu_mix.npz"):

@@ -82,7 +82,8 @@ def main(argv=None, device=None):
         name, path = spec.split("=")
         params = load_params(path)
         seats = 2 if "hu" in name else 6
-        cfg = TableConfig(num_seats=seats, rules="standard")
+        cfg = TableConfig(num_seats=seats, rules="standard",
+                          bets_impl="levels")
         _, recs = collect(args.seed, cfg, args.steps, params, params,
                           args.tables, device)
         feats, seat, free, stage, idx = records[name] = flatten_recs(recs)

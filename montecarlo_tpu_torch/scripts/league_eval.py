@@ -93,7 +93,7 @@ def main(argv=None, device=None):
     self-check's under ``"selfcheck_exact"``/``"selfcheck_hands"``).
     Exits 1 when the self-check fails, as the JAX script does."""
     args = parser().parse_args(argv)
-    cfg = TableConfig(num_seats=6, rules="standard")
+    cfg = TableConfig(num_seats=6, rules="standard", bets_impl="levels")
     pa, pb = load_params(args.a), load_params(args.b)
     check = {}
     if not args.skip_selfcheck:

@@ -64,7 +64,7 @@ def parser():
 def main(argv=None, device=None):
     """Build and save the anchor; return its metadata (``<save>.json``)."""
     args = parser().parse_args(argv)
-    cfg = TableConfig(num_seats=6, rules="standard")
+    cfg = TableConfig(num_seats=6, rules="standard", bets_impl="levels")
     distill = load_params(args.distill)
 
     profiles = [("distill", distill, distill)]

@@ -229,7 +229,8 @@ def main(argv=None, device=None):
     """Run the optimizer; print JSON lines as the JAX script does and
     return the saved document."""
     args = parser().parse_args(argv)
-    cfg = TableConfig(num_seats=args.seats, rules="standard")
+    cfg = TableConfig(num_seats=args.seats, rules="standard",
+                      bets_impl="levels")
     pairs = [tuple(int(v) for v in p.split(":"))
              for p in args.pairs.split(",")]
 

@@ -97,7 +97,8 @@ def main(argv=None, device=None):
     na, pa = parse_subject(args.a)
     nb, pb = parse_subject(args.b)
     ta, tb = subject_tags(na, nb)
-    cfg = TableConfig(num_seats=args.seats, rules="standard")
+    cfg = TableConfig(num_seats=args.seats, rules="standard",
+                      bets_impl="levels")
 
     out = {"a": args.a, "b": args.b, "seats": args.seats,
            "tables": args.tables, "steps": args.steps, "seed": args.seed}

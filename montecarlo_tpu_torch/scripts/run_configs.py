@@ -63,7 +63,8 @@ def _stacks(st, ids):
 
 def config1(device=None):
     banner(1, "heads-up seeded hand trace (blinds 5/5)")
-    cfg = TableConfig(num_seats=2, small_blind=5, big_blind=5)
+    cfg = TableConfig(num_seats=2, small_blind=5, big_blind=5,
+                      bets_impl="levels")
     st = init_state(2024, cfg, 1, device)
     ids = ["hero", "villain"]
     print(json.dumps(public_board(st, ids)))
@@ -79,7 +80,7 @@ def config1(device=None):
 
 def config2(device=None):
     banner(2, "3-player all-in side pot")
-    cfg = TableConfig(num_seats=3)
+    cfg = TableConfig(num_seats=3, bets_impl="levels")
     st = init_state(7, cfg, 1, device)
     st = st._replace(stacks=torch.tensor([[95, 90, 40]], dtype=torch.int32,
                                          device=st.stacks.device))
@@ -115,7 +116,8 @@ def config3(quick, device=None):
 def config4(quick, device=None):
     banner(4, "parallel 6-player random-policy tables to showdown")
     n_tables = TABLES[quick]
-    cfg = TableConfig(num_seats=6)  # default L=12/PL=24; overflow flags monitored
+    # default L=12/PL=24; overflow flags monitored
+    cfg = TableConfig(num_seats=6, bets_impl="levels")
     t0 = time.perf_counter()
     final = play_hands(4, cfg, n_tables, num_hands=1, device=device)
     done = float(final.hand_over.float().mean())

@@ -48,7 +48,8 @@ def _time(tree: Path, tables: int, steps: int, seed: int) -> dict:
         L = ce._L_for(rules)
         cfg = tstate.TableConfig(
             num_seats=6, rules=rules, max_layers=L, max_pot_layers=4 * L,
-            starting_stack=20 if rules == "tournament" else 100)
+            starting_stack=20 if rules == "tournament" else 100,
+            bets_impl="levels")
         st0 = tstate.init_state(seed, cfg, tables, dev)
 
         def run(n):

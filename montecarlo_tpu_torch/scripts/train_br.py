@@ -88,8 +88,9 @@ def main(argv=None, device=None):
     name, path = args.opponent.split("=", 1)
     frozen = load_params(path)
     cfg = TableConfig(num_seats=args.seats, rules="standard",
-                      max_layers=8, max_pot_layers=16)
-    cfg_eval = TableConfig(num_seats=args.seats, rules="standard")
+                      max_layers=8, max_pot_layers=16, bets_impl="levels")
+    cfg_eval = TableConfig(num_seats=args.seats, rules="standard",
+                           bets_impl="levels")
 
     side = args.save + ".progress.json"
     done = 0

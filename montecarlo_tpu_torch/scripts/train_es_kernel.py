@@ -173,7 +173,8 @@ def main(argv=None, device=None):
     evaluations."""
     args = parser().parse_args(argv)
     dev = resolve(device)
-    cfg = TableConfig(num_seats=args.seats, rules="standard")
+    cfg = TableConfig(num_seats=args.seats, rules="standard",
+                      bets_impl="levels")
     summary = {}
 
     def emit(d):

@@ -98,8 +98,9 @@ def main(argv=None, device=None):
     args = parser().parse_args(argv)
     dev = resolve(device)
     cfg = TableConfig(num_seats=args.seats, rules="standard",
-                      max_layers=8, max_pot_layers=16)
-    cfg_eval = TableConfig(num_seats=args.seats, rules="standard")
+                      max_layers=8, max_pot_layers=16, bets_impl="levels")
+    cfg_eval = TableConfig(num_seats=args.seats, rules="standard",
+                           bets_impl="levels")
 
     start = (init_params(torch.Generator().manual_seed(args.seed))
              if args.start == "INIT" else load_params(args.start))

@@ -59,7 +59,8 @@ def main(argv=None, device=None):
     reward history, the seconds and each net's (edge, stderr)."""
     args = parser().parse_args(argv)
     dev = resolve(device)
-    cfg = TableConfig(num_seats=args.seats, rules="standard")
+    cfg = TableConfig(num_seats=args.seats, rules="standard",
+                      bets_impl="levels")
     t0 = time.perf_counter()
     out = train_policy(0, cfg=cfg, opponent=random_policy,
                        tables=args.tables, steps=args.steps, lr=args.lr,

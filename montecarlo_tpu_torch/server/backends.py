@@ -172,7 +172,7 @@ class TorchBackend:
         self.rules = rules
         self.device = resolve(device)
         cfg = TableConfig(num_seats=n, small_blind=small, big_blind=big,
-                          rules=rules)
+                          rules=rules, bets_impl="levels")
         state = init_state(seed, cfg, 1, self.device)
         posted = state.stacks - cfg.starting_stack
         self.state = state._replace(stacks=torch.tensor(

@@ -5,17 +5,23 @@ The reference loses everything on restart (all state lives in in-memory STM
 refs, ``database.clj:5-6``). A batch of tables is a ``TableState`` of
 tensors, so a snapshot is one ``.npz``: ``bets_impl`` and ``leaf_NNNN``,
 the fields in ``TableState`` order with the street and the pot layers
-nested, as JAX flattens its state. Every field round-trips losslessly
-(the port's key is plain int64 [T, 2]), and a resumed batch continues
-bit-identically: decks are functions of (key, hand_idx).
+nested, as JAX flattens its state. Every field round-trips losslessly,
+and a resumed batch continues bit-identically: decks are functions of
+(key, hand_idx). The port's key, int64 (seed mod 2^32, table) pairs, is
+stored as uint32 [T, 2], the dtype of JAX's key data, and ``key_form``
+"philox" marks it as the port's; a file of the older form stores it as
+int64 and has no marker.
 
-``load_states`` also reads a file that the JAX package wrote for a
-batched state in the levels street form: every field but the key carries
-across, and the key, a threefry key the port cannot use, becomes
-``table_keys(seed)`` (as ``engine/state.state_from_numpy``). A JAX file of
-the older form without ``street_raises``/``last_raiser`` loads with their
-defaults; a ``layers`` file is refused, as ``state_from_numpy`` refuses
-one.
+``bets_impl`` names the street's form, "layers" (a ``Layers``, one leaf
+more) or "levels" (a ``Street``), by its type, as the JAX package writes
+it; a file without it is "layers". ``load_states`` also reads a file that
+the JAX package wrote for a batched state in either form: every field but
+the key carries across, and the key, a threefry key the port cannot use,
+becomes ``table_keys(seed)`` (as ``engine/state.state_from_numpy``). A JAX
+file of the older form without ``street_raises``/``last_raiser`` loads
+with their defaults. The JAX package loads the port's files of either
+form: it reads the port's key words as threefry key data, so every field
+but the decks of later hands carries across.
 """
 
 from __future__ import annotations
@@ -30,21 +36,24 @@ from montecarlo_tpu_torch.engine.bets import Layers
 from montecarlo_tpu_torch.engine.state import TableState, table_keys
 from montecarlo_tpu_torch.engine.street import Street
 
-_NESTED = {"bets": Street, "pots": Layers}
+_FORMS = {"layers": Layers, "levels": Street}
 
 
 def _leaves(states: TableState) -> List[np.ndarray]:
     out = []
     for name, x in zip(TableState._fields, states):
-        parts = x if name in _NESTED else (x,)
+        parts = x if name in ("bets", "pots") else (x,)
         out += [p.detach().cpu().numpy() for p in parts]
     return out
 
 
 def save_states(path: str, states: TableState) -> None:
+    impl = "levels" if isinstance(states.bets, Street) else "layers"
+    leaves = _leaves(states)
+    leaves[0] = leaves[0].astype(np.uint32)  # (seed mod 2^32, table)
     np.savez_compressed(
-        path, bets_impl=np.asarray("levels"),
-        **{f"leaf_{i:04d}": x for i, x in enumerate(_leaves(states))})
+        path, bets_impl=np.asarray(impl), key_form=np.asarray("philox"),
+        **{f"leaf_{i:04d}": x for i, x in enumerate(leaves)})
 
 
 def load_states(path: str, device=None, seed: int = 0) -> TableState:
@@ -54,12 +63,14 @@ def load_states(path: str, device=None, seed: int = 0) -> TableState:
     with np.load(path) as data:
         impl = str(data["bets_impl"]) if "bets_impl" in data.files \
             else "layers"
+        ours = "key_form" in data.files and str(data["key_form"]) == "philox"
         flat = [data[k] for k in sorted(data.files) if k.startswith("leaf_")]
-    if impl != "levels":
-        raise ValueError("the port holds the levels street form: save the "
-                         "JAX state with bets_impl='levels'")
+    if impl not in _FORMS:
+        raise ValueError(f"{path}: bets_impl={impl!r}, expected one of "
+                         f"{sorted(_FORMS)}")
+    nested = {"bets": _FORMS[impl], "pots": Layers}
     n_leaves = len(TableState._fields) - 2 + sum(
-        len(kind._fields) for kind in _NESTED.values())
+        len(kind._fields) for kind in nested.values())
     if len(flat) == n_leaves - 2:
         # Snapshot predates the street_raises/last_raiser fields (appended
         # at the end of TableState, so the old leaf prefix is unchanged).
@@ -77,17 +88,17 @@ def load_states(path: str, device=None, seed: int = 0) -> TableState:
     it = iter(flat)
     fields = {}
     for name in TableState._fields:
-        if name in _NESTED:
-            kind = _NESTED[name]
+        if name in nested:
+            kind = nested[name]
             fields[name] = kind(*(tensor(next(it)) for _ in kind._fields))
         else:
             fields[name] = next(it)
     key = fields["key"]
-    if key.dtype == np.int64:  # the port's own (seed, table) keys
-        fields["key"] = torch.tensor(key, device=dev)
+    if ours or key.dtype == np.int64:  # the port's own (seed, table) keys
+        fields["key"] = torch.tensor(key.astype(np.int64), device=dev)
     else:
         fields["key"] = table_keys(seed, key.shape[0], dev)
     for name in TableState._fields:
-        if name not in _NESTED and name != "key":
+        if name not in nested and name != "key":
             fields[name] = tensor(fields[name])
     return TableState(**fields)

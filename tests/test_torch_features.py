@@ -51,11 +51,12 @@ j_action = jax.jit(jax.vmap(jpn.action_from_index))
 
 
 def to_jax(ts):
-    """A port state as a batched JAX ``TableState`` (levels form); the key
-    is a placeholder, which no function here reads."""
+    """A port state as a batched JAX ``TableState``, its street in the
+    port's form; the key is a placeholder, which no function here reads."""
     st = tstate.state_to_numpy(ts)
     fields = {name: getattr(st, name) for name in tstate.TableState._fields}
-    fields["bets"] = jstreet.Street(*st.bets)
+    kind = jstreet.Street if hasattr(st.bets, "level") else jbets.Layers
+    fields["bets"] = kind(*st.bets)
     fields["pots"] = jbets.Layers(*st.pots)
     fields["key"] = np.zeros((ts.n_tables, 2), np.uint32)
     return jstate.TableState(**{k: jnp.asarray(v) for k, v in fields.items()

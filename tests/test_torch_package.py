@@ -124,6 +124,7 @@ MODULES = [
     "montecarlo_tpu_torch.parallel.train_dp",
     "montecarlo_tpu_torch.parallel.local",
     "montecarlo_tpu_torch.scripts.run_configs",
+    "montecarlo_tpu_torch.scripts.exp_levels_ab",
 ]
 # The ported training, exploitability and analysis scripts
 # (``montecarlo_tpu_torch/scripts/<name>.py`` beside ``scripts/<name>.py``,
@@ -131,7 +132,8 @@ MODULES = [
 SCRIPTS = ["league_eval", "exploit_probe", "opt_bot", "train_es_kernel",
            "train_policy", "train_br", "exp_leak_anatomy", "fold_gate_check",
            "policy_diff", "make_fold_anchor", "eval_attacker", "train_mix",
-           "river_gap", "turn_gap", "distill_nash", "run_configs"]
+           "river_gap", "turn_gap", "distill_nash", "run_configs",
+           "exp_levels_ab"]
 # Runs the port's CPU path (equity and multiway equity, range equity and
 # push/fold, the table engine's step and host view, self-play under every
 # rule set, a net policy in a duplicate match, the net pipeline's replay,
@@ -318,6 +320,69 @@ def test_ported_modules_hold_every_public_name_of_jax():
                        (tpolicy_net, ("action_from_index", "net_policy",
                                       "save_params", "load_params"))):
         assert all(callable(getattr(mod, n)) for n in names)
+
+
+# The JAX package's modules without a namesake in the port, and public
+# names a namesake lacks, each with its reason; nothing else may differ.
+NOT_PORTED_MODULES = {
+    # the Pallas kernels: ported by hand as CUDA C++ under ``csrc/``,
+    # bound in ``ops/cuda_equity.py`` and ``ops/cuda_engine.py``/``cuda_net``
+    "ops/pallas_equity.py": "CUDA C++ kernels, ops/cuda_equity.py",
+    "ops/pallas_engine.py": "CUDA C++ kernels, ops/cuda_engine.py and "
+                            "ops/cuda_net.py",
+    # the independent oracle the JAX evaluator is tested against
+    "ops/ref_evaluator.py": "the JAX package's test oracle",
+}
+NOT_PORTED_NAMES = {
+    # the JAX engine behind the server; the port's is TorchBackend
+    ("server/backends.py", "JaxBackend"): "TorchBackend is its counterpart",
+}
+
+
+def _ast_public_names(path: Path, imports: bool) -> set:
+    """Top-level public names a module defines (functions, classes,
+    assignments); with ``imports`` the names it imports too."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names |= {x.id for t in targets for x in ast.walk(t)
+                      if isinstance(x, ast.Name)}
+        elif imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_jax_module_has_its_public_names_in_the_port():
+    """The AST of each module of ``montecarlo_tpu/``: its namesake under
+    ``montecarlo_tpu_torch/`` defines or imports every public name it
+    defines (functions, classes, assignments; a package's re-exports are
+    not compared, but the engine's layer algebra is); the only
+    differences allowed are ``NOT_PORTED_MODULES`` and
+    ``NOT_PORTED_NAMES``."""
+    jax_root = ROOT / "montecarlo_tpu"
+    port_root = ROOT / "montecarlo_tpu_torch"
+    missing_modules, missing_names = set(), set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        ours = port_root / rel
+        if not ours.is_file():
+            missing_modules.add(rel)
+            continue
+        theirs = _ast_public_names(path, imports=False)
+        for name in theirs - _ast_public_names(ours, imports=True):
+            missing_names.add((rel, name))
+    assert missing_modules == set(NOT_PORTED_MODULES)
+    assert missing_names == set(NOT_PORTED_NAMES)
+    import montecarlo_tpu_torch.engine as engine
+
+    assert all(callable(getattr(engine, n)) for n in (
+        "merge_bets", "needed_bet", "remove_player", "total_bet",
+        "update_bets"))
 
 
 def test_shared_encodings_and_table_config_match_jax():

@@ -58,9 +58,9 @@ def layers_spec(layers, num_seats=23):
 
 
 def bets_spec(st):
-    from montecarlo_tpu_torch.engine.street import street_to_layers
+    from montecarlo_tpu_torch.engine.street import bets_as_layers
 
-    return layers_spec(street_to_layers(st.bets, st.folded))
+    return layers_spec(bets_as_layers(st.bets, st.folded))
 
 
 def head(st):
@@ -323,7 +323,7 @@ def _chips_in_layers(layers):
 def test_stepwise_chip_conservation(n_seats, seed):
     """Standard rules: stacks + chips in the street and pot layers is
     invariant after every action."""
-    from montecarlo_tpu_torch.engine.street import street_to_layers
+    from montecarlo_tpu_torch.engine.street import bets_as_layers
 
     rng = random.Random(seed)
     st = init_state(seed, TableConfig(num_seats=n_seats, rules=STD,
@@ -333,7 +333,7 @@ def test_stepwise_chip_conservation(n_seats, seed):
 
     def invariant(st):
         return (sum(stacks(st))
-                + _chips_in_layers(street_to_layers(st.bets, st.folded))
+                + _chips_in_layers(bets_as_layers(st.bets, st.folded))
                 + _chips_in_layers(st.pots))
 
     assert invariant(st) == total0

@@ -42,7 +42,10 @@ def jax_cfg(P, rules, **kw):
 
 
 def port_cfg(P, rules, **kw):
-    return tstate.TableConfig(num_seats=P, rules=rules, **kw)
+    """The port's config of ``jax_cfg``: the levels street form unless
+    ``kw`` names another."""
+    return tstate.TableConfig(num_seats=P, rules=rules,
+                              **{"bets_impl": "levels", **kw})
 
 
 @functools.lru_cache(maxsize=None)
@@ -222,7 +225,8 @@ def test_init_state_decks_are_seeded_permutations():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(small_blind=0), dict(big_blind=-5), dict(rules="fixed-limit"),
+    dict(small_blind=0, bets_impl="levels"),
+    dict(big_blind=-5, bets_impl="levels"), dict(rules="fixed-limit"),
     dict(bets_impl="lists"), dict(num_seats=1)])
 def test_init_state_refuses_what_the_levels_engine_cannot_run(kw):
     with pytest.raises(ValueError):

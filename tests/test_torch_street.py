@@ -1,11 +1,13 @@
 """The port's levels street form (``montecarlo_tpu_torch/engine/street.py``)
 against the JAX package's literal layer algebra and layers engine.
 
-The port keeps only the levels form; its layer view (``street_to_layers``)
-must equal the four-column ``bet.clj`` transcription of the JAX
-``engine/bets.py`` after every operation of random algebra sequences, and
-at every step of full trajectories of the JAX engine run with
-``bets_impl="layers"``. Tolerance 0: every output is an integer.
+The port's levels form (``bets_impl="levels"``; ``test_torch_bets.py``
+and ``test_torch_layers_engine.py`` hold its layers form): its layer view
+(``street_to_layers``) must equal the four-column ``bet.clj``
+transcription of the JAX ``engine/bets.py`` after every operation of
+random algebra sequences, and at every step of full trajectories of the
+JAX engine run with ``bets_impl="layers"``. Tolerance 0: every output is
+an integer.
 """
 
 import random
@@ -189,9 +191,14 @@ def test_state_carry_round_trip_and_refusals():
 
     for a, b in zip(leaves(st), leaves(back)):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    with pytest.raises(ValueError):  # the layers form does not carry
-        tstate.state_from_numpy(tstate.state_to_numpy(st)._replace(
-            bets=j_empty_layers(L, 3)), device="cpu")
+    # a layers street (the JAX default form) carries across as a Layers
+    jl = j_empty_layers(L, 3)
+    carried = tstate.state_from_numpy(tstate.state_to_numpy(st)._replace(
+        bets=jax.tree.map(lambda x: np.broadcast_to(x, (8,) + x.shape),
+                          jl)), device="cpu")
+    assert type(carried.bets).__name__ == "Layers"
+    assert carried.bets.amt.shape == (8, L)
+    assert torch.equal(carried.stacks, st.stacks)
     with pytest.raises(ValueError):
         empty_layers(4, 24, 1, "cpu")
 
