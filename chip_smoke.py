@@ -82,8 +82,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    instantiation, and per net form (K5, K5b, K6, B7, B8, B8l, the probe)
    the shared bytes a block and the blocks an SM that
    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` reports;
-   ``net_eval_hands_per_sec`` and ``train_hands_per_sec`` as ``bench.py``
-   computes them,
+   ``net_eval_hands_per_sec`` and ``train_hands_per_sec`` from the
+   functions ``bench.py``'s net axis calls (the ported
+   ``bench_net_throughput``),
    ``multiway_rollouts_per_sec`` and ``tournaments_per_sec`` (port only);
 5. the probes (path e, after the timing so that the main paths' numbers
    are taken as before): the ported ``scripts/exp_carry_model.py`` at its
@@ -187,9 +188,10 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    and of the record where JAX reproduces it (other rows logged); (j3)
    ``data/policy_6max_distill.npz``'s and es7's gaps at stride 4 and the
    exact BR edge against es9 at stride 1 against their records; (j4) a
-   fresh ``distill_nash --mode nash`` from es7 (1500 iterations, 6000
-   steps, stride 4) lowering both boards' gap by 0.3 bb, and ``--mode
-   br`` against es9 (3000 steps) raising both edges. It logs each solve's
+   fresh ``distill_nash --mode nash`` from es7 (1500 iterations, 2000
+   of the record's 6000 steps, stride 4) lowering both boards' gap by 0.3
+   bb, and ``--mode br`` against es9 (1000 of its 3000 steps) raising
+   both edges. It logs each solve's
    and subject's seconds, a CFR+ iteration's ms (CUDA events) and the
    peak memory;
 11. the server (path k, after path j; only K1 may launch, and must): (k1)
@@ -217,10 +219,10 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    rollouts on the card equal to the same through a gloo group on the CPU
    (AKs vs QQ at 2^20 near 0.460, AA > KQs > 72o), ``sharded_equity_pallas``
    at 2^30 equal to the single K1 call, the plain engine's shards
-   (2^14 tables, 32 steps; 2^12 heads-up tournaments at 20-chip stacks)
+   (2^14 tables, 16 steps; 2^12 heads-up tournaments at 20-chip stacks)
    equal to the unsharded calls, ``sharded_selfplay_kernel`` at 2^20 x
    512 equal to ``selfplay_perpetual_kernel``'s launch, K3 and K5 (banked)
-   sharded equal to phase 1's outputs, two data-parallel REINFORCE steps
+   sharded equal to phase 1's outputs, a data-parallel REINFORCE step
    at 256 tables equal to the update written without collectives, and
    ``solve_turn_river(mesh=)`` at ``turn_gap``'s width (1128 combos x 48
    rivers, 300 iterations, eager) equal to the CUDA-graph solve, each
@@ -250,6 +252,29 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    saved mid-hand: the file says "layers", the loaded batch is equal and
    16 more steps equal the uninterrupted run. It logs each form's ns per
    table-step, each part's seconds and the peak memory.
+14. the measurement entry points (path n, after path m): (n1) the ported
+   ``bench.py`` (``python -m montecarlo_tpu_torch.scripts.bench``) at its
+   full sizes, its one line logged: exactly the root ``bench.py``'s keys
+   (read from its source), none null, the betting axis on K4, and K1,
+   K2, K4, K6 and B8 each launched and nothing else; (n2) the K4 split
+   (B-4, ``scripts/exp_step_split``: ``full``, ``stub_settle``,
+   ``stub_eval``, ``stub_deal``, ``stub_policy``, ``stub_street`` and the
+   controls ``settle_copy`` and ``street_copy``) and the K6 split (B-5,
+   ``scripts/exp_net_split``: ``full``, ``stub_gumbel``,
+   ``stub_feat_eval``, ``stub_features``, ``stub_net`` and the control
+   ``feat_copy``), each variant built by its own nvcc in the background
+   from the end of phase 0: every variant equal bit for bit to its plain
+   version at one block x 64 slots from phase 1's mid-hand K3 output,
+   ``full`` and the controls equal to K4's / K6's output on the same
+   inputs (each stub's differing words logged); then every variant timed
+   at its script's sizes (2^20 x 512 reference tables; 2^16 x 256
+   standard tables, ``policy_6max_200`` at seat 0; a warm-up and the best
+   of 3, CUDA events) with the counters reset just before and read just
+   after, logged as ns per table-step with each stub's saving against
+   its baseline (``full``, or the control that runs the same copy); then
+   every timed output equal bit for bit to its plain version on the same
+   inputs, ``full``'s and the controls' to one K4 / K6 launch, and its
+   row in the ``kernels`` line (error and plain ms from that check).
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -359,14 +384,15 @@ H_P = 1e-4
 # Path i: the gate against the recorded results, in sigma; the ES
 # generations (train_es_kernel's 120 cut to 40 to keep the path near
 # 150 s); REINFORCE's updates and tables (the JAX slow test's 60 at
-# train_policy.py's 4096 tables) and train_br's updates (10 of its 300);
-# the groups of tables whose batch means give the decision-point
-# statistics' sigma.
+# train_policy.py's 4096 tables) and train_br's updates (2 of its 300: a
+# host-bound loop of ~2 s an update whose gates, no overflow and finite
+# rewards, do not depend on its depth); the groups of tables whose batch
+# means give the decision-point statistics' sigma.
 I_SIGMA = 4.0
 I_ES_GENERATIONS = 40
 I_RL_UPDATES = 60
 I_RL_TABLES = 4096
-I_BR_UPDATES = 10
+I_BR_UPDATES = 2
 I_GROUPS = 16
 # i5's cut: fold_gate_check's tables and steps and make_fold_anchor's steps
 # (both logged, not gated; the records' 128 x 512 and 192 x 512).
@@ -390,21 +416,30 @@ K_BENCH_ROOMS = 16
 K_BENCH_PLAYERS = 3
 K_BENCH_TORCH = (64, 200)     # socket actions a room, direct actions
 K_BENCH_NATIVE = (200, 2000)
+# Path j4: the fresh distillations' Adam steps (host-bound, ~6 ms a step):
+# Nash from es7 at the record's 1500 iterations and a third of its 6000
+# steps, BR against es9 at a third of distill_nash's 3000 (the losses
+# flatten by step 2000; the gates ask the gap down by 0.3 bb and the edge
+# up, which the full runs passed by 1.0-1.8 bb and 0.11-0.63 bb, the Nash
+# run at 2000 steps by 0.58 bb and the BR run at 1500 by 0.11 bb)
+J4_NASH_STEPS = 2000
+J4_BR_STEPS = 1000
 K_CI_SECONDS = 1.0
 K_EXACT_AKS_QQ = 0.458708
 K_CKPT_TABLES = 1 << 16
 K_CKPT_STEPS = (16, 32)       # before the save, after the load
 # path l: the plain rows' rollouts (row 2 at one batch a chunk of 2^18,
-# row 3 three heroes) and engine shards (cut: 2^14 tables x 32 steps,
-# 2^12 heads-up tournaments at 20-chip stacks x 8 hands), the dp step's
+# row 3 three heroes) and engine shards (cut: 2^14 tables x 16 steps,
+# 2^12 heads-up tournaments at 20-chip stacks x 4 hands), the dp step's
 # tables (l1 on one rank; l2 half of them a rank, against l1's run), seeds
+# (one step: both ranks' and W = 1's parameters after it are compared)
 # and tolerance (W ranks against W = 1: the float32 sums' order), the
 # turn solve's iterations (a multiple of the chunk)
 L_EQ_N, L_EQ_BATCH = 1 << 20, 1 << 18
 L_SWEEP_N, L_SWEEP_BATCH = 1 << 16, 1 << 14
-L_PLAIN_TABLES, L_PLAIN_STEPS = 1 << 14, 32
-L_TOUR_TABLES, L_TOUR_HANDS = 1 << 12, 8
-L_DP_TABLES, L_DP_SEEDS, L_DP_TOL = 256, (1, 2), 1e-6
+L_PLAIN_TABLES, L_PLAIN_STEPS = 1 << 14, 16
+L_TOUR_TABLES, L_TOUR_HANDS = 1 << 12, 4
+L_DP_TABLES, L_DP_SEEDS, L_DP_TOL = 256, (1,), 1e-6
 L_TURN_ITERATIONS = 300
 # Path m (the layers street form): the A/B's runs after its warm-up (the
 # JAX script's best of 3 cut to 2; its 2^20 tables x 128 steps uncut), the
@@ -416,6 +451,14 @@ M_K3_RULES = ("reference", "standard")
 M_ZERO_BLINDS = ((0, 10), (0, 0))
 M_ZERO_TABLES, M_ZERO_STEPS = 1 << 20, 64
 M_CKPT_TABLES, M_CKPT_STEPS = 1 << 16, (16, 16)
+# Path n (the measurement entry points): the split variants' check against
+# their plain versions (one block x N_CHECK_STEPS slots; the timing runs
+# the scripts' sizes), the K6 split's seat mask (the script's), and the
+# background builds of the split variants (one nvcc each, N_BUILDERS at a
+# time beside the stage probe's)
+N_CHECK_STEPS = 64
+N_NET_SEATS = 1
+N_BUILDERS = 3
 
 
 # Rollouts per chunk of a plain version on the card.
@@ -1003,8 +1046,9 @@ def path_l(dev, smi, phase1):
     lres["row_4"] = {"equity": k1.equity, "n": k1.n}
     done("l1 row 4", t0)
 
-    # row 5: the plain engine's sharded entries (cut: 2^14 tables, 64
-    # steps; 2^12 heads-up tournaments at 20-chip stacks, 16 hands)
+    # row 5: the plain engine's sharded entries (cut: 2^14 tables,
+    # L_PLAIN_STEPS steps; 2^12 heads-up tournaments at 20-chip stacks,
+    # L_TOUR_HANDS hands)
     t0 = time.perf_counter()
     T5 = L_PLAIN_TABLES
     a = pm.sharded_selfplay(mesh, SEED, cfg, T5)
@@ -1058,7 +1102,7 @@ def path_l(dev, smi, phase1):
     del k3, k5
     done("l1 rows 6-8", t0)
 
-    # row 9: two data-parallel steps at 256 tables against the same update
+    # row 9: data-parallel steps at 256 tables against the same update
     # written without collectives
     t0 = time.perf_counter()
     params = [x.numpy() for x in
@@ -1394,6 +1438,325 @@ def path_m(dev, smi, phase1):
     return mres, m_s, path_launches
 
 
+def start_split_builds():
+    """Each K4 and K6 split variant's nvcc, in the background, N_BUILDERS
+    at a time: (the pool, a future per (probe, variant))."""
+    from montecarlo_tpu_torch.ops import _build
+    from montecarlo_tpu_torch.ops import cuda_net_split as cns
+    from montecarlo_tpu_torch.ops import cuda_split as csp
+
+    pool = ThreadPoolExecutor(N_BUILDERS)
+    jobs = {(probe, v): pool.submit(_build.probe_library, probe, v, 6, True)
+            for probe, mod in (("split", csp), ("net_split", cns))
+            for v in mod.VARIANTS}
+    return pool, jobs
+
+
+def path_n(dev, smi, phase1, split_builds):
+    """Path n (phase 14): the measurement entry points. (n1) the ported
+    ``bench.py`` (``montecarlo_tpu_torch/scripts/bench.py``) at its full
+    sizes: one JSON line with exactly the root script's keys, none null,
+    K1, K2, K4, K6 and B8 each launched; (n2) the K4 split (B-4,
+    ``exp_step_split``) and the K6 split (B-5, ``exp_net_split``): each
+    variant (built in the background from phase 0, ``split_builds``)
+    equal bit for bit to its plain version on the card at one block x
+    N_CHECK_STEPS slots, ``full`` and the controls equal to K4's / K6's
+    output on the same inputs (``phase1``: phase 1's reference K3 and
+    standard K3 outputs, mid-hand); then each timed at its script's sizes
+    (2^20 x 512 and 2^16 x 256, a warm-up and the best of 3, CUDA events)
+    with the counters reset just before and read just after, logged as ns
+    per table-step beside each stub's saving against its baseline
+    (``full``, or the control that runs the same copy); then each timed
+    output held against its plain version on the same inputs and
+    ``full``'s and the controls' against one K4 / K6 launch, the rows'
+    error and plain ms taken from that check. Returns (the results, each
+    part's seconds, the launches in n1 by kernel key, the split variants'
+    rows of the ``kernels`` line)."""
+    import torch
+
+    from montecarlo_tpu_torch.engine.state import TableConfig
+    from montecarlo_tpu_torch.models.policy_net import load_params
+    from montecarlo_tpu_torch.ops import cuda_carry as cc
+    from montecarlo_tpu_torch.ops import cuda_engine as ce
+    from montecarlo_tpu_torch.ops import cuda_equity as cq
+    from montecarlo_tpu_torch.ops import cuda_net as cn
+    from montecarlo_tpu_torch.ops import cuda_net_split as cns
+    from montecarlo_tpu_torch.ops import cuda_split as csp
+    from montecarlo_tpu_torch.ops import cuda_stages as cs
+    from montecarlo_tpu_torch.ops import philox
+    from montecarlo_tpu_torch.scripts import bench as tbench
+    from montecarlo_tpu_torch.scripts import exp_net_split as ens
+    from montecarlo_tpu_torch.scripts import exp_step_split as ess
+
+    mods = (cq, ce, cn, cc, cs, philox, csp, cns)
+
+    def reset():
+        for mod in mods:
+            mod.reset_launches()
+
+    def counts():
+        return {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    n_s, nres, t_n = {}, {}, time.perf_counter()
+
+    def done(name, t0):
+        torch.cuda.synchronize(dev)
+        n_s[name] = time.perf_counter() - t0
+        log(f"path {name}: {n_s[name]:.2f} s")
+
+    # (n1) the ported bench.py at its own sizes; its line goes to stdout
+    t0 = time.perf_counter()
+    reset()
+    line = tbench.main([])
+    n1 = counts()
+    n1_launches = {"K1": n1.pop("equity", 0), "K2": n1.pop("sweep", 0),
+                   "K4": n1.pop("engine_prng_reference", 0),
+                   "K6": n1.pop("net_eval_standard", 0),
+                   "B8": n1.pop("net_pop_standard", 0)}
+    log(f"path n1: bench line {json.dumps(line)}; launches {n1_launches}")
+    keys = tbench.reference_keys(ROOT / "bench.py")
+    check(set(line) == keys, f"path n1: the bench line has exactly "
+          f"bench.py's keys (missing {keys - set(line)}, extra "
+          f"{set(line) - keys})")
+    check(all(v is not None for v in line.values()),
+          "path n1: no key of the bench line is null")
+    check(line["betting_backend"] == tbench.K4,
+          "path n1: the betting axis ran K4")
+    check(all(v > 0 for v in n1_launches.values()) and not n1,
+          f"path n1: K1, K2, K4, K6 and B8 launched, nothing else "
+          f"({n1_launches}, {n1})")
+    nres["n1"] = line
+    done("n1", t0)
+
+    # (n2) the splits: builds, checks at one block, timing at full size and
+    # the check of the timed outputs
+    t0 = time.perf_counter()
+    pool, jobs = split_builds
+    builds = {key: job.result() for key, job in jobs.items()}
+    pool.shutdown()
+    for (probe, v), b in builds.items():
+        log(f"{probe} {v}: nvcc {b.seconds:.2f} s (its own build), "
+            f"ptxas {b.ptxas}")
+    P, S = 6, N_CHECK_STEPS
+    cfg = TableConfig(num_seats=P, bets_impl="levels")
+    std = TableConfig(num_seats=P, rules="standard", bets_impl="levels")
+    sb, bb, ss = cfg.small_blind, cfg.big_blind, cfg.starting_stack
+    st_ref = phase1["det_out"][:1].clone()
+    st_std = phase1["det_std"][:1].clone()
+    T1 = ce.TABLES_PER_BLOCK
+    w_net = cn.net_weights(load_params(ROOT / ens.ARTIFACT), dev)
+
+    def split_plain(probe, v, state, seed, n_steps, decisions=None):
+        """The plain version of split variant ``v`` on ``state`` with the
+        kernel's Philox words: (its output, its ms). It is launch-bound
+        (~1,000 small kernels a slot), so its first iteration is captured
+        as a CUDA graph on static fields and words and replayed once an
+        iteration on each iteration's words: the same kernels on the same
+        inputs, with no host work between them. A control's plain version
+        is ``full``'s (nothing stubbed)."""
+        T = state.shape[0] * T1
+        defer = ce._defer_for(n_steps)
+        if probe == "split":
+            rules, words_of = "reference", lambda it: csp.split_words(
+                seed, T, v, P, n_steps, it, dev)
+
+            def iteration(st, words, dec):
+                return csp._split_iteration(v, st, words, P, defer, sb, bb)
+        else:
+            rules, words_of = "standard", lambda it: cns.split_words(
+                seed, T, v, P, n_steps, it, dev)
+
+            def iteration(st, words, dec):
+                return cns._split_iteration(v, st, words, w_net, P, defer,
+                                            sb, bb, ss, N_NET_SEATS, True,
+                                            dec)
+
+        def run():
+            layout, _ = ce._field_layout(P, rules)
+            st = {k: x.clone() for k, x in
+                  ce._unpack(ce._to_rows(state), layout).items()}
+            words = words_of(0).clone()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):  # a warm-up, as capture asks
+                iteration({k: x.clone() for k, x in st.items()}, words,
+                          torch.zeros(1, dtype=torch.int64, device=dev))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                new = iteration(st, words, decisions)
+                new = {k: new[k].clone() for k in st}
+                for k, x in st.items():
+                    x.copy_(new[k])
+            for it in range(n_steps // defer):
+                words.copy_(words_of(it))
+                graph.replay()
+            out = ce._to_blocks(ce._pack(st, layout))
+            del graph, new
+            return out
+        return timed(run)
+
+    def check_variants(where, probe, mod, state, seed, n_steps, whole,
+                       kernel_out):
+        """Each variant's kernel output ``kernel_out(v)`` (with its count
+        of net decisions for K6) against its plain version on the same
+        inputs, bit for bit, and ``full`` and the controls against
+        ``whole`` (K4's / K6's output): (max abs error, plain ms) by
+        variant."""
+        res, plain = {}, {}
+        for v in mod.VARIANTS:
+            k, dk = kernel_out(v)
+            dp = torch.zeros(1, dtype=torch.int64, device=dev)
+            if v in mod.CONTROLS:
+                p, p_ms = plain["full"]
+            else:
+                p, p_ms = split_plain(probe, v, state, seed, n_steps,
+                                      dp if probe == "net_split" else None)
+                plain[v] = (p, p_ms) if v == "full" else (None, p_ms)
+                if probe == "net_split":
+                    check(int(dk) == int(dp) > 0,
+                          f"path n2 {where} {probe} {v}: the kernel counts "
+                          f"the plain version's net decisions ({int(dk)}, "
+                          f"{int(dp)})")
+            e = float((k.double() - p.double()).abs().max())
+            check(e == 0, f"path n2 {where} {probe} {v}: kernel equals its "
+                  f"plain version")
+            differ = int((k != whole).sum())
+            check(v.startswith("stub_") or differ == 0,
+                  f"path n2 {where} {probe} {v}: equal to "
+                  f"{'K4' if probe == 'split' else 'K6'}'s output on the "
+                  f"same inputs")
+            log(f"path n2 {where} {probe} {v}: {differ} words of the state "
+                f"differ from {'K4' if probe == 'split' else 'K6'}'s output; "
+                f"plain {p_ms:.3f} ms"
+                + (" (full's)" if v in mod.CONTROLS else ""))
+            res[v] = (e, p_ms)
+            del k, p
+        return res
+
+    def one_block(probe, mod, state, whole):
+        def kernel_out(v):
+            if probe == "split":
+                return csp.run_split(v, SEED, state, P, S, sb, bb), None
+            dk = torch.zeros(1, dtype=torch.int64, device=dev)
+            return cns.run_net_split(v, SEED, state, w_net, P, S, sb, bb, ss,
+                                     N_NET_SEATS, decisions=dk), dk
+        return check_variants(f"one block x {S} slots", probe, mod, state,
+                              SEED, S, whole, kernel_out)
+
+    small = {"split": one_block(
+        "split", csp, st_ref, ce.run_perpetual_prng(SEED, st_ref, P, S, sb,
+                                                    bb)),
+        "net_split": one_block(
+        "net_split", cns, st_std, cn.run_net_eval(
+            SEED, st_std, w_net, P, S, sb, bb, ss, "standard",
+            N_NET_SEATS))}
+    log(f"path n2: every split variant equals its plain version at one "
+        f"block x {S} slots (plain ms {small})")
+    done("n2 one-block checks", t0)
+
+    # the scripts' main runs, the counters reset just before and read just
+    # after
+    t0 = time.perf_counter()
+    reset()
+    state4 = ess.build_state(cfg, dev)
+    res4 = {v: ess.measure(cfg, state4, v) for v in csp.VARIANTS}
+    state6 = ce.pack_state(std, ce.first_deal(0, ens.N_TABLES, P, dev))
+    res6 = {v: ens.measure(std, state6, w_net, v) for v in cns.VARIANTS}
+    n2 = counts()
+    launches = {f"split_{v}": n2.pop(f"split_{v}", 0) for v in csp.VARIANTS}
+    launches.update({f"net_split_{v}": n2.pop(f"net_split_{v}", 0)
+                     for v in cns.VARIANTS})
+    check(all(x > 0 for x in launches.values()) and not n2,
+          f"path n2: every split variant launched, nothing else "
+          f"({launches}, {n2})")
+    for name, probe, res, mod in (("K4 split", "split", res4, csp),
+                                  ("K6 split", "net_split", res6, cns)):
+        for v, r in res.items():
+            base = mod.BASELINES.get(v, "full")
+            b_ns = res[base]["ns_per_table_step"]
+            log(f"path n2 {name} {v}: {r['ns_per_table_step']:.4f} ns a "
+                f"table-step ({r['ms']:.3f} ms, {r['hands']} hands), saving "
+                f"against {base} {b_ns - r['ns_per_table_step']:+.4f} ns "
+                f"({1 - r['ns_per_table_step'] / b_ns:+.2%}); "
+                f"ptxas {builds[(probe, v)].ptxas}")
+    done("n2 timing", t0)
+
+    # the timed outputs (the scripts' sizes and seeds) against their plain
+    # versions on the same inputs, and full's against one K4 / K6 launch
+    t0 = time.perf_counter()
+    full = {
+        "split": check_variants(
+            "timed", "split", csp, state4, ess.SEED, ess.N_STEPS,
+            ce.run_perpetual_prng(ess.SEED, state4, P, ess.N_STEPS, sb, bb),
+            lambda v: (res4[v].pop("out"), None)),
+        "net_split": check_variants(
+            "timed", "net_split", cns, state6, ens.SEED, ens.N_STEPS,
+            cn.run_net_eval(ens.SEED, state6, w_net, P, ens.N_STEPS, sb, bb,
+                            ss, "standard", N_NET_SEATS),
+            lambda v: (res6[v].pop("out"), torch.tensor(
+                [res6[v]["net_decisions"]], device=dev)))}
+    log(f"path n2: every timed split output equals its plain version on "
+        f"the same inputs (plain ms {full})")
+    nres["n2"] = {"k4": res4, "k6": res6, "plain_one_block": small,
+                  "plain_timed": full}
+    done("n2 timed checks", t0)
+
+    # the kernels line's rows: bound from the work of the run, as the rows
+    # of K4 and K6 count it (a hand one betting step and P hand keys, the
+    # Philox blocks of the words drawn, a net decision its features and
+    # the MLP's float operations), less what each stub removes
+    rows = []
+    for probe, res, state, mod, src, where in (
+            ("split", res4, state4, csp, "probe_split.cu",
+             "scripts/exp_step_split.py:51"),
+            ("net_split", res6, state6, cns, "probe_net.cu",
+             "scripts/exp_net_split.py:56")):
+        T = state.shape[0] * ce.TABLES_PER_BLOCK
+        n_steps = res["full"]["steps"]
+        for v, r in res.items():
+            key = f"{probe}_{v}"
+            n_it, W, _ = mod.split_words_shape(v, 1, P, n_steps)
+            hands = r["hands"]
+            ops = hands * OPS["step"] \
+                + T * -(-n_it * W // 4) * OPS["philox_block"]
+            f32 = 0
+            if v not in ("stub_settle", "stub_eval"):
+                ops += hands * P * OPS["hand_key"]
+            n_bytes = 2 * state.numel() * 4
+            if probe == "net_split":
+                dec = r["net_decisions"]
+                n_bytes += cn.NUM_WEIGHTS * 4
+                if v not in ("stub_features", "stub_net"):
+                    ops += dec * OPS["features"]
+                if v != "stub_net":
+                    f32 = dec * OPS["mlp_f32"]
+            b_ms, b_by = bound(n_bytes, ops, f32)
+            label = "B-4 K4 split" if probe == "split" else "B-5 K6 split"
+            rows.append({
+                "name": f"{label} {v} ({T} tables x {n_steps} slots)",
+                "route": "cuda", "source": "montecarlo_tpu_torch/csrc/" + src,
+                "replaces": where, "launches": launches[key],
+                "max_abs_err": full[probe][v][0], "ms": r["ms"],
+                "plain_ms": full[probe][v][1], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None,
+                "work": T * n_steps, "unit": "table-slots",
+                "plain_work": T * n_steps})
+    log(json.dumps({"path_n_kernels": rows, "card": smi}))
+    del state4, state6
+    n_s["path"] = time.perf_counter() - t_n
+    return nres, n_s, n1_launches, rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1426,6 +1789,7 @@ def main() -> int:
     from montecarlo_tpu_torch.rollout import evaluate as tev
     from montecarlo_tpu_torch.rollout import policy as tpol
     from montecarlo_tpu_torch.rollout import selfplay as tsp
+    from montecarlo_tpu_torch.scripts import bench_net_throughput as bnt
     from montecarlo_tpu_torch.scripts import debug_kernel_compile as dkc
     from montecarlo_tpu_torch.scripts import exp_carry_model as ecm
 
@@ -1527,6 +1891,9 @@ def main() -> int:
     stage_pool = ThreadPoolExecutor(1)
     stage_job = stage_pool.submit(lambda: [
         cs.stage_library(stage, dkc.P, fresh=True) for stage in cs.STAGES])
+    # the K4 and K6 splits' builds, one nvcc per variant, in the background
+    # likewise (path n uses them)
+    split_builds = start_split_builds()
 
     kat = philox.philox_blocks(torch.tensor([c for c, _ in PHILOX_KAT],
                                             dtype=torch.int64, device=dev))
@@ -2426,29 +2793,16 @@ def main() -> int:
         f"{times['K2']:.3f} ms, the host {host_ms:.3f} ms; K2 with the "
         f"sampler off (median of 5) {k2_quiet_ms:.3f} ms, on "
         f"{times['K2']:.3f} ms (x{times['K2'] / k2_quiet_ms:.4f})")
-    # bench.py's net_eval_hands_per_sec: hands / host seconds of one
-    # 2 x 256-slot evaluation from a state built once, best of 2
-    net_runs = []
-    for i in range(2):
-        t0 = time.perf_counter()
-        h = cn.selfplay_net_eval_kernel(SEED + i + 1, std, es3, 1, T_NET,
-                                        NET_SLOTS, NET_LAUNCH,
-                                        state0=st_net0)[2]
-        net_runs.append((time.perf_counter() - t0, h))
-    net_best, net_best_hands = min(net_runs)
-    # bench.py's train_hands_per_sec (bench_es_generation): hands over the
-    # 32 candidates / host seconds of one generation, from a state built
-    # once, best of 2 after one warm-up
-
-    def generation(seed):
-        t0 = time.perf_counter()
-        h = cn.selfplay_net_eval_pop(seed, std, cands, 1, T_TRAIN,
-                                     TRAIN_SLOTS, state0=st_train0)[2]
-        return time.perf_counter() - t0, int(h.sum())
-
-    generation(TRAIN_SEED)
-    train_best, train_hands = min(generation(TRAIN_SEED + i + 1)
-                                  for i in range(2))
+    # bench.py's net_eval_hands_per_sec and train_hands_per_sec, from the
+    # functions bench.py's net axis calls (the ported
+    # bench_net_throughput): hands / host seconds of one 2 x 256-slot
+    # evaluation and of one generation of the 32 candidates, each from a
+    # state built once (phase 0's), best of 2 after one warm-up
+    net_r = bnt.bench_net_eval(std, es3, T_NET, NET_SLOTS, seed=SEED,
+                               reps=2, device=dev)
+    train_r = bnt.bench_es_generation(std, es3, T_TRAIN, TRAIN_SLOTS,
+                                      pop=TRAIN_POP // 2, seed=TRAIN_SEED,
+                                      reps=2, device=dev)
 
     k6_hands = int(ce.unpack_field(k6_first, std, "hand_ct").sum())
     k5_state = T_NET * ce._field_layout(P, "standard")[1] * 4
@@ -2559,14 +2913,12 @@ def main() -> int:
         "betting_ns_per_table_step": times["K4"] * 1e6 / (T_FULL * SP_SLOTS),
         "det_ns_per_table_step": times["K3"] * 1e6 / (T_FULL * DET_STEPS),
         "standard_betting_steps_per_hand": sp_std_sph,
-        "net_eval_hands_per_sec": net_best_hands / net_best,
-        "net_eval_ns_per_table_step": net_best / (T_NET * NET_SLOTS) * 1e9,
-        "net_eval_seconds": net_best,
-        "net_eval_hands": net_best_hands,
-        "train_hands_per_sec": train_hands / train_best,
-        "train_pop": TRAIN_POP,
-        "train_seconds": train_best,
-        "train_hands": train_hands,
+        **{k: net_r[k] for k in (
+            "net_eval_hands_per_sec", "net_eval_ns_per_table_step",
+            "net_eval_seconds", "net_eval_hands")},
+        **{k: train_r[k] for k in (
+            "train_hands_per_sec", "train_pop", "train_seconds",
+            "train_hands")},
         # port only: B3 preflop, 3 hands, one launch of 2^30 rollouts; 2^20
         # 6-max tournaments from 100-chip stacks run to completion, host
         # seconds of tournaments_to_completion (first deal included)
@@ -2605,7 +2957,7 @@ def main() -> int:
     builds = stage_job.result()
     stage_pool.shutdown()
     for b in builds:
-        log(f"stage {b.stage}: nvcc {b.seconds:.2f} s (its own build), "
+        log(f"stage {b.variant}: nvcc {b.seconds:.2f} s (its own build), "
             f"ptxas {b.ptxas}")
     g5 = torch.Generator(device=dev).manual_seed(SEED + 5)
     stage_in = {STAGE_BLOCKS: det_out[:STAGE_BLOCKS].clone(),
@@ -3806,13 +4158,13 @@ def main() -> int:
     j_done("j3", t0)
 
     # (j4) fresh distillations: Nash from es7 at the record's 1500
-    # iterations and 6000 steps at stride 4, and BR against es9 at 3000
-    # steps at stride 1
+    # iterations and J4_NASH_STEPS steps at stride 4, and BR against es9
+    # at J4_BR_STEPS steps at stride 1
     t0 = time.perf_counter()
     _, nres = sdn.main(["--mode", "nash", "--start",
                         "data/policy_6max_es7.npz", "--combo-stride", "4",
                         "--iterations", str(dis_rec["iterations"]),
-                        "--steps", str(dis_rec["steps"]),
+                        "--steps", str(J4_NASH_STEPS),
                         "--save", str(j_dir / "distill_nash.npz")])
     j_done("j4_nash", t0)
     jres["j4"] = {"nash": nres}
@@ -3827,7 +4179,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _, bres = sdn.main(["--mode", "br", "--subject",
                         "data/policy_6max_es9.npz", "--start",
-                        "data/policy_6max_es9.npz", "--steps", "3000",
+                        "data/policy_6max_es9.npz", "--steps",
+                        str(J4_BR_STEPS),
                         "--save", str(j_dir / "distill_br.npz")])
     j_done("j4_br", t0)
     jres["j4"]["br"] = bres
@@ -3892,6 +4245,18 @@ def main() -> int:
                     "path_m_launches": m_launches, "card": smi},
                    default=float))
     phase_done("13 layers street form")
+
+    # ---- 14. the measurement entry points (path n) -------------------------
+    # the ported bench.py at its full sizes; the K4 and K6 splits, each
+    # variant against its plain version and timed at its script's sizes
+    nres, n_s, n1_launches, split_rows = path_n(dev, smi, {
+        "det_out": det_out, "det_std": det_std}, split_builds)
+    for key, n in n1_launches.items():
+        launches[key] += n
+    log(json.dumps({"path_n": nres, "path_n_seconds": n_s,
+                    "path_n1_launches": n1_launches, "card": smi},
+                   default=float))
+    phase_done("14 measurement entry points")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 
@@ -3948,7 +4313,7 @@ def main() -> int:
         "bound_by": bounds[key][1], "library_ms": library.get(key),
         "work": work[key][0], "unit": work[key][1],
         "plain_work": plain_work.get(key, work[key][0]),
-    } for key, name, source, replaces in meta]
+    } for key, name, source, replaces in meta] + split_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

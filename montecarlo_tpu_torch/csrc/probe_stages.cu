@@ -5,7 +5,7 @@
 // pallas_call at :36), which compiles the JAX engine kernel's step body in
 // stages to find what its compile time and its cost come from. Here nvcc
 // compiles this file once per stage, with -DMC_SEATS=P and
-// -DMC_STAGE=MC_STAGE_<name> (ops/_build.py:build_stage), into a library
+// -DMC_STAGE=MC_STAGE_<name> (ops/_build.py:build_probe), into a library
 // of its own, so each build's seconds and ptxas report (registers, stack
 // frame, spills) belong to that stage alone; the report's kernel is the
 // Philox instantiation, the one the measurement runs (the injected one

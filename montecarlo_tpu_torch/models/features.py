@@ -40,7 +40,7 @@ def _div(x, d):
     """float32 ``x / d``, correctly rounded on every device."""
     if isinstance(d, torch.Tensor):
         return x / d
-    return x / torch.tensor(float(d), dtype=F32, device=x.device)
+    return x / torch.full((), float(d), dtype=F32, device=x.device)
 
 
 def masked_suit_masks(cards, valids):
@@ -56,9 +56,10 @@ def masked_suit_masks(cards, valids):
     return masks
 
 
-def features(st, head, P: int, bb: int):
+def features(st, head, P: int, bb: int, evaluate=eval_masks_impl):
     """The 24 features of the acting seat ``head`` (hand-order position)
-    of every table: float32 [NUM_FEATURES, T]."""
+    of every table: float32 [NUM_FEATURES, T]. ``evaluate``: the made-hand
+    key of the four suit masks (the K6 split stubs it)."""
     total = st["lvl"].amax(0)
     pot = total + st["pot_amt"].sum(0, dtype=I32)
     needed = total - _pick(st["contrib"], head)
@@ -71,7 +72,7 @@ def features(st, head, P: int, bb: int):
     hole1 = _pick(st["hole1"], head)
     true_ = torch.ones_like(stage, dtype=torch.bool)
     valids = [true_, true_] + [i < n_comm for i in range(5)]
-    key = eval_masks_impl(*masked_suit_masks(
+    key = evaluate(*masked_suit_masks(
         [hole0, hole1] + [st["board"][i] for i in range(5)], valids))
     category = _div((key >> CAT_SHIFT).to(F32), 8.0)
     top_rank = _div(((key >> 16) & 0xF).to(F32), 14.0)

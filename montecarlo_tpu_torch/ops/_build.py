@@ -12,11 +12,16 @@ plain C interface, which ``ctypes`` loads:
 - ``compile_library(...)``: the same nvcc build of any source tree into a
   given directory (``scripts/ab_engine.py`` builds another commit's
   ``csrc/`` with it);
-- ``build_stage(stage)``: the stage probe (``probe_stages.cu``) for one
-  stage of the engine's step body. Its build is the measurement, so it is
-  never cached: every call compiles afresh, one nvcc, and reports the
-  seconds and ptxas's registers, stack frame and spills of the stage's
-  Philox kernel.
+- ``build_probe(probe, variant)``: a probe built once per variant, one
+  nvcc with ``-D<define>=<DEFINE>_<VARIANT>`` (``PROBES``): the stage
+  probe (``probe_stages.cu``, one stage of the engine's step body), the
+  K4 split (``probe_split.cu``, K4 with one piece stubbed) and the K6
+  split (``probe_net.cu``, K6 with one piece of the net decision
+  stubbed). Its build is the measurement, so it is never cached on disk:
+  every call compiles afresh, and reports the seconds and ptxas's
+  registers, stack frame and spills of the variant's kernel;
+  ``probe_library`` keeps a process's builds, ``build_probes`` compiles
+  several variants at once.
 
 The probes (``PROBE_SOURCES``) stay out of the other libraries, so they add
 nothing to the main path's build. A library other than a stage's is built
@@ -38,6 +43,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -49,8 +55,13 @@ LIB_NAME = "libmc_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SEAT_SOURCES = ("engine.cu", "net.cu")
-PROBE_SOURCES = ("probe_carry.cu", "probe_stages.cu")
+PROBE_SOURCES = ("probe_carry.cu", "probe_stages.cu", "probe_split.cu",
+                 "probe_net.cu")
 STAGES = ("carry", "policy", "street", "deal", "settle", "full")
+SPLITS = ("full", "stub_settle", "stub_eval", "stub_deal", "stub_policy",
+          "stub_street", "settle_copy", "street_copy")
+NET_SPLITS = ("full", "stub_gumbel", "stub_feat_eval", "stub_features",
+              "stub_net", "feat_copy")
 MIN_SEATS, MAX_SEATS = 2, 10
 
 P_ = ctypes.c_void_p
@@ -81,6 +92,40 @@ CARRY_SIGNATURES = {"mc_probe_carry": [I_, I_, P_, P_, I_, I_, P_]}
 STAGE_SIGNATURES = {
     "mc_probe_stage": [P_, I_, P_, I_, I_, I_, I_, I_, I_, I_, P_],
     "mc_probe_stage_id": [],
+}
+SPLIT_SIGNATURES = {
+    "mc_probe_split": [P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, P_],
+    "mc_probe_split_id": [],
+}
+NET_SPLIT_SIGNATURES = {
+    "mc_probe_net_split": [P_, I_, P_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_,
+                           I_, I_, I_, I_, ULL_, P_, P_],
+    "mc_probe_net_split_id": [],
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Probe:
+    """A probe built once per variant: its source, the define that picks
+    the variant (``-D<define>=<define>_<VARIANT>``), the variants in the
+    order of their ids, the C entries, and what marks its measured kernel
+    in the ptxas report (every part of the mangled name)."""
+    source: str
+    define: str
+    variants: tuple
+    signatures: dict
+    kernel: tuple
+
+
+# The stage probe's measured kernel is its Philox instantiation (INJECT
+# false); the splits build one kernel each.
+PROBES = {
+    "stage": Probe("probe_stages.cu", "MC_STAGE", STAGES, STAGE_SIGNATURES,
+                   ("mc_stage_kernel", "Lb0E")),
+    "split": Probe("probe_split.cu", "MC_SPLIT", SPLITS, SPLIT_SIGNATURES,
+                   ("mc_split_kernel",)),
+    "net_split": Probe("probe_net.cu", "MC_NET_SPLIT", NET_SPLITS,
+                       NET_SPLIT_SIGNATURES, ("mc_split_net_kernel",)),
 }
 
 
@@ -206,50 +251,79 @@ def carry_library() -> ctypes.CDLL:
 
 
 @dataclasses.dataclass(frozen=True)
-class StageBuild:
-    """One stage's build: the loaded library, nvcc's wall seconds, and
-    ptxas's report of the stage kernel (``ptxas_report``)."""
-    stage: str
+class ProbeBuild:
+    """One variant's build: the loaded library, nvcc's wall seconds, and
+    ptxas's report of the variant's kernel (``ptxas_report``)."""
+    variant: str
     lib: ctypes.CDLL
     seconds: float
     ptxas: dict
 
 
-def build_stage(stage: str, seats: int = 6) -> StageBuild:
-    """Compile the stage probe for ``stage`` (one of ``STAGES``) and
+def build_probe(probe: str, variant: str, seats: int = 6) -> ProbeBuild:
+    """Compile probe ``probe`` (a key of ``PROBES``) for ``variant`` and
     ``seats``, afresh: one nvcc (compile and link) into a new temporary
-    directory under ``_build/<hash>/stages/``, so the seconds are a real
-    compile of that stage alone. Raises when nvcc fails or ptxas reports
-    no kernel."""
-    if stage not in STAGES:
-        raise ValueError(f"stage={stage!r}: expected one of {STAGES}")
+    directory under ``_build/<hash>/<probe>s/``, so the seconds are a real
+    compile of that variant alone. Raises when nvcc fails, ptxas reports
+    no kernel or the library reports another variant."""
+    spec = PROBES[probe]
+    if variant not in spec.variants:
+        raise ValueError(f"{probe} {variant!r}: expected one of "
+                         f"{spec.variants}")
     _check_seats(seats)
     nvcc = find_nvcc()
-    parent = BUILD / sources_hash() / "stages"
+    parent = BUILD / sources_hash() / f"{probe}s"
     parent.mkdir(parents=True, exist_ok=True)
-    out_dir = Path(tempfile.mkdtemp(prefix=f"{stage}-p{seats}-", dir=parent))
+    out_dir = Path(tempfile.mkdtemp(prefix=f"{variant}-p{seats}-",
+                                    dir=parent))
     lib_path = out_dir / LIB_NAME
     t0 = time.perf_counter()
     run = subprocess.run(
         [nvcc, *NVCC_FLAGS, f"-DMC_SEATS={seats}",
-         f"-DMC_STAGE=MC_STAGE_{stage.upper()}", "-I", str(CSRC), "-shared",
-         str(CSRC / "probe_stages.cu"), "-o", str(lib_path)],
+         f"-D{spec.define}={spec.define}_{variant.upper()}", "-I", str(CSRC),
+         "-shared", str(CSRC / spec.source), "-o", str(lib_path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0
     if run.returncode != 0:
-        raise RuntimeError(f"nvcc failed on stage {stage}:\n{run.stdout}")
+        raise RuntimeError(f"nvcc failed on {probe} {variant}:\n{run.stdout}")
     (out_dir / "build.log").write_text(run.stdout)
-    # the Philox instantiation (INJECT false), the one the probe measures
     report = {k: v for k, v in ptxas_report(run.stdout).items()
-              if "mc_stage_kernel" in k and "Lb0E" in k}
+              if all(part in k for part in spec.kernel)}
     if len(report) != 1:
-        raise RuntimeError(f"stage {stage}: expected one Philox stage kernel "
-                           f"in the ptxas report, got {sorted(report)}")
-    lib = load_library(lib_path, STAGE_SIGNATURES)
-    if lib.mc_probe_stage_id() != STAGES.index(stage):
-        raise RuntimeError(f"stage {stage}: the library reports stage "
-                           f"{lib.mc_probe_stage_id()}")
-    return StageBuild(stage, lib, seconds, next(iter(report.values())))
+        raise RuntimeError(f"{probe} {variant}: expected one kernel in the "
+                           f"ptxas report, got {sorted(report)}")
+    lib = load_library(lib_path, spec.signatures)
+    built = getattr(lib, f"mc_probe_{probe}_id")()
+    if built != spec.variants.index(variant):
+        raise RuntimeError(f"{probe} {variant}: the library reports variant "
+                           f"{built}")
+    return ProbeBuild(variant, lib, seconds, next(iter(report.values())))
+
+
+# The probes' builds made in this process, by (probe, variant, seats).
+_PROBE_BUILDS: dict = {}
+
+
+def probe_library(probe: str, variant: str, seats: int = 6,
+                  fresh: bool = False) -> ProbeBuild:
+    """The ``ProbeBuild`` of ``variant`` of ``probe`` at ``seats``: built
+    (nvcc, afresh) on the first call or when ``fresh``, else the build
+    made before in this process."""
+    key = (probe, variant, seats)
+    if fresh or key not in _PROBE_BUILDS:
+        _PROBE_BUILDS[key] = build_probe(probe, variant, seats)
+    return _PROBE_BUILDS[key]
+
+
+def build_probes(probe: str, variants, seats: int = 6,
+                 workers: int | None = None) -> dict:
+    """``probe_library(..., fresh=True)`` of each of ``variants``, one nvcc
+    each, ``workers`` at a time (all at once by default): variant ->
+    ``ProbeBuild``."""
+    with ThreadPoolExecutor(workers or len(variants)) as pool:
+        return dict(zip(variants, pool.map(
+            lambda v: probe_library(probe, v, seats, fresh=True),
+            variants)))
 
 
 _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

@@ -26,6 +26,14 @@ The plain versions ``_run_det_plain`` / ``_run_prng_plain`` translate the
 JAX device functions onto ``[rows, tables]`` tensors (tables on the last
 axis). A wrapper runs them only for CPU tensors; for a CUDA tensor it
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+
+The hooks of the splits. Eight keyword arguments of plain functions let
+the splits' plain versions (``ops/cuda_split.py``, ``ops/cuda_net_split.py``)
+replace one piece, and only they pass them; each defaults to the real
+piece: ``_hand_values(evaluate=)``, ``_settle_payout(evaluate=)``,
+``_step_nosettle(update=, merge=)``, ``_settle_pass(payout=)`` here,
+``models/features.features(evaluate=)``, and
+``ops/cuda_net._masked_logits(feats=)`` / ``_net_action(feats=)``.
 """
 
 from __future__ import annotations
@@ -281,20 +289,23 @@ def _street_merge(lvl, ln, contrib, do):
             torch.where(do[None], out_ln, ln))
 
 
-def _hand_values(st):
-    """Comparison keys [P, T] of every seat's 7 cards."""
+def _hand_values(st, evaluate=eval_masks_cmp_impl):
+    """Comparison keys [P, T] of every seat's 7 cards (``evaluate`` of their
+    four suit masks)."""
     bm = suit_masks_from_cards(st["board"].T)                 # 4 x [T]
     holes = torch.stack([st["hole0"], st["hole1"]], dim=-1)   # [P, T, 2]
     hm = suit_masks_from_cards(holes)                         # 4 x [P, T]
-    return eval_masks_cmp_impl(*[b[None] | h for b, h in zip(bm, hm)])
+    return evaluate(*[b[None] | h for b, h in zip(bm, hm)])
 
 
-def _settle_payout(st, pots_amt, pots_set, pots_n, in_hand, P):
+def _settle_payout(st, pots_amt, pots_set, pots_n, in_hand, P,
+                   evaluate=eval_masks_cmp_impl):
     """Showdown payout per pot row, [P, T]. Reference rules (``pots_n``
     given): amt * inflated n, remainders vanish. Standard rules
     (``pots_n`` None): amt * |contributors|, odd chips to the
-    first-position winner of each layer."""
-    values = _hand_values(st)
+    first-position winner of each layer. ``evaluate``: the hand values'
+    evaluator (the K4 split stubs it)."""
+    values = _hand_values(st, evaluate)
     dev = values.device
     in_hand_b = _mask_bits(in_hand, P) != 0
     seats = _iota(P, dev).view(1, 1, P, 1)
@@ -318,9 +329,11 @@ def _settle_payout(st, pots_amt, pots_set, pots_n, in_hand, P):
     return pay.sum((0, 1), dtype=I32)
 
 
-def _step_nosettle(st, raw_action, P, rules="reference"):
+def _step_nosettle(st, raw_action, P, rules="reference",
+                   update=_street_update, merge=_street_merge):
     """The betting half of ``step_table``; a table whose hand ends latches
-    ``wait`` and empties its play order."""
+    ``wait`` and empties its play order. ``update`` and ``merge``: the
+    street algebra (the K4 split stubs them)."""
     reference = rules == "reference"
     n_lvl = st["lvl"].shape[0]
     T = st["stage"].shape[0]
@@ -359,10 +372,9 @@ def _step_nosettle(st, raw_action, P, rules="reference"):
         paid = torch.where(threads, torch.where(is_raise, pay_raise,
                                                 pay_call), 0)
 
-    up_lvl, up_ln, ovf = _street_update(st["lvl"], st["ln"], amount, threads)
+    up_lvl, up_ln, ovf = update(st["lvl"], st["ln"], amount, threads)
     do_merge = is_fold | is_check
-    mg_lvl, mg_ln = _street_merge(st["lvl"], st["ln"], st["contrib"],
-                                  do_merge)
+    mg_lvl, mg_ln = merge(st["lvl"], st["ln"], st["contrib"], do_merge)
     lvl = torch.where(do_merge[None], mg_lvl, up_lvl)
     ln = torch.where(do_merge[None], mg_ln, up_ln)
     contrib = torch.where(head_onehot & threads[None],
@@ -467,12 +479,14 @@ def _seat_view(pos, button, P):
 
 
 def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
-                 reset_stacks=False):
+                 reset_stacks=False, payout=_settle_payout):
     """Settlement and next hand for every table whose ``wait`` flag is up;
     ``new_cards``: [2P+5, T]. With ``reset_stacks`` every hand starts from
     ``ss`` chips a seat (independent-hand evaluation). A tournament table
     left with one player holding chips does not redeal: it keeps its
-    settled stacks and hand and freezes with an empty play order."""
+    settled stacks and hand and freezes with an empty play order.
+    ``payout``: the showdown payout (``_settle_payout``; the K4 split
+    stubs it)."""
     reference = rules == "reference"
     tournament = rules == "tournament"
     n_lvl = st["lvl"].shape[0]
@@ -484,8 +498,8 @@ def _settle_pass(st, new_cards, P, sb, bb, rules="reference", ss=100,
     pots_set = st["pot_set"].reshape(4, n_lvl, T)
     pots_n = st["pot_n"].reshape(4, n_lvl, T) if reference else None
 
-    payout = _settle_payout(st, pots_amt, pots_set, pots_n, st["in_hand"], P)
-    stacks = torch.where(ended[None], st["stacks"] + payout, st["stacks"])
+    pay = payout(st, pots_amt, pots_set, pots_n, st["in_hand"], P)
+    stacks = torch.where(ended[None], st["stacks"] + pay, st["stacks"])
     hand_ct = st["hand_ct"] + ended.to(I32)
     delta = stacks - st["hand_start"]
     delta_sum = st["delta_sum"] + torch.where(ended[None], delta, 0)

@@ -186,28 +186,36 @@ def _bank_logits(feats, weights, bank):
     return logits.permute(2, 0, 1).reshape(NUM_ACTIONS, -1)
 
 
-def _masked_logits(st, head, P, bb, weights, seat_to_bank=None):
+def _masked_logits(st, head, P, bb, weights, seat_to_bank=None,
+                   feats=None):
     """(features [24, T], logits [4, T] of each table's acting bank with
     fold masked when nothing is owed). ``weights``: [C, B, NUM_WEIGHTS]
     for C candidates' tables in turn, banks [B, NUM_WEIGHTS] or one net's
-    [NUM_WEIGHTS]."""
+    [NUM_WEIGHTS]. ``feats``: given features in place of ``features``'
+    (the K6 split's)."""
     if weights.dim() < 3:
         weights = weights.reshape(1, -1, NUM_WEIGHTS)
     seat = (st["button"] + head) % P
-    bank = torch.tensor(seat_to_bank or (0,) * P, dtype=I32,
-                        device=seat.device)[seat.long()]
-    feats = features(st, head, P, bb)
+    if seat_to_bank is None:
+        bank = torch.zeros_like(seat, dtype=I32)
+    else:
+        bank = torch.tensor(seat_to_bank, dtype=I32,
+                            device=seat.device)[seat.long()]
+    if feats is None:
+        feats = features(st, head, P, bb)
     logits = _bank_logits(feats, weights, bank)
     needed = st["lvl"].amax(0) - ce._pick(st["contrib"], head)
     mask = torch.where(needed == 0, FOLD_MASK, 0.0).to(F32)
     return feats, torch.cat([logits[:1] + mask[None], logits[1:]])
 
 
-def _net_action(st, head, P, bb, weights, seat_to_bank=None, bits=None):
+def _net_action(st, head, P, bb, weights, seat_to_bank=None, bits=None,
+                feats=None):
     """The net's raw action per table: argmax (``bits`` None) or Gumbel
     pick on ``bits`` of the acting seat's bank, mapped to fold / call / 2bb
-    / max(pot + needed, 2bb)."""
-    _, logits = _masked_logits(st, head, P, bb, weights, seat_to_bank)
+    / max(pot + needed, 2bb); ``feats`` as ``_masked_logits``."""
+    _, logits = _masked_logits(st, head, P, bb, weights, seat_to_bank,
+                               feats)
     idx = _argmax_pick(logits) if bits is None else \
         _gumbel_pick(logits, bits)
     total = st["lvl"].amax(0)

@@ -18,7 +18,7 @@ applications of one stage.
   step, then the betting step and the settle pass.
 
 The kernel (``csrc/probe_stages.cu``) is compiled once per stage into a
-library of its own (``_build.build_stage``), so each stage's nvcc seconds
+library of its own (``_build.build_probe``), so each stage's nvcc seconds
 and ptxas report belong to it alone. Its words come from Philox stream
 (seed, table, 0, 65537) or are injected. The plain versions ``v_*`` compose
 the plain engine functions of ``ops/cuda_engine.py``; the wrapper runs them
@@ -41,8 +41,6 @@ STAGES = _build.STAGES
 # The Philox sub-stream of the probe (csrc/probe_stages.cuh:MC_SUB_PROBE).
 SUB_PROBE = 65537
 LAUNCHES = {f"stage_{s}": 0 for s in STAGES}
-# One build per (stage, seat count), made by stage_library.
-BUILDS: dict = {}
 
 
 def reset_launches() -> None:
@@ -139,12 +137,10 @@ def _run_stage_plain(stage, state, words_of, P, n_steps, sb, bb):
 # ---------------------------------------------------------------------------
 
 def stage_library(stage: str, P: int = 6, fresh: bool = False):
-    """The ``_build.StageBuild`` of ``stage`` at seat count P: built (nvcc,
+    """The ``_build.ProbeBuild`` of ``stage`` at seat count P: built (nvcc,
     afresh) on the first call or when ``fresh``, else the build made
     before in this process."""
-    if fresh or (stage, P) not in BUILDS:
-        BUILDS[(stage, P)] = _build.build_stage(stage, P)
-    return BUILDS[(stage, P)]
+    return _build.probe_library("stage", stage, P, fresh)
 
 
 def run_stage(stage: str, seed: int, state, P: int, n_steps: int, sb: int,

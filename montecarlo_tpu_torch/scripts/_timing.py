@@ -1,7 +1,10 @@
-"""Best-of-n timing of a call, on the card with CUDA events."""
+"""Best-of-n timing of a call, on the card with CUDA events; the peak
+device memory of a run."""
 
 from __future__ import annotations
 
+import json
+import sys
 import time
 
 import torch
@@ -34,3 +37,12 @@ def device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "cpu (plain versions)"
+
+
+def log_peak_memory(device: torch.device, what: str) -> None:
+    """On the card, one stderr line with the peak device memory allocated
+    so far in this process (GB) and the card's name."""
+    if device.type == "cuda":
+        print(json.dumps({"peak_device_gb": torch.cuda.max_memory_allocated(
+            device) / 1e9, "of": what, "device": device_name(device)}),
+            file=sys.stderr, flush=True)

@@ -117,7 +117,7 @@ def build(csrc: Path, out_dir: Path, equity_only: bool = False):
             [f"-DMC_SEATS={P}"], out_dir / "p6", csrc)
         paths.append(seat_path)
         seat_lib = _load(seat_path, _build.SEAT_SIGNATURES)
-        stage_libs = {stage: _build.StageBuild(stage, _load(
+        stage_libs = {stage: _build.ProbeBuild(stage, _load(
             _build.compile_library(
                 [csrc / "probe_stages.cu"],
                 [f"-DMC_SEATS={P}", f"-DMC_STAGE=MC_STAGE_{stage.upper()}"],

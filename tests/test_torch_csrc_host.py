@@ -42,6 +42,8 @@ from montecarlo_tpu_torch.ops import cuda_carry as cc
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
 from montecarlo_tpu_torch.ops import cuda_net as cn
+from montecarlo_tpu_torch.ops import cuda_net_split as cns
+from montecarlo_tpu_torch.ops import cuda_split as csp
 from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.ops import evaluator as tev
 from test_torch_philox import PHILOX_KAT
@@ -61,6 +63,8 @@ HARNESS = r"""
 #include "equity.cuh"
 #include "net.cuh"
 #include "probe_carry.cuh"
+#include "probe_net.cuh"
+#include "probe_split.cuh"
 #include "probe_stages.cuh"
 
 typedef std::vector<long long> Out;
@@ -522,6 +526,102 @@ static void engine(const char* mode, const int* in, Out& out) {
         }
       }
       store_rows(s, res, T, t);
+    }
+  } else if (!strcmp(mode, "split")) {
+    // the K4 split in Philox mode (6 seats, reference rules): variant,
+    // seed, n_steps, defer, sb, bb, fold, raise, shared, T, rows; with
+    // shared the cold rows in columns of a block buffer, as the kernel's
+    if constexpr (P == 6 && R == MC_REFERENCE) {
+      int variant = in[0], n_steps = in[2], defer = in[3], sb = in[4],
+          bb = in[5];
+      uint32_t seed = in[1], fold = in[6], raise = in[7];
+      bool shared = in[8];
+      T = in[9];
+      rows = in + 10;
+      res.resize((size_t)F * T);
+      std::vector<int> block((size_t)MCCold<P, R>::N * 64);
+      for (int t = 0; t < T; ++t) {
+        MCPhiloxWords src(seed, (uint32_t)t, 0u, 0u);
+        MCTableLocal<P, R> sl;
+        MCTable<P, R, MCRowsShared<64>> ss;
+        ss.rows.col = block.data() + t % 64;
+        if (shared)
+          load_rows(ss, rows, T, t);
+        else
+          load_rows(sl, rows, T, t);
+        switch (variant) {
+#define MC_SPLIT_CASE(ID)                                                \
+  case ID:                                                               \
+    if (shared)                                                          \
+      mc_split_run<ID>(ss, src, n_steps, defer, sb, bb, fold, raise);    \
+    else                                                                 \
+      mc_split_run<ID>(sl, src, n_steps, defer, sb, bb, fold, raise);    \
+    break;
+          MC_SPLIT_CASE(MC_SPLIT_FULL) MC_SPLIT_CASE(MC_SPLIT_STUB_SETTLE)
+          MC_SPLIT_CASE(MC_SPLIT_STUB_EVAL) MC_SPLIT_CASE(MC_SPLIT_STUB_DEAL)
+          MC_SPLIT_CASE(MC_SPLIT_STUB_POLICY)
+          MC_SPLIT_CASE(MC_SPLIT_STUB_STREET)
+          MC_SPLIT_CASE(MC_SPLIT_SETTLE_COPY)
+          MC_SPLIT_CASE(MC_SPLIT_STREET_COPY)
+#undef MC_SPLIT_CASE
+          default: exit(2);
+        }
+        if (shared)
+          store_rows(ss, res, T, t);
+        else
+          store_rows(sl, res, T, t);
+      }
+    } else {
+      exit(2);
+    }
+  } else if (!strcmp(mode, "net_split")) {
+    // the K6 split's blocks in Philox mode (6 seats, standard rules, one
+    // net): variant, seed, n_steps, defer, sb, bb, ss, net_seats, reset,
+    // fold, raise, T, the weights, rows; the final rows, then the count
+    // of net decisions
+    if constexpr (P == 6 && R == MC_STANDARD) {
+      int variant = in[0], n_steps = in[2], defer = in[3], sb = in[4],
+          bb = in[5], ss = in[6], net_seats = in[7];
+      bool reset = in[8];
+      uint32_t seed = in[1], fold = in[9], raise = in[10];
+      T = in[11];
+      const float* w = as_floats(in + 12);
+      rows = in + 12 + MC_NET_WEIGHTS;
+      res.resize((size_t)F * T);
+      long long n_net = 0;
+      for (int t0 = 0; t0 < T; t0 += MC_NET_THREADS) {
+        Block<MCNetLane<MCTableLocal<P, R>, MCWords>> blk(1, w);
+        for (int t = 0; t < MC_NET_THREADS; ++t) {
+          blk.lanes.emplace_back(MCWords(nullptr, T, t0 + t, seed,
+                                         (uint32_t)(t0 + t), 0u, 0u));
+          load_rows(blk.lanes[t].s, rows, T, t0 + t);
+        }
+        switch (variant) {
+#define MC_NET_SPLIT_CASE(ID)                                            \
+  case ID:                                                               \
+    mc_split_run_net_eval<ID, P, R>(blk.view(), blk.sh, n_steps, defer,  \
+                                    sb, bb, ss, net_seats, reset, fold,  \
+                                    raise, 1, 0ull);                     \
+    break;
+          MC_NET_SPLIT_CASE(MC_NET_SPLIT_FULL)
+          MC_NET_SPLIT_CASE(MC_NET_SPLIT_STUB_GUMBEL)
+          MC_NET_SPLIT_CASE(MC_NET_SPLIT_STUB_FEAT_EVAL)
+          MC_NET_SPLIT_CASE(MC_NET_SPLIT_STUB_FEATURES)
+          MC_NET_SPLIT_CASE(MC_NET_SPLIT_STUB_NET)
+          MC_NET_SPLIT_CASE(MC_NET_SPLIT_FEAT_COPY)
+#undef MC_NET_SPLIT_CASE
+          default: exit(2);
+        }
+        for (int t = 0; t < MC_NET_THREADS; ++t) {
+          store_rows(blk.lanes[t].s, res, T, t0 + t);
+          n_net += blk.lanes[t].n_net;
+        }
+      }
+      out.insert(out.end(), res.begin(), res.end());
+      out.push_back(n_net);
+      return;
+    } else {
+      exit(2);
     }
   } else if (!strcmp(mode, "k5")) {
     // K5's blocks of MC_NET_THREADS tables
@@ -1641,3 +1741,51 @@ def test_net_det_block_buttons_equals_plain(harness, rules):
     weights = cn.bank_weights([panel["jam_tight"], panel["fof_call"]], "cpu")
     _net_det_harness(harness, weights, (0, 1, 1, 1, 1, 1), rules, 6,
                      block_buttons=True)
+
+
+# The splits: K4 and K6 with one piece stubbed (probe_split.cuh,
+# probe_net.cuh), every variant against its plain version.
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("variant", csp.VARIANTS)
+def test_split_device_code_equals_plain(harness, variant, shared):
+    """One table of K4 under each variant (mc_split_run) in Philox mode,
+    from a mid-hand state (pots on the table), the cold rows per thread or
+    in a block's columns, against the plain variant on ops/philox.py's
+    words."""
+    P, n_steps = 6, 64
+    state = _mid_hand_state(P)
+    got = harness("split", [P, 0, csp.VARIANTS.index(variant), 43, n_steps,
+                            ce._defer_for(n_steps), 5, 10, ce.FOLD_P_BITS,
+                            ce.RAISE_P_BITS, int(shared),
+                            ce.TABLES_PER_BLOCK, *_flat(ce._to_rows(state))])
+    want = csp.run_split(variant, 43, state, P, n_steps, 5, 10)
+    _check_rows(got, want, TableConfig(num_seats=P))
+    if variant in ("full", *csp.CONTROLS):
+        assert torch.equal(want, ce.run_perpetual_prng(43, state, P, n_steps,
+                                                       5, 10))
+
+
+@pytest.mark.parametrize("variant", cns.VARIANTS)
+def test_net_split_device_code_equals_plain(harness, es3, variant):
+    """Whole blocks of K6 under each variant (mc_split_run_net_eval) in
+    Philox mode, es3 at seats 0 and 3, against the plain variant: the
+    final state and the count of net decisions."""
+    P, n_steps, net_seats = 6, 32, 0b001001
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = cn.initial_packed_state(8, cfg, ce.TABLES_PER_BLOCK, "cpu")
+    got = harness("net_split", [P, 1, cns.VARIANTS.index(variant), 78,
+                                n_steps, ce._defer_for(n_steps), 5, 10, 100,
+                                net_seats, 1, ce.FOLD_P_BITS,
+                                ce.RAISE_P_BITS, ce.TABLES_PER_BLOCK,
+                                *_weights_as_ints(es3),
+                                *_flat(ce._to_rows(state))])
+    decisions = torch.zeros(1, dtype=torch.int64)
+    want = cns.run_net_split(variant, 78, state, es3, P, n_steps, 5, 10, 100,
+                             net_seats, decisions=decisions)
+    _check_rows(got[:-1], want, cfg)
+    assert got[-1] == int(decisions) > 0
+    if variant in ("full", *cns.CONTROLS):
+        assert torch.equal(want, cn.run_net_eval(78, state, es3, P, n_steps,
+                                                 5, 10, 100, "standard",
+                                                 net_seats))

@@ -14,10 +14,13 @@ from montecarlo_tpu_torch.engine import state as tstate
 from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models import bots
 from montecarlo_tpu_torch.models import policy_net as tpn
+from montecarlo_tpu_torch.ops import _build
 from montecarlo_tpu_torch.ops import cuda_carry as cc
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops import cuda_equity as cq
 from montecarlo_tpu_torch.ops import cuda_net as cn
+from montecarlo_tpu_torch.ops import cuda_net_split as cns
+from montecarlo_tpu_torch.ops import cuda_split as csp
 from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.ops import philox
 from montecarlo_tpu_torch.rollout import equity as teq
@@ -749,6 +752,65 @@ def test_stage_build_and_kernel_equal_plain(cuda, stage):
                                              n_steps, 5, 10))
     assert not torch.equal(k, state)
 
+
+
+@pytest.mark.parametrize("variant", csp.VARIANTS)
+def test_split_build_and_kernel_equal_plain(cuda, variant):
+    """A separate build of each K4 split variant (its id, one kernel in its
+    ptxas report), then the kernel against the plain variant (on the card
+    and on the CPU: integer work alike everywhere), from a mid-hand state;
+    ``full`` and the controls equal K4."""
+    P, n_steps = 6, 64
+    build = _build.probe_library("split", variant, P, fresh=True)
+    assert build.lib.mc_probe_split_id() == csp.VARIANTS.index(variant)
+    assert build.seconds > 0 and build.ptxas["registers"] > 0
+    state = _stage_state(cuda)
+    T = state.shape[0] * ce.TABLES_PER_BLOCK
+    before = csp.LAUNCHES[f"split_{variant}"]
+    k = csp.run_split(variant, 23, state, P, n_steps, 5, 10)
+    assert csp.LAUNCHES[f"split_{variant}"] == before + 1
+    assert torch.equal(k, csp._split_plain(
+        variant, state, lambda it: csp.split_words(
+            23, T, variant, P, n_steps, it, cuda), P, n_steps, 5, 10))
+    assert torch.equal(k.cpu(), csp.run_split(variant, 23, state.cpu(), P,
+                                              n_steps, 5, 10))
+    k4 = ce.run_perpetual_prng(23, state, P, n_steps, 5, 10)
+    assert torch.equal(k, k4) == (variant in ("full", *csp.CONTROLS))
+
+
+@pytest.mark.parametrize("variant", cns.VARIANTS)
+def test_net_split_build_and_kernel_equal_plain(cuda, es3, variant):
+    """Each K6 split variant's build, then its kernel on injected words and
+    in Philox mode against the plain variant on the card (the count of net
+    decisions too); ``full`` and the control equal K6."""
+    P, n_steps, net_seats = 6, 64, 0b100001
+    build = _build.probe_library("net_split", variant, P, fresh=True)
+    assert build.lib.mc_probe_net_split_id() == cns.VARIANTS.index(variant)
+    assert build.ptxas["registers"] > 0
+    cfg = TableConfig(num_seats=P, rules="standard")
+    state = cn.initial_packed_state(4, cfg, 2 * ce.TABLES_PER_BLOCK, cuda)
+    T = state.shape[0] * ce.TABLES_PER_BLOCK
+    g = torch.Generator(device=cuda).manual_seed(len(variant))
+    words = cq.random_words(g, cns.split_words_shape(variant, T, P, n_steps),
+                            cuda)
+    before = cns.LAUNCHES[f"net_split_{variant}"]
+    k = cns.run_net_split(variant, 0, state, es3, P, n_steps, 5, 10, 100,
+                          net_seats, words=words)
+    assert cns.LAUNCHES[f"net_split_{variant}"] == before + 1
+    assert torch.equal(k, cns._split_plain(
+        variant, state, lambda it: words[it], es3, P, n_steps, 5, 10, 100,
+        net_seats))
+    dk = torch.zeros(1, dtype=torch.int64, device=cuda)
+    dp = torch.zeros(1, dtype=torch.int64, device=cuda)
+    k = cns.run_net_split(variant, 31, state, es3, P, n_steps, 5, 10, 100,
+                          net_seats, decisions=dk)
+    p = cns._split_plain(variant, state, lambda it: cns.split_words(
+        31, T, variant, P, n_steps, it, cuda), es3, P, n_steps, 5, 10, 100,
+        net_seats, decisions=dp)
+    assert torch.equal(k, p) and int(dk) == int(dp) > 0
+    k6 = cn.run_net_eval(31, state, es3, P, n_steps, 5, 10, 100, "standard",
+                         net_seats)
+    assert torch.equal(k, k6) == (variant in ("full", *cns.CONTROLS))
 
 def test_exact_range_vs_range_card_equals_cpu(cuda):
     """The exact sweep on the card gives the CPU's integers: the wins and

@@ -125,15 +125,26 @@ MODULES = [
     "montecarlo_tpu_torch.parallel.local",
     "montecarlo_tpu_torch.scripts.run_configs",
     "montecarlo_tpu_torch.scripts.exp_levels_ab",
+    "montecarlo_tpu_torch.ops.cuda_split",
+    "montecarlo_tpu_torch.ops.cuda_net_split",
+    "montecarlo_tpu_torch.scripts.bench",
+    "montecarlo_tpu_torch.scripts.bench_net_throughput",
+    "montecarlo_tpu_torch.scripts.bench_kernel_engine",
+    "montecarlo_tpu_torch.scripts.bench_selfplay",
+    "montecarlo_tpu_torch.scripts.bench_perpetual",
+    "montecarlo_tpu_torch.scripts.exp_step_split",
+    "montecarlo_tpu_torch.scripts.exp_net_split",
 ]
-# The ported training, exploitability and analysis scripts
+# The ported training, exploitability, analysis and measurement scripts
 # (``montecarlo_tpu_torch/scripts/<name>.py`` beside ``scripts/<name>.py``,
-# every function and constant kept).
+# or the root ``bench.py``; every function and constant kept).
 SCRIPTS = ["league_eval", "exploit_probe", "opt_bot", "train_es_kernel",
            "train_policy", "train_br", "exp_leak_anatomy", "fold_gate_check",
            "policy_diff", "make_fold_anchor", "eval_attacker", "train_mix",
            "river_gap", "turn_gap", "distill_nash", "run_configs",
-           "exp_levels_ab"]
+           "exp_levels_ab", "bench_net_throughput", "bench_kernel_engine",
+           "bench_selfplay", "bench_perpetual", "exp_step_split",
+           "exp_net_split", "bench"]
 # Runs the port's CPU path (equity and multiway equity, range equity and
 # push/fold, the table engine's step and host view, self-play under every
 # rule set, a net policy in a duplicate match, the net pipeline's replay,
@@ -209,6 +220,13 @@ out = train_es.train_es(2, es3, eval_pop_fn=pool, generations=1, pop=1)
 assert out.hands_total > 0
 from montecarlo_tpu_torch.scripts import debug_kernel_compile, exp_carry_model
 assert len(exp_carry_model.main(device="cpu", n_blocks=1, n_steps=2)) == 19
+from montecarlo_tpu_torch.ops import cuda_net_split, cuda_split
+st = ce.pack_state(TableConfig(num_seats=6), ce.first_deal(1, 1024, 6, "cpu"))
+assert cuda_split.run_split("stub_eval", 1, st, 6, 16, 5, 10).shape == st.shape
+st = cn.initial_packed_state(1, std, 1024, "cpu")
+w3 = cn.net_weights(es3, "cpu")
+assert cuda_net_split.run_net_split("stub_feat_eval", 1, st, w3, 6, 16, 5, 10,
+                                    100, 1).shape == st.shape
 for stage in debug_kernel_compile.STAGES:
     debug_kernel_compile.compile_variant(stage, 2, 1, device="cpu")
 from montecarlo_tpu_torch.models import train as tr
@@ -308,7 +326,7 @@ def test_ported_modules_hold_every_public_name_of_jax():
     # the ported scripts: every function and constant of the JAX script
     # (its private helpers too: other scripts import them)
     for name in SCRIPTS:
-        path = ROOT / "scripts" / f"{name}.py"
+        path = ROOT / ("bench.py" if name == "bench" else f"scripts/{name}.py")
         ours = importlib.import_module("montecarlo_tpu_torch.scripts." + name)
         tree = ast.parse(path.read_text())
         theirs = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}

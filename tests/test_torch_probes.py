@@ -204,7 +204,7 @@ def test_stage_wrapper_checks_its_inputs():
         cs.run_stage("deal", 0, state, P, 2, 5, 10,
                      words=torch.zeros((2, 3, T), dtype=torch.int64))
     with pytest.raises(ValueError):
-        _build.build_stage("nope")
+        _build.build_probe("stage", "nope")
 
 
 PTXAS = """\
