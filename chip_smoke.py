@@ -59,7 +59,9 @@ Phases (any failure raises and exits non-zero; no phase is caught):
 3. agreement, tolerance 0: every kernel call of phase 1 against its plain
    PyTorch version on the card, on the same inputs at the same size (the
    plain versions compute the kernels' Philox words, ``ops/philox.py``),
-   timed once with CUDA events; K6 and B7 launch by launch; B8 on four of
+   timed once with CUDA events (the engine's and the net kernels' plain
+   versions replay their step or iteration from a CUDA graph of one,
+   ``cuda_engine.plain_loop``); K6 and B7 launch by launch; B8 on four of
    its 32 candidates (the rest equal single K6 launches, phase 2); the
    net's float path (features, logits, Gumbel scores) bit for bit through
    the probe kernel; tournament K3; the first and last K4 launches of the
@@ -95,7 +97,8 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    stage built by its own nvcc (one at a time, in the background from the
    end of phase 0), then 256 steps from the main path's K3 state (mid-hand,
    pots on the table) at the script's 32 blocks and at 1024 blocks; every
-   probe launch held against its plain version, tolerance 0, and timed;
+   probe launch held against its plain version (the stages' graph-replayed
+   step by step), tolerance 0, and timed;
 6. range equity and push/fold (path f, plain PyTorch on the card, no
    kernel of its own; after the probes so that the main paths' numbers
    are taken as before): ``equity_exact_range_vs_range`` of eight hero
@@ -146,7 +149,7 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    one-hand runs at each position weighed by K6's hands there, within 4
    sigma of K6's seat-0 meters; (h6) duplicate matches: the calling
    station against itself exactly 0 and against the half-folder above 0.1
-   bb/hand at 2^20 tables, ``policy_hu_300`` against random over 12 hands
+   bb/hand at 2^20 tables, ``policy_hu_300`` against random over 6 hands
    at 2^18 tables with a 95% interval above 0, negated exactly by the
    swap. It logs each gate's numbers, each self-play form's time (CUDA
    events), each part's seconds and the peak memory;
@@ -239,7 +242,7 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    default ``bets_impl="layers"`` (every earlier path passes
    ``"levels"``). (m1) the ported ``exp_levels_ab`` at 2^20 6-max tables
    x 128 steps of ``play_hands_perpetual`` in each form (L = 8, PL = 16,
-   reference rules), a warm-up and the best of 2 (CUDA events): overflow
+   reference rules), a warm-up and one timed run (CUDA events): overflow
    0, equal hand counts, the layers run's final state equal to the
    levels run's under ``bets_as_layers`` field by field; (m2) the layers
    engine on phase 1's injected stream (2^20 x 64) against K3 relaunched
@@ -275,6 +278,26 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    every timed output equal bit for bit to its plain version on the same
    inputs, ``full``'s and the controls' to one K4 / K6 launch, and its
    row in the ``kernels`` line (error and plain ms from that check).
+15. the last ported scripts (path o, after path n): (o1) K1's variants
+   (B-6, ``scripts/bench_kernel_variants``: ``current``, ``ms16``,
+   ``ms16_packed``, ``old_packed``, ``ms16_noeval``, ``old_sampler``,
+   ``two_noreject``, ``fallback_word``, ``ref_eval``,
+   ``old_sampler_ref_eval``, ``no_eval``, ``one_eval``), each built by its
+   own nvcc in the background from the end of phase 0, each equal to its
+   plain version on 2^16 injected words (2% in the top range) and at 2^20
+   Philox rollouts; then the script at its 2^29 rollouts and two launch
+   shapes beside K1's 256x16 (a warm-up and the best of 3, CUDA events),
+   the counters reset just before and read just after: the classes that
+   compute the same function count alike, every exact-class variant
+   within 4 sigma of the exact AKs vs QQ equity, and its row in the
+   ``kernels`` line; (o2) ``exp_net_grid`` at its sizes (K6 and K4, both
+   rule sets, 2^16-2^20 tables x 512 slots); (o3) ``bench_step_parts``
+   (every kind and ablation) and ``exp_hands_levers`` on the plain engine
+   at cut sizes, no kernel launched, no table overflowed; (o4)
+   ``check_pop_kernel`` (B8's candidates equal single K6 launches, state
+   and meters), ``check_league_routing`` (the bank routing by its margin)
+   and ``eval_net_kernel`` (trained above untrained by 2 sigma each); (o5)
+   ``validate_tpu`` in a process of its own, exit 0.
 
 Each phase's host seconds are logged, and the run's total before the
 result lines. The second-to-last line is ``{"kernels": [...]}``; the last
@@ -442,11 +465,13 @@ L_TOUR_TABLES, L_TOUR_HANDS = 1 << 12, 4
 L_DP_TABLES, L_DP_SEEDS, L_DP_TOL = 256, (1,), 1e-6
 L_TURN_ITERATIONS = 300
 # Path m (the layers street form): the A/B's runs after its warm-up (the
-# JAX script's best of 3 cut to 2; its 2^20 tables x 128 steps uncut), the
+# JAX script's best of 3 cut to 1 to pay for path o: its gates, equal
+# hands and final states, do not read the time; its 2^20 tables x 128
+# steps uncut), the
 # rule sets of the K3 comparison, the zero-chip blinds and their run (2^20
 # tables x 64 steps, the first DECK_CPU_TABLES against the CPU), the
 # checkpoint's tables and its steps before the save and after the load
-M_AB_RUNS = 2
+M_AB_RUNS = 1
 M_K3_RULES = ("reference", "standard")
 M_ZERO_BLINDS = ((0, 10), (0, 0))
 M_ZERO_TABLES, M_ZERO_STEPS = 1 << 20, 64
@@ -459,6 +484,26 @@ M_CKPT_TABLES, M_CKPT_STEPS = 1 << 16, (16, 16)
 N_CHECK_STEPS = 64
 N_NET_SEATS = 1
 N_BUILDERS = 3
+# Path o (the last ported scripts): B-6's check against the plain versions
+# (injected words with 2% in the top range, and Philox rollouts at K1's
+# 256x16 launch, ~5 trips of the grid-stride loop a thread; the timing
+# runs bench_kernel_variants at its --n 2^29, each output then held
+# against a launch at 256 threads x O_RESHAPE_WAVES, ~165 x 16 trips a
+# thread, and current's against K1), the two launch shapes timed beside
+# K1's 256x16, and the cuts of the plain engine's
+# ablations: bench_step_parts at 2^18 tables x 8 steps (its 2^20 x 64
+# cut, host-bound at ~30-50 ns a table-step: 12 kinds x 4 runs would take
+# minutes) and exp_hands_levers at 2^18 tables x 8 steps (its 2^20 x
+# 128), each a warm-up and one timed run (the scripts' best of 3); the
+# other scripts run at their own sizes.
+O_INJECT = 1 << 16
+O_PHILOX = 1 << 24
+O_RESHAPE_WAVES = 1
+O_TILES = "512x16,256x64"
+O_STEP_PARTS = (1 << 18, 8)
+O_LEVERS = (1 << 18, 8)
+O_RUNS = 1
+O_VALIDATE_TIMEOUT = 600
 
 
 # Rollouts per chunk of a plain version on the card.
@@ -1439,16 +1484,23 @@ def path_m(dev, smi, phase1):
 
 
 def start_split_builds():
-    """Each K4 and K6 split variant's nvcc, in the background, N_BUILDERS
-    at a time: (the pool, a future per (probe, variant))."""
+    """Each K4 and K6 split variant's nvcc and each of K1's variants' (B-6),
+    in the background, N_BUILDERS at a time: (the pool, a future per
+    (probe, variant)). Path n takes the splits' and path o K1's, and shuts
+    the pool down."""
     from montecarlo_tpu_torch.ops import _build
+    from montecarlo_tpu_torch.ops import cuda_k1_variants as kv
     from montecarlo_tpu_torch.ops import cuda_net_split as cns
     from montecarlo_tpu_torch.ops import cuda_split as csp
 
+    from montecarlo_tpu_torch.scripts import bench_kernel_variants as bkv
+
     pool = ThreadPoolExecutor(N_BUILDERS)
     jobs = {(probe, v): pool.submit(_build.probe_library, probe, v, 6, True)
-            for probe, mod in (("split", csp), ("net_split", cns))
+            for probe, mod in (("split", csp), ("net_split", cns), ("k1", kv))
             for v in mod.VARIANTS}
+    jobs["k1 tiles", bkv.TILE_VARIANT] = pool.submit(
+        _build.probe_library, "k1", bkv.TILE_VARIANT, 6, True, True)
     return pool, jobs
 
 
@@ -1540,9 +1592,9 @@ def path_n(dev, smi, phase1, split_builds):
     # (n2) the splits: builds, checks at one block, timing at full size and
     # the check of the timed outputs
     t0 = time.perf_counter()
-    pool, jobs = split_builds
-    builds = {key: job.result() for key, job in jobs.items()}
-    pool.shutdown()
+    _, jobs = split_builds
+    builds = {key: job.result() for key, job in jobs.items()
+              if key[0] != "k1"}
     for (probe, v), b in builds.items():
         log(f"{probe} {v}: nvcc {b.seconds:.2f} s (its own build), "
             f"ptxas {b.ptxas}")
@@ -1558,52 +1610,18 @@ def path_n(dev, smi, phase1, split_builds):
     def split_plain(probe, v, state, seed, n_steps, decisions=None):
         """The plain version of split variant ``v`` on ``state`` with the
         kernel's Philox words: (its output, its ms). It is launch-bound
-        (~1,000 small kernels a slot), so its first iteration is captured
-        as a CUDA graph on static fields and words and replayed once an
-        iteration on each iteration's words: the same kernels on the same
-        inputs, with no host work between them. A control's plain version
+        (~1,000 small kernels a slot), so its iterations are replayed from
+        a CUDA graph of one (``ce.plain_loop``). A control's plain version
         is ``full``'s (nothing stubbed)."""
         T = state.shape[0] * T1
-        defer = ce._defer_for(n_steps)
         if probe == "split":
-            rules, words_of = "reference", lambda it: csp.split_words(
-                seed, T, v, P, n_steps, it, dev)
-
-            def iteration(st, words, dec):
-                return csp._split_iteration(v, st, words, P, defer, sb, bb)
-        else:
-            rules, words_of = "standard", lambda it: cns.split_words(
-                seed, T, v, P, n_steps, it, dev)
-
-            def iteration(st, words, dec):
-                return cns._split_iteration(v, st, words, w_net, P, defer,
-                                            sb, bb, ss, N_NET_SEATS, True,
-                                            dec)
-
-        def run():
-            layout, _ = ce._field_layout(P, rules)
-            st = {k: x.clone() for k, x in
-                  ce._unpack(ce._to_rows(state), layout).items()}
-            words = words_of(0).clone()
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):  # a warm-up, as capture asks
-                iteration({k: x.clone() for k, x in st.items()}, words,
-                          torch.zeros(1, dtype=torch.int64, device=dev))
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                new = iteration(st, words, decisions)
-                new = {k: new[k].clone() for k in st}
-                for k, x in st.items():
-                    x.copy_(new[k])
-            for it in range(n_steps // defer):
-                words.copy_(words_of(it))
-                graph.replay()
-            out = ce._to_blocks(ce._pack(st, layout))
-            del graph, new
-            return out
-        return timed(run)
+            return timed(lambda: csp._split_plain(
+                v, state, lambda it: csp.split_words(
+                    seed, T, v, P, n_steps, it, dev), P, n_steps, sb, bb))
+        return timed(lambda: cns._split_plain(
+            v, state, lambda it: cns.split_words(
+                seed, T, v, P, n_steps, it, dev), w_net, P, n_steps, sb, bb,
+            ss, N_NET_SEATS, True, decisions))
 
     def check_variants(where, probe, mod, state, seed, n_steps, whole,
                        kernel_out):
@@ -1755,6 +1773,245 @@ def path_n(dev, smi, phase1, split_builds):
     del state4, state6
     n_s["path"] = time.perf_counter() - t_n
     return nres, n_s, n1_launches, rows
+
+
+def path_o(dev, smi, split_builds, exact_equity):
+    """Path o (phase 15): the last ported scripts. (o1) K1's variants
+    (B-6, ``scripts/bench_kernel_variants``): each build (from phase 0,
+    ``split_builds``) equal to its plain version on O_INJECT injected words
+    (2% in the top range) and at O_PHILOX Philox rollouts at K1's launch
+    shape (more than 4 trips of the grid-stride loop a thread); then the
+    script at its full --n 2^29 and at the tiles O_TILES beside K1's, the
+    counters reset just before and read just after: every run of a variant
+    alike, the equal-count classes equal, ``current`` equal to one K1
+    launch, each variant's timed counts equal to its launch at 256 threads
+    x O_RESHAPE_WAVES (another thread for each rollout), every exact-class
+    variant within 4 sigma of ``exact_equity``; (o2)
+    ``exp_net_grid`` at its sizes; (o3) ``bench_step_parts`` and
+    ``exp_hands_levers`` at their cuts (O_STEP_PARTS, O_LEVERS; no kernel,
+    no overflow at the 6-layer caps); (o4) ``check_pop_kernel`` (exact),
+    ``check_league_routing`` (its margin) and ``eval_net_kernel`` (the
+    trained net above the untrained one by 2 sigma each); (o5)
+    ``validate_tpu`` in a process of its own, exit 0. Returns (the
+    results, each part's seconds, the launches by kernel key of o1's
+    timed runs, B-6's rows of the ``kernels`` line)."""
+    import torch
+
+    from montecarlo_tpu_torch.ops import cuda_carry as cc
+    from montecarlo_tpu_torch.ops import cuda_engine as ce
+    from montecarlo_tpu_torch.ops import cuda_equity as cq
+    from montecarlo_tpu_torch.ops import cuda_k1_variants as kv
+    from montecarlo_tpu_torch.ops import cuda_net as cn
+    from montecarlo_tpu_torch.ops import cuda_net_split as cns
+    from montecarlo_tpu_torch.ops import cuda_split as csp
+    from montecarlo_tpu_torch.ops import cuda_stages as cs
+    from montecarlo_tpu_torch.ops import philox
+    from montecarlo_tpu_torch.rollout import equity as teq
+    from montecarlo_tpu_torch.scripts import bench_kernel_variants as bkv
+    from montecarlo_tpu_torch.scripts import bench_step_parts as bsp
+    from montecarlo_tpu_torch.scripts import check_league_routing as clr
+    from montecarlo_tpu_torch.scripts import check_pop_kernel as cpk
+    from montecarlo_tpu_torch.scripts import eval_net_kernel as enk
+    from montecarlo_tpu_torch.scripts import exp_hands_levers as ehl
+    from montecarlo_tpu_torch.scripts import exp_net_grid as eng
+
+    mods = (cq, ce, cn, cc, cs, philox, csp, cns, kv)
+
+    def reset():
+        for mod in mods:
+            mod.reset_launches()
+
+    def counts():
+        return {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    o_s, ores, t_o = {}, {}, time.perf_counter()
+
+    def done(name, t0):
+        torch.cuda.synchronize(dev)
+        o_s[name] = time.perf_counter() - t0
+        log(f"path {name}: {o_s[name]:.2f} s")
+
+    # (o1) B-6: the builds, each variant against its plain version
+    t0 = time.perf_counter()
+    pool, jobs = split_builds
+    builds = {v: jobs["k1", v].result() for v in kv.VARIANTS}
+    tiles_build = jobs["k1 tiles", bkv.TILE_VARIANT].result()
+    pool.shutdown()
+    for v, b in builds.items():
+        log(f"k1 {v}: nvcc {b.seconds:.2f} s (its own build), ptxas "
+            f"{b.ptxas}")
+    log(f"k1 {bkv.TILE_VARIANT} tile build: nvcc {tiles_build.seconds:.2f} "
+        f"s, ptxas at 256 threads {tiles_build.ptxas}")
+    aks = [teq.make_card(0, 14), teq.make_card(0, 13)]
+    qq = [teq.make_card(1, 12), teq.make_card(2, 12)]
+    dead, hm, vm = cq._hand_masks(aks, qq, (), dev)
+    args = (dead.tolist(), hm.tolist(), vm.tolist())
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    check_err, check_ms = {}, {}
+    for v in kv.VARIANTS:
+        words = cq.random_words(g, (kv.n_words(v), O_INJECT), dev)
+        top = torch.rand(words.shape, generator=g, device=dev) < 0.02
+        words = torch.where(top, (1 << 32) - 1, words)
+        k = kv.variant_counts(v, 0, dead, hm, vm, O_INJECT, words=words)
+        p = kv._variant_counts_plain(v, words, *args)
+        e1 = float((k - p).abs().max())
+        blocks, _ = kv.variant_grid(v, O_PHILOX)
+        trips = O_PHILOX / (blocks * kv.TILE[0])
+        check(trips > 4, f"path o1 {v}: {trips:.2f} trips of the loop a "
+              f"thread at {O_PHILOX} rollouts")
+        k = kv.variant_counts(v, SEED, dead, hm, vm, O_PHILOX)
+        p, check_ms[v] = timed(lambda: kv._variant_counts_plain_philox(
+            v, SEED, *args, O_PHILOX, dev, chunk=PLAIN_CHUNK))
+        check_err[v] = max(e1, float((k - p).abs().max()))
+        log(f"path o1 {v}: kernel == plain on {O_INJECT} injected words "
+            f"and {O_PHILOX} Philox rollouts at 256x16 ({blocks} blocks, "
+            f"{trips:.2f} rollouts a thread; {k.tolist()}), max |kernel - "
+            f"plain| {check_err[v]}, plain {check_ms[v]:.3f} ms")
+        check(check_err[v] == 0, f"path o1 {v}: kernel equals its plain "
+              f"version")
+    done("o1 checks", t0)
+
+    # the script's run at its --n, the counters reset just before
+    t0 = time.perf_counter()
+    reset()
+    o1 = bkv.main(["--tiles", O_TILES])
+    o1_launches = counts()
+    check(set(o1_launches) == {f"k1_{v}" for v in kv.VARIANTS},
+          f"path o1: every variant launched, nothing else ({o1_launches})")
+    for label, r in o1["runs"].items():
+        check(r["runs_agree"], f"path o1 {label}: every run counts alike")
+    for labels, ok in o1["classes"]:
+        check(ok, f"path o1: {labels} count alike at 2^29")
+    # the timed counts against K1 and against another launch shape
+    cur = o1["runs"]["current"]
+    k1 = cq.equity_counts(bkv.SEED, dead, hm, vm, cur["n"]).tolist()
+    k1_err = max(abs(a - b) for a, b in zip(k1, (cur["wins"],
+                                                cur["ties"])))
+    log(f"path o1: current at 2^29 {cur['wins'], cur['ties']}, K1 {k1}")
+    check(k1_err == 0, "path o1: current's 2^29 counts equal K1's")
+    check_err["current"] = max(check_err["current"], k1_err)
+    for v in kv.VARIANTS:
+        r = o1["runs"][v]
+        tile = (kv.TILE[0], O_RESHAPE_WAVES)
+        k = kv.variant_counts(v, bkv.SEED, dead, hm, vm, r["n"],
+                              tile=tile).tolist()
+        blocks, _ = kv.variant_grid(v, r["n"], tile)
+        log(f"path o1 {v}: 2^29 at 256x16 {r['wins'], r['ties']}, at "
+            f"256x{O_RESHAPE_WAVES} ({blocks} blocks) {k}")
+        check(k == [r["wins"], r["ties"]], f"path o1 {v}: its 2^29 counts "
+              f"do not depend on the launch shape")
+    for label, r in o1["runs"].items():
+        exact = r["variant"] in kv.EXACT_CLASS  # the stubs' eq is no equity
+        z = (r["eq"] - exact_equity) / r["stderr"] if exact else None
+        log(f"path o1 {label}: {r['grollouts_per_s']:.4f} Grollouts/s, "
+            f"{r['ms']:.3f} ms, eq {r['eq']:.6f} (z {z} against exact "
+            f"{exact_equity:.6f}), {r.get('blocks')} blocks, "
+            f"{r.get('blocks_per_sm')} an SM")
+        if exact:
+            check(abs(z) < 4, f"path o1 {label}: within 4 sigma of exact")
+    base = o1["runs"]["current"]["ms"]
+    for label, r in o1["runs"].items():
+        log(f"path o1 {label}: {r['ms'] / base:.4f} of current's time")
+    ores["o1"] = o1
+    done("o1 timing", t0)
+
+    # (o2) exp_net_grid at its sizes
+    t0 = time.perf_counter()
+    reset()
+    o2 = eng.main([])
+    o2_launches = counts()
+    check(list(o2) == eng.keys() and all(v > 0 for v in o2.values()),
+          "path o2: every key of exp_net_grid timed")
+    check(set(o2_launches) == {f"net_eval_{r}" for r in eng.RULES}
+          | {f"engine_prng_{r}" for r in eng.RULES},
+          f"path o2: K6 and K4 launched, nothing else ({o2_launches})")
+    ores["o2"] = o2
+    done("o2", t0)
+
+    # (o3) the plain engine's ablations, cut
+    t0 = time.perf_counter()
+    reset()
+    T, S = O_STEP_PARTS
+    o3a = bsp.main(["--tables", str(T), "--steps", str(S), "--runs",
+                    str(O_RUNS), "--kinds", ",".join(bsp.KINDS
+                                                     + bsp.ABLATIONS)])
+    T, S = O_LEVERS
+    o3b = ehl.main(["--tables", str(T), "--steps", str(S), "--runs",
+                    str(O_RUNS)])
+    check(not counts(), f"path o3: the plain engine launches no kernel "
+          f"({counts()})")
+    check(all(r["overflowed"] == 0 for r in o3b.values()),
+          "path o3: no table overflowed, the 6-layer caps included")
+    ores["o3"] = {"bench_step_parts": o3a, "exp_hands_levers": o3b}
+    done("o3", t0)
+
+    # (o4) the on-card checks
+    t0 = time.perf_counter()
+    o4a = cpk.main([])
+    check(o4a["ok"], "path o4: B8's candidates equal single K6 launches, "
+          "state and meters, bit for bit")
+    o4b = clr.main([])
+    check(o4b["ok"], "path o4: bank routing by the script's margin")
+    o4c = enk.main([])
+    tr, un = o4c["trained"], o4c["untrained"]
+    check(all(r["hands"] > 0 and abs(sum(r["per_seat_bb"])) < 1e-9
+              for r in (tr, un)), "path o4: eval_net_kernel zero-sum meters")
+    check(tr["seat0_bb_per_hand"] - 2 * tr["seat0_stderr"]
+          > un["seat0_bb_per_hand"] + 2 * un["seat0_stderr"],
+          "path o4: the trained net beats the untrained one by 2 sigma each")
+    ores["o4"] = {"check_pop_kernel": o4a, "check_league_routing": o4b,
+                  "eval_net_kernel": o4c}
+    done("o4", t0)
+
+    # (o5) validate_tpu, as a user runs it
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "montecarlo_tpu_torch.scripts.validate_tpu"],
+        cwd=ROOT, capture_output=True, text=True,
+        timeout=O_VALIDATE_TIMEOUT)
+    log(f"path o5: validate_tpu exit {run.returncode}\n{run.stdout}"
+        f"{run.stderr[-4000:]}")
+    check(run.returncode == 0, "path o5: validate_tpu exits 0")
+    ores["o5"] = [json.loads(x) for x in run.stdout.splitlines()
+                  if x.startswith("{")]
+    done("o5", t0)
+
+    # the kernels line's rows: the bound counts the variant's Philox blocks
+    # and hand keys (K1's row counts two of each a rollout), the draws'
+    # operations left out as K1's are
+    rows = []
+    for v in kv.VARIANTS:
+        r = o1["runs"][v]
+        key = kv.SPEC[v][2]
+        keys = {"rank7": 2, "ref": 2, "one": 1, "none": 0}[key]
+        ops = r["n"] * (-(-kv.n_words(v) // 4) * OPS["philox_block"]
+                        + keys * OPS["hand_key"])
+        b_ms, b_by = bound(0, ops)
+        sampler, masks, _ = kv.SPEC[v]
+        rows.append({
+            "name": f"B-6 K1 variant {v} ({sampler}, {masks}, {key}; "
+                    f"2^29 rollouts, 256x16)",
+            "route": "cuda", "source": "montecarlo_tpu_torch/csrc/"
+                                       "probe_k1.cu",
+            "replaces": "scripts/bench_kernel_variants.py:137",
+            "launches": o1_launches.get(f"k1_{v}", 0),
+            "max_abs_err": check_err[v],
+            "ms": r["ms"], "plain_ms": check_ms[v], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "work": r["n"],
+            "unit": "rollouts", "plain_work": O_PHILOX,
+            "ptxas": builds[v].ptxas})
+    log(json.dumps({"path_o_kernels": rows, "card": smi}))
+    o_s["path"] = time.perf_counter() - t_o
+    return ores, o_s, o1_launches, rows
 
 
 def main() -> int:
@@ -2387,6 +2644,10 @@ def main() -> int:
     phase_done("2 results")
 
     # ---- 3. agreement: each kernel call against its plain version -------
+    # The engine's and the net kernels' plain versions are launch-bound
+    # loops of small kernels: on the card each replays its step (or
+    # iteration) from a CUDA graph of one (ce.plain_loop), the same kernels
+    # on the same inputs.
     err, plain_ms = {}, {}
 
     def agree(key, what, kernel_out, plain_out):
@@ -4257,6 +4518,17 @@ def main() -> int:
                     "path_n1_launches": n1_launches, "card": smi},
                    default=float))
     phase_done("14 measurement entry points")
+
+    # ---- 15. the last ported scripts (path o) -------------------------------
+    # K1's variants (B-6) against their plain versions and timed at the
+    # script's 2^29; exp_net_grid; the plain engine's ablations, cut; the
+    # on-card checks; validate_tpu in a process of its own
+    ores, o_s, o1_launches, k1_rows = path_o(dev, smi, split_builds,
+                                             exact_pre.equity)
+    log(json.dumps({"path_o": ores, "path_o_seconds": o_s,
+                    "path_o1_launches": o1_launches, "card": smi},
+                   default=float))
+    phase_done("15 last ported scripts")
     log(f"run: {time.perf_counter() - t_start:.1f} s in main() "
         f"({ {k: round(v, 1) for k, v in phase_s.items()} })")
 
@@ -4313,7 +4585,7 @@ def main() -> int:
         "bound_by": bounds[key][1], "library_ms": library.get(key),
         "work": work[key][0], "unit": work[key][1],
         "plain_work": plain_work.get(key, work[key][0]),
-    } for key, name, source, replaces in meta] + split_rows
+    } for key, name, source, replaces in meta] + split_rows + k1_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

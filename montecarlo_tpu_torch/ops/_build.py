@@ -15,13 +15,16 @@ plain C interface, which ``ctypes`` loads:
 - ``build_probe(probe, variant)``: a probe built once per variant, one
   nvcc with ``-D<define>=<DEFINE>_<VARIANT>`` (``PROBES``): the stage
   probe (``probe_stages.cu``, one stage of the engine's step body), the
-  K4 split (``probe_split.cu``, K4 with one piece stubbed) and the K6
+  K4 split (``probe_split.cu``, K4 with one piece stubbed), the K6
   split (``probe_net.cu``, K6 with one piece of the net decision
-  stubbed). Its build is the measurement, so it is never cached on disk:
-  every call compiles afresh, and reports the seconds and ptxas's
-  registers, stack frame and spills of the variant's kernel;
-  ``probe_library`` keeps a process's builds, ``build_probes`` compiles
-  several variants at once.
+  stubbed) and K1's variants (``probe_k1.cu``, K1 with its sampler, suit
+  masks or hand key swapped; ``tiles=True`` adds the block sizes other
+  than K1's, ``-D<tiles define>=1``). Its build is the measurement, so
+  it is never cached on disk: every call compiles afresh, and reports the
+  seconds and ptxas's registers, stack frame and spills of the variant's
+  kernel;
+  ``probe_library`` keeps a process's builds (``probe_built`` says whether
+  it has one), ``build_probes`` compiles several variants at once.
 
 The probes (``PROBE_SOURCES``) stay out of the other libraries, so they add
 nothing to the main path's build. A library other than a stage's is built
@@ -56,12 +59,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SEAT_SOURCES = ("engine.cu", "net.cu")
 PROBE_SOURCES = ("probe_carry.cu", "probe_stages.cu", "probe_split.cu",
-                 "probe_net.cu")
+                 "probe_net.cu", "probe_k1.cu")
 STAGES = ("carry", "policy", "street", "deal", "settle", "full")
 SPLITS = ("full", "stub_settle", "stub_eval", "stub_deal", "stub_policy",
           "stub_street", "settle_copy", "street_copy")
 NET_SPLITS = ("full", "stub_gumbel", "stub_feat_eval", "stub_features",
               "stub_net", "feat_copy")
+# K1's variants, in the order of scripts/bench_kernel_variants.py's table.
+K1_VARIANTS = ("current", "ms16", "ms16_packed", "old_packed", "ms16_noeval",
+               "old_sampler", "two_noreject", "fallback_word", "ref_eval",
+               "old_sampler_ref_eval", "no_eval", "one_eval")
 MIN_SEATS, MAX_SEATS = 2, 10
 
 P_ = ctypes.c_void_p
@@ -102,23 +109,31 @@ NET_SPLIT_SIGNATURES = {
                            I_, I_, I_, I_, ULL_, P_, P_],
     "mc_probe_net_split_id": [],
 }
+K1_SIGNATURES = {
+    "mc_probe_k1": [I_, P_, I_, LL_, P_, I_, I_, P_, P_, P_],
+    "mc_probe_k1_grid": [LL_, I_, I_, I_, P_],
+    "mc_probe_k1_id": [],
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class Probe:
     """A probe built once per variant: its source, the define that picks
     the variant (``-D<define>=<define>_<VARIANT>``), the variants in the
-    order of their ids, the C entries, and what marks its measured kernel
-    in the ptxas report (every part of the mangled name)."""
+    order of their ids, the C entries, what marks its measured kernel in
+    the ptxas report (every part of the mangled name), and the define of
+    its tile build (``-D<tiles>=1``: more launch shapes), if it has one."""
     source: str
     define: str
     variants: tuple
     signatures: dict
     kernel: tuple
+    tiles: str | None = None
 
 
 # The stage probe's measured kernel is its Philox instantiation (INJECT
-# false); the splits build one kernel each.
+# false); the splits build one kernel each; K1's variants K1's launch
+# shape (Philox, 256 threads a block).
 PROBES = {
     "stage": Probe("probe_stages.cu", "MC_STAGE", STAGES, STAGE_SIGNATURES,
                    ("mc_stage_kernel", "Lb0E")),
@@ -126,6 +141,8 @@ PROBES = {
                    ("mc_split_kernel",)),
     "net_split": Probe("probe_net.cu", "MC_NET_SPLIT", NET_SPLITS,
                        NET_SPLIT_SIGNATURES, ("mc_split_net_kernel",)),
+    "k1": Probe("probe_k1.cu", "MC_K1_VARIANT", K1_VARIANTS, K1_SIGNATURES,
+                ("mc_k1_variant_kernel", "Lb0ELi256E"), "MC_K1_TILES"),
 }
 
 
@@ -260,27 +277,33 @@ class ProbeBuild:
     ptxas: dict
 
 
-def build_probe(probe: str, variant: str, seats: int = 6) -> ProbeBuild:
+def build_probe(probe: str, variant: str, seats: int = 6,
+                tiles: bool = False) -> ProbeBuild:
     """Compile probe ``probe`` (a key of ``PROBES``) for ``variant`` and
-    ``seats``, afresh: one nvcc (compile and link) into a new temporary
-    directory under ``_build/<hash>/<probe>s/``, so the seconds are a real
-    compile of that variant alone. Raises when nvcc fails, ptxas reports
-    no kernel or the library reports another variant."""
+    ``seats`` (``tiles``: its tile build), afresh: one nvcc (compile and
+    link) into a new temporary directory under ``_build/<hash>/<probe>s/``,
+    so the seconds are a real compile of that variant alone. Raises when
+    nvcc fails, ptxas reports no kernel or the library reports another
+    variant."""
     spec = PROBES[probe]
     if variant not in spec.variants:
         raise ValueError(f"{probe} {variant!r}: expected one of "
                          f"{spec.variants}")
+    if tiles and spec.tiles is None:
+        raise ValueError(f"{probe} has no tile build")
     _check_seats(seats)
     nvcc = find_nvcc()
     parent = BUILD / sources_hash() / f"{probe}s"
     parent.mkdir(parents=True, exist_ok=True)
-    out_dir = Path(tempfile.mkdtemp(prefix=f"{variant}-p{seats}-",
-                                    dir=parent))
+    out_dir = Path(tempfile.mkdtemp(
+        prefix=f"{variant}-p{seats}{'-tiles' if tiles else ''}-",
+        dir=parent))
     lib_path = out_dir / LIB_NAME
     t0 = time.perf_counter()
     run = subprocess.run(
         [nvcc, *NVCC_FLAGS, f"-DMC_SEATS={seats}",
-         f"-D{spec.define}={spec.define}_{variant.upper()}", "-I", str(CSRC),
+         f"-D{spec.define}={spec.define}_{variant.upper()}",
+         *([f"-D{spec.tiles}=1"] if tiles else []), "-I", str(CSRC),
          "-shared", str(CSRC / spec.source), "-o", str(lib_path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0
@@ -300,30 +323,39 @@ def build_probe(probe: str, variant: str, seats: int = 6) -> ProbeBuild:
     return ProbeBuild(variant, lib, seconds, next(iter(report.values())))
 
 
-# The probes' builds made in this process, by (probe, variant, seats).
+# The probes' builds made in this process, by (probe, variant, seats,
+# tiles).
 _PROBE_BUILDS: dict = {}
 
 
 def probe_library(probe: str, variant: str, seats: int = 6,
-                  fresh: bool = False) -> ProbeBuild:
-    """The ``ProbeBuild`` of ``variant`` of ``probe`` at ``seats``: built
-    (nvcc, afresh) on the first call or when ``fresh``, else the build
-    made before in this process."""
-    key = (probe, variant, seats)
+                  fresh: bool = False, tiles: bool = False) -> ProbeBuild:
+    """The ``ProbeBuild`` of ``variant`` of ``probe`` at ``seats`` (its
+    tile build when ``tiles``): built (nvcc, afresh) on the first call or
+    when ``fresh``, else the build made before in this process."""
+    key = (probe, variant, seats, tiles)
     if fresh or key not in _PROBE_BUILDS:
-        _PROBE_BUILDS[key] = build_probe(probe, variant, seats)
+        _PROBE_BUILDS[key] = build_probe(probe, variant, seats, tiles)
     return _PROBE_BUILDS[key]
 
 
+def probe_built(probe: str, variant: str, seats: int = 6,
+                tiles: bool = False) -> bool:
+    """Whether this process has built ``variant`` of ``probe`` at
+    ``seats`` (its tile build when ``tiles``)."""
+    return (probe, variant, seats, tiles) in _PROBE_BUILDS
+
+
 def build_probes(probe: str, variants, seats: int = 6,
-                 workers: int | None = None) -> dict:
-    """``probe_library(..., fresh=True)`` of each of ``variants``, one nvcc
-    each, ``workers`` at a time (all at once by default): variant ->
-    ``ProbeBuild``."""
-    with ThreadPoolExecutor(workers or len(variants)) as pool:
-        return dict(zip(variants, pool.map(
-            lambda v: probe_library(probe, v, seats, fresh=True),
-            variants)))
+                 workers: int | None = None, tiles=()) -> dict:
+    """``probe_library(..., fresh=True)`` of each of ``variants``, and the
+    tile build of each of ``tiles``, one nvcc each, ``workers`` at a time
+    (all at once by default): variant -> ``ProbeBuild`` of ``variants``."""
+    jobs = [(v, False) for v in variants] + [(v, True) for v in tiles]
+    with ThreadPoolExecutor(workers or len(jobs)) as pool:
+        builds = list(pool.map(lambda j: probe_library(
+            probe, j[0], seats, fresh=True, tiles=j[1]), jobs))
+    return dict(zip(variants, builds))
 
 
 _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "

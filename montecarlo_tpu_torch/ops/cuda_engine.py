@@ -25,7 +25,11 @@ K4 until every table has frozen and ``tournament_results`` ranks the seats.
 The plain versions ``_run_det_plain`` / ``_run_prng_plain`` translate the
 JAX device functions onto ``[rows, tables]`` tensors (tables on the last
 axis). A wrapper runs them only for CPU tensors; for a CUDA tensor it
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches.
+launches the kernel or raises. ``LAUNCHES`` counts kernel launches. The
+plain versions' loops (here and in ``cuda_net``, ``cuda_stages`` and the
+splits) run through ``plain_loop``: eager on the CPU, and on the card
+replayed from a CUDA graph of one step (eager, those loops are
+launch-bound).
 
 The hooks of the splits. Eight keyword arguments of plain functions let
 the splits' plain versions (``ops/cuda_split.py``, ``ops/cuda_net_split.py``)
@@ -651,6 +655,48 @@ def _stash_deal(stash, hand_ct):
                         .expand(1, nc, T))[0]
 
 
+# Whether plain_loop replays a CUDA graph on the card (the card tests set
+# it false to hold the replay against the eager loop).
+_GRAPH_ON_CARD = True
+
+
+def replays(st, n) -> bool:
+    """Whether ``plain_loop`` replays a graph for ``n`` steps on the fields
+    ``st``: on the card, past one step."""
+    return _GRAPH_ON_CARD and n > 1 and next(iter(st.values())).is_cuda
+
+
+def plain_loop(st, step, inputs_of, n):
+    """``n`` applications of ``st = step(st, *inputs_of(i))`` on the fields
+    ``st`` (a dict of tensors): the loop of the plain versions. Where
+    ``replays``, step 0 runs eagerly (the warm-up) and steps 1 .. n-1 are
+    replayed from a CUDA graph of one step, captured on static copies of
+    the fields and of the step's inputs (which are copied in before each
+    replay): the same kernels on the same inputs, with no host work between
+    them, so ``step`` must then read nothing from the host."""
+    if not replays(st, n):
+        for i in range(n):
+            st = step(st, *inputs_of(i))
+        return st
+    st = step(st, *inputs_of(0))
+    st = {k: x.clone() for k, x in st.items()}
+    inputs = tuple(x.clone() for x in inputs_of(1))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        new = step(st, *inputs)
+        new = {k: new[k].clone() for k in st}
+        for k, x in st.items():
+            x.copy_(new[k])
+    for i in range(1, n):
+        for buf, x in zip(inputs, inputs_of(i)):
+            buf.copy_(x)
+        graph.replay()
+    torch.cuda.synchronize()
+    del graph, new
+    return st
+
+
 def _run_det_plain(state, actions, cards, P, n_steps, sb, bb,
                    rules="reference"):
     """Plain version of K3: ``n_steps`` fused steps on injected raw
@@ -661,10 +707,13 @@ def _run_det_plain(state, actions, cards, P, n_steps, sb, bb,
     T = st["stage"].shape[0]
     acts = actions.permute(1, 0, 2, 3).reshape(actions.shape[1], T)
     stash = _stash_rows(cards)
-    for i in range(n_steps):
+
+    def step(st, act):
         deal = _stash_deal(stash, st["hand_ct"])
-        st = _step_nosettle(st, acts[i], P, rules)
-        st = _settle_pass(st, deal, P, sb, bb, rules)
+        st = _step_nosettle(st, act, P, rules)
+        return _settle_pass(st, deal, P, sb, bb, rules)
+
+    st = plain_loop(st, step, lambda i: (acts[i],), n_steps)
     return _to_blocks(_pack(st, layout))
 
 
@@ -705,13 +754,16 @@ def _prng_plain(state, words_of, P, n_steps, sb, bb, rules="reference",
     layout, F = _field_layout(P, rules)
     st = _unpack(_to_rows(state), layout)
     defer = _defer_for(n_steps)
-    for it in range(n_steps // defer):
-        words = words_of(it)
+
+    def iteration(st, words):
         for k in range(defer):
             raw = _policy(st, words[2 * k], words[2 * k + 1], P)
             st = _step_nosettle(st, raw, P, rules)
         deal = torch.stack(_sample_cards(words[2 * defer:], []))
-        st = _settle_pass(st, deal, P, sb, bb, rules, ss, reset_stacks)
+        return _settle_pass(st, deal, P, sb, bb, rules, ss, reset_stacks)
+
+    st = plain_loop(st, iteration, lambda it: (words_of(it),),
+                    n_steps // defer)
     return _to_blocks(_pack(st, layout))
 
 

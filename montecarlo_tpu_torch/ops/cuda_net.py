@@ -198,9 +198,9 @@ def _masked_logits(st, head, P, bb, weights, seat_to_bank=None,
     seat = (st["button"] + head) % P
     if seat_to_bank is None:
         bank = torch.zeros_like(seat, dtype=I32)
-    else:
-        bank = torch.tensor(seat_to_bank, dtype=I32,
-                            device=seat.device)[seat.long()]
+    else:  # a tuple, or (in a captured loop) a tensor on the device
+        bank = torch.as_tensor(seat_to_bank, dtype=I32,
+                               device=seat.device)[seat.long()]
     if feats is None:
         feats = features(st, head, P, bb)
     logits = _bank_logits(feats, weights, bank)
@@ -227,6 +227,13 @@ def _net_action(st, head, P, bb, weights, seat_to_bank=None, bits=None,
         idx == 1, 0, torch.where(idx == 2, small, pot_raise))).to(I32)
 
 
+def _bank_map(seat_to_bank, device):
+    """``seat_to_bank`` as an int32 tensor on ``device`` (None stays
+    None), made once before a plain version's loop."""
+    return None if seat_to_bank is None else torch.tensor(
+        seat_to_bank, dtype=I32, device=device)
+
+
 def _run_net_det_plain(state, cards, weights, P, n_steps, sb, bb, rules,
                        seat_to_bank=None):
     """Plain version of K5; ``weights`` one net's [NUM_WEIGHTS] or banks
@@ -234,12 +241,16 @@ def _run_net_det_plain(state, cards, weights, P, n_steps, sb, bb, rules,
     layout, _ = ce._field_layout(P, rules)
     st = ce._unpack(ce._to_rows(state), layout)
     stash = ce._stash_rows(cards)
-    for _ in range(n_steps):
+    stb = _bank_map(seat_to_bank, state.device)
+
+    def step(st):
         deal = ce._stash_deal(stash, st["hand_ct"])
         head, _, _ = ce._head_info(st, P)
-        raw = _net_action(st, head, P, bb, weights, seat_to_bank)
+        raw = _net_action(st, head, P, bb, weights, stb)
         st = ce._step_nosettle(st, raw, P, rules)
-        st = ce._settle_pass(st, deal, P, sb, bb, rules)
+        return ce._settle_pass(st, deal, P, sb, bb, rules)
+
+    st = ce.plain_loop(st, step, lambda i: (), n_steps)
     return ce._to_blocks(ce._pack(st, layout))
 
 
@@ -276,30 +287,38 @@ def _net_eval_plain(state, words_of, weights, P, n_steps, sb, bb, ss, rules,
                     decisions=None):
     """K6's iterations on the words ``words_of(it)`` [W, T] of each
     iteration, which every candidate's table t reads. ``decisions`` (an
-    int64 [1] tensor) gets the count of net decisions added."""
+    int64 [1] tensor) gets the count of net decisions added. In an eager
+    loop a slot with no net decision skips the net (one read to the host
+    a slot); a replayed one (``ce.replays``) computes the net on every
+    table and takes it where a net seat acts."""
     grid, weights = _grid(state, weights)
     C, nb = grid.shape[:2]
     layout, _ = ce._field_layout(P, rules)
     st = ce._unpack(ce._to_rows(grid.reshape(C * nb, *grid.shape[2:])),
                     layout)
     defer = ce._defer_for(n_steps)
-    for it in range(n_steps // defer):
-        words = words_of(it).repeat(1, C)
+    stb = _bank_map(seat_to_bank, state.device)
+    skip = not ce.replays(st, n_steps // defer)
+
+    def iteration(st, words):
         for k in range(defer):
             w = words[SLOT_WORDS * k:SLOT_WORDS * (k + 1)]
             raw = ce._policy(st, w[0], w[1], P)
             head, _, exists = ce._head_info(st, P)
             seat = (st["button"] + head) % P
             use_net = ((torch.full_like(seat, net_seats) >> seat) & 1) != 0
-            n_net = int((use_net & exists).sum())
+            n_net = (use_net & exists).sum()
             if decisions is not None:
-                decisions += n_net
-            if n_net:
+                decisions.add_(n_net)
+            if not skip or int(n_net):
                 raw = torch.where(use_net, _net_action(
-                    st, head, P, bb, weights, seat_to_bank, w[2:]), raw)
+                    st, head, P, bb, weights, stb, w[2:]), raw)
             st = ce._step_nosettle(st, raw, P, rules)
         deal = torch.stack(_sample_cards(words[SLOT_WORDS * defer:], []))
-        st = ce._settle_pass(st, deal, P, sb, bb, rules, ss, reset_stacks)
+        return ce._settle_pass(st, deal, P, sb, bb, rules, ss, reset_stacks)
+
+    st = ce.plain_loop(st, iteration, lambda it: (
+        words_of(it).repeat(1, C),), n_steps // defer)
     return ce._to_blocks(ce._pack(st, layout)).reshape(state.shape)
 
 

@@ -143,9 +143,10 @@ def _split_plain(variant, state, words_of, weights, P, n_steps, sb, bb, ss,
     layout, _ = ce._field_layout(P, "standard")
     st = ce._unpack(ce._to_rows(state), layout)
     defer = ce._defer_for(n_steps)
-    for it in range(n_steps // defer):
-        st = _split_iteration(variant, st, words_of(it), weights, P, defer,
-                              sb, bb, ss, net_seats, reset_stacks, decisions)
+    st = ce.plain_loop(st, lambda st, words: _split_iteration(
+        variant, st, words, weights, P, defer, sb, bb, ss, net_seats,
+        reset_stacks, decisions), lambda it: (words_of(it),),
+        n_steps // defer)
     return ce._to_blocks(ce._pack(st, layout))
 
 

@@ -139,8 +139,9 @@ def _split_plain(variant, state, words_of, P, n_steps, sb, bb):
     layout, _ = ce._field_layout(P)
     st = ce._unpack(ce._to_rows(state), layout)
     defer = ce._defer_for(n_steps)
-    for it in range(n_steps // defer):
-        st = _split_iteration(variant, st, words_of(it), P, defer, sb, bb)
+    st = ce.plain_loop(st, lambda st, words: _split_iteration(
+        variant, st, words, P, defer, sb, bb), lambda it: (words_of(it),),
+        n_steps // defer)
     return ce._to_blocks(ce._pack(st, layout))
 
 

@@ -127,8 +127,8 @@ def _run_stage_plain(stage, state, words_of, P, n_steps, sb, bb):
     words of step i from ``words_of(i)`` (int64 [W, T])."""
     layout, _ = ce._field_layout(P)
     st = ce._unpack(ce._to_rows(state), layout)
-    for i in range(n_steps):
-        st = BODIES[stage](st, words_of(i), P, sb, bb)
+    st = ce.plain_loop(st, lambda st, words: BODIES[stage](
+        st, words, P, sb, bb), lambda i: (words_of(i),), n_steps)
     return ce._to_blocks(ce._pack(st, layout))
 
 

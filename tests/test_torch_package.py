@@ -134,6 +134,15 @@ MODULES = [
     "montecarlo_tpu_torch.scripts.bench_perpetual",
     "montecarlo_tpu_torch.scripts.exp_step_split",
     "montecarlo_tpu_torch.scripts.exp_net_split",
+    "montecarlo_tpu_torch.ops.cuda_k1_variants",
+    "montecarlo_tpu_torch.scripts.bench_kernel_variants",
+    "montecarlo_tpu_torch.scripts.exp_net_grid",
+    "montecarlo_tpu_torch.scripts.bench_step_parts",
+    "montecarlo_tpu_torch.scripts.exp_hands_levers",
+    "montecarlo_tpu_torch.scripts.check_pop_kernel",
+    "montecarlo_tpu_torch.scripts.check_league_routing",
+    "montecarlo_tpu_torch.scripts.eval_net_kernel",
+    "montecarlo_tpu_torch.scripts.validate_tpu",
 ]
 # The ported training, exploitability, analysis and measurement scripts
 # (``montecarlo_tpu_torch/scripts/<name>.py`` beside ``scripts/<name>.py``,
@@ -144,7 +153,9 @@ SCRIPTS = ["league_eval", "exploit_probe", "opt_bot", "train_es_kernel",
            "river_gap", "turn_gap", "distill_nash", "run_configs",
            "exp_levels_ab", "bench_net_throughput", "bench_kernel_engine",
            "bench_selfplay", "bench_perpetual", "exp_step_split",
-           "exp_net_split", "bench"]
+           "exp_net_split", "bench", "exp_net_grid", "bench_step_parts",
+           "exp_hands_levers", "check_pop_kernel", "check_league_routing",
+           "eval_net_kernel", "validate_tpu"]
 # Runs the port's CPU path (equity and multiway equity, range equity and
 # push/fold, the table engine's step and host view, self-play under every
 # rule set, a net policy in a duplicate match, the net pipeline's replay,
