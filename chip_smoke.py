@@ -76,7 +76,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    each K1, K2 and B3 (at N = 3; the range over the rest) instantiation's
    ptxas registers, stack and spills (the common library's ``build.log``;
    K2's beside its blocks an SM and a hand) and each K3/K4
-   instantiation's (the P = 6 library's) beside its time, the rollout
+   instantiation's (the P = 6 library's) beside its time, K3's warp
+   schedule in plain PyTorch (``cuda_engine._run_det_warps``) on the first
+   2^14 tables of each K3 call (equal to K3's output there; its passes and
+   settle passes a warp beside the plain schedule's steps with a settle
+   pass), the rollout
    loop of K1 preflop and of both K2 forms in the SASS (instructions by
    opcode), K2 timed once more before the sampler starts and the host's
    share of ``sweep169_seconds_warm``,
@@ -334,6 +338,7 @@ N_SWEEP = 10_000_000
 T_FULL = 1 << 20
 DET_STEPS = 64
 HMAX = 12
+K3_SCHEDULE_TABLES = 1 << 14  # phase 4: K3's schedule counted
 SP_SLOTS = 512
 # The net-evaluation path (bench.py's _run_net_axis): tables, slots, slots
 # per launch; K5's tables, steps and deal-stash rows; the validate gate's
@@ -2966,6 +2971,29 @@ def main() -> int:
         log(f"ptxas {key}{form}: {rep['registers']} registers, "
             f"{rep['stack']} B stack, {rep['spill_stores']} B spill stores, "
             f"{rep['spill_loads']} B spill loads; main-path call {shown}")
+    # K3's warp schedule (csrc/engine.cuh, mc_run_det) in plain PyTorch on
+    # the first K3_SCHEDULE_TABLES tables of each K3 call: its state equals
+    # K3's there, and its counts a warp (the passes that step a table, the
+    # settle passes) stand beside the plain schedule's steps with a settle
+    # pass and the kernel's time
+    nb = K3_SCHEDULE_TABLES // 1024
+    for key, st_in, rules, k3_out in (
+            ("K3", st_full, "reference", det_out),
+            ("K3s", st_full_std, "standard", det_std),
+            ("K3t", st_full_tour, "tournament", det_tour)):
+        twin, c = ce._run_det_warps(st_in[:nb], acts_full[:nb],
+                                    cards_full[:nb], P, DET_STEPS, SB, BB,
+                                    rules)
+        check(torch.equal(twin, k3_out[:nb]),
+              f"{key}: the warp schedule in plain PyTorch equals K3 on the "
+              f"first {K3_SCHEDULE_TABLES} tables")
+        w = c["warps"]
+        log(f"{key} schedule, MC_DET_SETTLE_MIN {ce.DET_SETTLE_MIN}, "
+            f"{K3_SCHEDULE_TABLES} tables: a warp {c['iterations'] / w:.2f} "
+            f"passes that step and {c['settle_passes'] / w:.2f} settle "
+            f"passes, where the plain schedule takes {DET_STEPS} steps, "
+            f"{c['plain_settle_steps'] / w:.2f} with a settle pass; kernel "
+            f"{times[key]:.3f} ms")
     # ptxas per instantiation of the equity kernels (the common library's
     # build.log): K1's forms and K2 beside their main-path calls, B3's at
     # N = 3, and the range over all of B3's

@@ -13,7 +13,9 @@
 //
 // Layout: the packed state [n_blocks, F, 8, 128] int32 of the JAX engine,
 // 1024 tables per block. One thread runs one table: it reads the table's F
-// rows once, runs every step of the launch, and writes the rows once;
+// rows once, runs every step of the launch (K3: on the table's own step
+// cursor, with the settle passes of a warp's tables run together), and
+// writes the rows once;
 // neighbouring threads hold neighbouring tables, so each row load and store
 // coalesces across the warp. Where the table lives meanwhile (engine.cuh,
 // MCTable): the hot fields of the betting step (34 words at P = 6 under
@@ -36,6 +38,10 @@
 
 // actions: [n_blocks, n_steps, 8, 128]; cards: [n_blocks, hmax, 2P+5, 8,
 // 128]. Hand h > 0 of a table is dealt from stash row min(h, hmax - 1).
+// Each table steps on its own cursor and the warp settles its waiting
+// tables together (mc_run_det), so no lane returns early: the warp's
+// ballots need all 32. A lane past the tables, or whose table is frozen
+// (a fixed point, neither loaded nor stored), holds a frozen table.
 template <int P, int R>
 __global__ void __launch_bounds__(MC_ENGINE_THREADS,
                                   mc_engine_blocks_per_sm<P, R>())
@@ -43,19 +49,22 @@ __global__ void __launch_bounds__(MC_ENGINE_THREADS,
                          int n_tables, int n_steps, int hmax, int sb,
                          int bb) {
   extern __shared__ int mc_cold[];
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_tables) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
   int* rows = mc_table_rows<P, R>(state, t);
-  if (mc_frozen_rows<P, R>(rows, MC_TABLES_PER_BLOCK)) return;
+  const bool live =
+      t < n_tables && !mc_frozen_rows<P, R>(rows, MC_TABLES_PER_BLOCK);
   const long long blk = t / MC_TABLES_PER_BLOCK;
   const int lane = t % MC_TABLES_PER_BLOCK;
   MCTable<P, R, MCEngineRows> s;
   s.rows.col = mc_cold + threadIdx.x;
-  mc_load(s, rows, MC_TABLES_PER_BLOCK);
+  if (live)
+    mc_load(s, rows, MC_TABLES_PER_BLOCK);
+  else
+    s.order = s.wait = 0;
   mc_run_det(s, actions + blk * n_steps * MC_TABLES_PER_BLOCK + lane,
              cards + blk * hmax * (2 * P + 5) * MC_TABLES_PER_BLOCK + lane,
              MC_TABLES_PER_BLOCK, n_steps, hmax, sb, bb);
-  mc_store(s, rows, MC_TABLES_PER_BLOCK);
+  if (live) mc_store(s, rows, MC_TABLES_PER_BLOCK);
 }
 
 // INJECT: words int32 [n_steps / defer, 2 * defer + 2P + 5, n_tables];

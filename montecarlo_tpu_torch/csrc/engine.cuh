@@ -698,24 +698,61 @@ struct MCDealStash {
   }
 };
 
-// K3's work for one table: n_steps fused steps. act[i * stride] is step
-// i's raw action; hand h > 0 is dealt from stash row min(h, hmax - 1).
+// K3's warp schedule (mc_run_det): the warp settles its waiting tables
+// together once at least this many of its 32 wait, or once none of them
+// can step (chosen on the card: scripts/ab_engine.py --variants).
+#define MC_DET_SETTLE_MIN 16
+
+// The warp's lanes for which x holds, as a bit mask. Every lane of the
+// warp must call it together. On the host, where the harness runs one
+// table at a time, a warp is one lane.
+MC_HD uint32_t mc_warp_ballot(bool x) {
+#ifdef __CUDA_ARCH__
+  return __ballot_sync(0xffffffffu, x);
+#else
+  return x ? 1u : 0u;
+#endif
+}
+
+// K3's work for one table: n_steps fused steps, each a betting step and,
+// where the hand ended, a settle pass. act[i * stride] is step i's raw
+// action; hand h > 0 is dealt from stash row min(h, hmax - 1).
+//
+// A table's result depends on its own actions and hand count alone, so
+// its settle pass may wait while the warp's other tables step: each table
+// steps on its own cursor i until a hand ends, then waits, and the warp
+// runs one settle pass for all its waiting tables at once (the pass is
+// the heavy part: P hand keys, 4L pot rows, the deal). A frozen table
+// neither steps nor waits. Every lane of the warp stays in the loop until
+// none steps or waits; a lane without a table holds a frozen one. With a
+// warp of one lane (the host) this is the loop of step i, then the settle
+// pass, that the plain version runs.
 template <int P, int R, class Rows>
 MC_HD void mc_run_det(MCTable<P, R, Rows>& s, const int* act,
                       const int* stash, long long stride, int n_steps,
                       int hmax, int sb, int bb) {
   using C = MCCold<P, R>;
   constexpr int L = MCTable<P, R, Rows>::L;
-  for (int i = 0; i < n_steps; ++i) {
-    if (mc_frozen(s)) break;
-    if (s.order) {
-      const int head = mc_head<P>(s.order, s.cursor);
-      mc_step_nosettle(s, act[i * stride], head,
-                       mc_street_total<L>(s.lvl));
+  int i = 0;         // the table's next step
+  bool due = false;  // step i - 1 ended a hand: settle before step i
+  while (true) {
+    if (!due && i < n_steps && !mc_frozen(s)) {
+      if (s.order) {
+        const int head = mc_head<P>(s.order, s.cursor);
+        mc_step_nosettle(s, act[i * stride], head,
+                         mc_street_total<L>(s.lvl));
+      }
+      ++i;
+      due = s.wait;
     }
-    if (s.wait) {
+    const uint32_t waiting = mc_warp_ballot(due);
+    const uint32_t stepping =
+        mc_warp_ballot(!due && i < n_steps && !mc_frozen(s));
+    if (!waiting && !stepping) return;
+    if (due && (!stepping || mc_popc(waiting) >= MC_DET_SETTLE_MIN)) {
       const int hand_ptr = mc_min(s.rows.get(C::HAND_CT) + 1, hmax - 1);
       mc_settle_pass(s, MCDealStash{stash, stride, hand_ptr}, sb, bb);
+      due = false;
     }
   }
 }

@@ -717,6 +717,78 @@ def _run_det_plain(state, actions, cards, P, n_steps, sb, bb,
     return _to_blocks(_pack(st, layout))
 
 
+# K3's warp (``csrc/engine.cuh``, ``mc_run_det``): WARP consecutive tables,
+# which settle together once DET_SETTLE_MIN of them wait (engine.cuh's
+# MC_DET_SETTLE_MIN) or none can step.
+WARP = 32
+DET_SETTLE_MIN = 16
+
+
+def _where_fields(mask, new, old):
+    """Each field of ``new`` on the tables where ``mask`` holds, else of
+    ``old``."""
+    return {k: torch.where(mask, new[k], x) for k, x in old.items()}
+
+
+def _run_det_warps(state, actions, cards, P, n_steps, sb, bb,
+                   rules="reference"):
+    """K3's schedule in plain PyTorch: ``_run_det_plain``'s work, in the
+    order in which K3's warps do it. Each table steps on its own cursor
+    until its hand ends, then waits; a warp of ``WARP`` tables runs one
+    settle pass for all its waiting tables once ``DET_SETTLE_MIN`` of them
+    wait or none can step. A frozen table neither steps nor waits.
+
+    Returns the state (``_run_det_plain``'s: a table's result does not
+    depend on when its settle pass runs) and the counts, summed over the
+    ``warps``: ``iterations`` (passes of a warp's loop in which a table
+    steps), ``settle_passes``, and ``plain_settle_steps``, the steps on
+    which a table of the warp settles under the plain schedule's settle
+    check after every step."""
+    layout, _ = _field_layout(P, rules)
+    st = _unpack(_to_rows(state), layout)
+    T = st["stage"].shape[0]
+    W = T // WARP
+    acts = actions.permute(1, 0, 2, 3).reshape(n_steps, T)
+    stash = _stash_rows(cards)
+    dev = acts.device
+    warp_of = torch.arange(T, device=dev) // WARP
+    cursor = torch.zeros(T, dtype=I64, device=dev)
+    due = torch.zeros(T, dtype=torch.bool, device=dev)
+    plain_steps = torch.zeros((n_steps, W), dtype=torch.bool, device=dev)
+    counts = {"warps": W, "iterations": 0, "settle_passes": 0}
+
+    def can_step(st):
+        frozen = (st["order"] == 0) & (st["wait"] == 0)
+        return ~due & (cursor < n_steps) & ~frozen
+
+    while True:
+        step = can_step(st)
+        if bool(step.any()):
+            i = cursor.clamp(max=n_steps - 1)
+            new = _step_nosettle(st, acts.gather(0, i[None])[0], P, rules)
+            st = _where_fields(step, new, st)
+            ended = step & (st["wait"] != 0)
+            plain_steps[i[ended], warp_of[ended]] = True
+            cursor = cursor + step
+            due = due | ended
+        counts["iterations"] += int(step.view(W, WARP).any(1).sum())
+        waiting = due.view(W, WARP)
+        stepping = can_step(st).view(W, WARP).any(1)
+        if not bool(waiting.any() | stepping.any()):
+            break
+        settles = waiting.any(1) & (~stepping | (waiting.sum(1)
+                                                 >= DET_SETTLE_MIN))
+        settle = (waiting & settles[:, None]).reshape(T)
+        if bool(settle.any()):
+            new = _settle_pass(st, _stash_deal(stash, st["hand_ct"]), P, sb,
+                               bb, rules)
+            st = _where_fields(settle, new, st)
+            due = due & ~settle
+            counts["settle_passes"] += int(settles.sum())
+    counts["plain_settle_steps"] = int(plain_steps.sum())
+    return _to_blocks(_pack(st, layout)), counts
+
+
 def _defer_for(n_steps: int) -> int:
     return DEFER if n_steps % DEFER == 0 else 1
 

@@ -6,7 +6,7 @@ montecarlo_tpu_torch/csrc | tar -x -C DIR``):
 
     python -m montecarlo_tpu_torch.scripts.ab_engine \\
         --parent DIR/montecarlo_tpu_torch/csrc [--runs 5] [--also DIR2] \\
-        [--variants MC_ENGINE_THREADS=128,MC_NET_CHUNK=16] [--time-only] \\
+        [--variants MC_DET_SETTLE_MIN=4,MC_DET_SETTLE_MIN=16] [--time-only] \\
         [--calls K1,K1f,B3,B3f,K2]
 
 Each source tree is built with ``_build.NVCC_FLAGS`` into a temporary
@@ -32,7 +32,9 @@ banks) and the net probe (2^18 tables, es3).
 ``--also DIR2`` adds a further source tree to the same turns.
 ``--variants`` builds this tree again once per ``NAME=VALUE``, with the
 ``#define NAME`` of ``csrc/`` set to VALUE (``MC_ENGINE_THREADS``, the
-engine kernels' block size in ``engine.cuh``; ``MC_NET_CHUNK``, the net
+engine kernels' block size in ``engine.cuh``; ``MC_DET_SETTLE_MIN``, the
+waiting tables at which a K3 warp runs its settle pass, in ``engine.cuh``
+(``--calls K3,K3s,K3t`` times only K3); ``MC_NET_CHUNK``, the net
 kernels' hidden rows a chunk, in ``net.cuh``; ``MC_NET_MIN_BLOCKS``,
 K5's and K6's launch bound, in ``net.cu``), and times every call on each
 against this tree: the measurement behind those constants

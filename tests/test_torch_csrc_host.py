@@ -27,6 +27,7 @@ checked on the card (``tests/test_torch_cuda.py``,
 
 import ctypes
 import ctypes.util
+import re
 import shutil
 import subprocess
 
@@ -751,6 +752,8 @@ int main(int argc, char** argv) {
       case 6: head<6>(in.data(), in.size(), out); break;
       default: return 2;
     }
+  } else if (!strcmp(argv[1], "det_settle_min")) {
+    out.push_back(MC_DET_SETTLE_MIN);
   } else if (!strcmp(argv[1], "key")) {
     for (size_t i = 1; i + 4 <= in.size(); i += 4)
       out.push_back(mc_eval_key(in[i], in[i + 1], in[i + 2], in[i + 3]));
@@ -1334,6 +1337,66 @@ def test_engine_det_device_code_equals_plain(harness, rules):
     _check_rows(got, want, cfg)
     if rules == "reference":
         assert int(ce.unpack_field(want, cfg, "overflow").sum()) > 0
+
+
+def _waiting_at_entry(state, P, rules, share, seed):
+    """``state`` with a ``share`` of its tables folded down to one player
+    and not settled: they wait at entry, their play order empty."""
+    T = ce.TABLES_PER_BLOCK * state.shape[0]
+    layout, _ = ce._field_layout(P, rules)
+    st = ce._unpack(ce._to_rows(state), layout)
+    ended = st
+    fold = torch.full((T,), -1, dtype=torch.int32, device=state.device)
+    for _ in range(P - 1):
+        ended = ce._step_nosettle(ended, fold, P, rules)
+    assert bool((ended["wait"] == 1).all())
+    pick = torch.from_numpy(np.random.default_rng(seed).random(T) < share) \
+        .to(state.device)
+    return ce._to_blocks(ce._pack(ce._where_fields(pick, ended, st), layout))
+
+
+@pytest.mark.parametrize("rules,P,stack,n_steps,share", [
+    ("reference", 2, 100, 1, 0.5), ("standard", 6, 100, 23, 0.25),
+    ("tournament", 6, 10, 29, 0.0), ("tournament", 2, 20, 17, 0.5)])
+def test_engine_det_edges_device_code_equals_plain(harness, rules, P, stack,
+                                                    n_steps, share):
+    """K3's step cursor at its edges, one table at a time (on the host a
+    warp is one lane): tables waiting at entry (settled before their
+    first step), one step, and tournaments that freeze within the run."""
+    hmax = 4
+    T = ce.TABLES_PER_BLOCK
+    rng = np.random.default_rng(P + n_steps)
+    u = rng.random((n_steps, T))
+    acts = np.where(u < 0.2, -1, np.where(u < 0.92, 0, rng.integers(
+        1, 21, u.shape))).astype(np.int32)
+    stash = np.argsort(rng.random((hmax, T, 52)), axis=-1)[..., :2 * P + 5] \
+        .transpose(0, 2, 1).astype(np.int32)           # [hmax, 2P+5, T]
+    cfg = TableConfig(num_seats=P, rules=rules, starting_stack=stack)
+    state = ce.pack_state(cfg, torch.from_numpy(stash[0].T.copy()))
+    if share:
+        state = _waiting_at_entry(state, P, rules, share, n_steps)
+    got = harness("k3", [P, ce.RULES.index(rules), n_steps, hmax, 5, 10, T,
+                         *_flat(ce._to_rows(state)), *acts.reshape(-1),
+                         *stash.reshape(-1)])
+    want = ce.run_perpetual_det(
+        state, torch.from_numpy(acts.reshape(1, n_steps, *ce.TILE)),
+        torch.from_numpy(stash.reshape(1, hmax, 2 * P + 5, *ce.TILE)), P,
+        n_steps, 5, 10, rules=rules)
+    _check_rows(got, want, cfg)
+    if stack == 10:
+        assert int((ce.unpack_field(want, cfg, "order") == 0).sum()) > T // 2
+
+
+def test_det_settle_min_equals_the_define(harness):
+    """The host constant of K3's warp schedule (``ops/cuda_engine.py``,
+    the plain twin's) is the one the kernel is built with, and the
+    ``#define`` is written once, as ``scripts/ab_engine.py --variants``
+    rewrites it."""
+    defines = [m for f in sorted(_build.CSRC.glob("*.cu*"))
+               for m in re.findall(r"^#define MC_DET_SETTLE_MIN (\d+)$",
+                                   f.read_text(), re.M)]
+    assert defines == [str(ce.DET_SETTLE_MIN)]
+    assert harness("det_settle_min", []).tolist() == [ce.DET_SETTLE_MIN]
 
 
 def test_packed_key_device_code_equals_plain(harness):

@@ -24,6 +24,7 @@ from montecarlo_tpu_torch.ops import cuda_split as csp
 from montecarlo_tpu_torch.ops import cuda_stages as cs
 from montecarlo_tpu_torch.ops import philox
 from montecarlo_tpu_torch.rollout import equity as teq
+from test_torch_csrc_host import _waiting_at_entry
 from test_torch_philox import PHILOX_KAT
 
 pytestmark = pytest.mark.cuda
@@ -164,9 +165,62 @@ def test_engine_det_kernel_equals_plain_tournament_rules(cuda, P, stack):
     _engine_det_kernel_equals_plain(cuda, P, "tournament", stack)
 
 
-def _engine_det_kernel_equals_plain(cuda, P, rules, stack=100):
+@pytest.mark.parametrize("rules", ce.RULES)
+def test_engine_det_kernel_long_run_equals_plain(cuda, rules):
+    """K3's step cursors far apart: 4 blocks x 200 steps, 4 stash rows
+    (most hands dealt from the clamped last row)."""
+    _engine_det_kernel_equals_plain(cuda, 6, rules, nb=4, n_steps=200,
+                                    hmax=4)
+
+
+def test_engine_det_kernel_freezing_warps_equal_plain(cuda):
+    """Tournaments from 10-chip stacks over 200 steps: most warps freeze
+    whole within the launch, their tables leaving K3's schedule one by
+    one."""
+    k = _engine_det_kernel_equals_plain(cuda, 6, "tournament", 10, nb=4,
+                                        n_steps=200)
+    cfg = TableConfig(num_seats=6, rules="tournament", starting_stack=10)
+    frozen = (ce.unpack_field(k, cfg, "order") == 0) \
+        & (ce.unpack_field(k, cfg, "wait") == 0)
+    assert float(frozen.view(-1, ce.WARP).all(1).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("rules", ce.RULES)
+def test_engine_det_kernel_one_step_equals_plain(cuda, rules):
+    """One step, from a state where a quarter of the tables wait at entry
+    (settled before their first step)."""
+    _engine_det_kernel_equals_plain(
+        cuda, 6, rules, n_steps=1,
+        prepare=lambda st: _waiting_at_entry(st, 6, rules, 0.25, 1))
+
+
+@pytest.mark.parametrize("rules", ce.RULES)
+def test_engine_det_kernel_frozen_warps_at_entry_equal_plain(cuda, rules):
+    """Whole warps frozen at entry (every third warp, and all 64 tables of
+    one CUDA block), beside tables that wait at entry: the frozen lanes
+    stay in their warps' loops without a table, and their rows are left
+    as they were."""
+    def prepare(state):
+        state = _waiting_at_entry(state, 6, rules, 0.25, 2)
+        layout, _ = ce._field_layout(6, rules)
+        rows = ce._to_rows(state).clone()
+        t = torch.arange(rows.shape[1], device=rows.device)
+        off = (t // ce.WARP) % 3 == 0
+        off |= (t >= ce.TABLES_PER_BLOCK + 128) \
+            & (t < ce.TABLES_PER_BLOCK + 192)
+        for name in ("order", "wait"):
+            rows[layout[name][0], off] = 0
+        return ce._to_blocks(rows)
+    k = _engine_det_kernel_equals_plain(cuda, 6, rules, prepare=prepare)
+    assert int(ce.unpack_field(k, TableConfig(num_seats=6, rules=rules),
+                               "hand_ct").sum()) > 0
+
+
+def _engine_det_kernel_equals_plain(cuda, P, rules, stack=100, nb=2,
+                                    n_steps=40, hmax=12, prepare=None):
+    """K3 against its plain version on an injected stream; ``prepare``
+    edits the first state. Returns the kernel's state."""
     rng = np.random.default_rng(P)
-    nb, n_steps, hmax = 2, 40, 12
     T = nb * ce.TABLES_PER_BLOCK
     u = rng.random((nb, n_steps, 8, 128))
     acts = np.where(u < 0.2, -1, np.where(u < 0.92, 0, rng.integers(
@@ -177,6 +231,8 @@ def _engine_det_kernel_equals_plain(cuda, P, rules, stack=100):
     state = ce.pack_state(TableConfig(num_seats=P, rules=rules,
                                       starting_stack=stack),
                           torch.from_numpy(deal[:, 0]).to(cuda))
+    if prepare is not None:
+        state = prepare(state)
     acts_t = torch.from_numpy(acts).to(cuda)
     cards_t = torch.from_numpy(np.ascontiguousarray(cards)).to(cuda)
     before = ce.LAUNCHES[f"engine_det_{rules}"]
@@ -185,6 +241,7 @@ def _engine_det_kernel_equals_plain(cuda, P, rules, stack=100):
     assert ce.LAUNCHES[f"engine_det_{rules}"] == before + 1
     p = ce._run_det_plain(state, acts_t, cards_t, P, n_steps, 5, 10, rules)
     assert torch.equal(k, p)
+    return k
 
 
 @pytest.mark.parametrize("rules,stack", [("reference", 100),
