@@ -192,9 +192,19 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    <= 0.0001 bb, Nash EV P1 within 0.0005 bb, each subject's gap and best
    responses within 0.0002 bb and its head-to-heads against Nash within
    0.001 bb, of JAX's CPU value (``tests/rehearse_solver_records.json``)
-   and of the record where JAX reproduces it (other rows logged); (j3)
+   and of the record where JAX reproduces it (other rows logged with
+   their distance), each run twice: the subjects' strategies extracted in
+   exact float32 (``matmul="f32"``) and as the TPU that scored the
+   records computed them (``"tpu_bf16"``, ``policy_net.policy_logits``'
+   bfloat16 inputs), each against the rehearsal's values of its own mode;
+   a record value is held wherever the rehearsal reproduces it in that
+   mode (the river and turn records in ``tpu_bf16``, the stride-4 rows in
+   ``f32``), and the counts held in each mode are logged; (j3)
    ``data/policy_6max_distill.npz``'s and es7's gaps at stride 4 and the
-   exact BR edge against es9 at stride 1 against their records; (j4) a
+   exact BR edge against es9 at stride 1 against their records (f32), the
+   distillation record's ``gap_bb_start`` against es7 softened as
+   ``train_es_kernel --soften 20`` softens it (``policy_net.softened``) in
+   both modes, held in the mode that reproduces it; (j4) a
    fresh ``distill_nash --mode nash`` from es7 (1500 iterations, 2000
    of the record's 6000 steps, stride 4) lowering both boards' gap by 0.3
    bb, and ``--mode br`` against es9 (1000 of its 3000 steps) raising
@@ -452,6 +462,9 @@ K_BENCH_NATIVE = (200, 2000)
 # run at 2000 steps by 0.58 bb and the BR run at 1500 by 0.11 bb)
 J4_NASH_STEPS = 2000
 J4_BR_STEPS = 1000
+# Path j3: the distillation record's start, es7 with w3 and b3 divided by
+# 20 (the {"softened": 20.0} that heads logs/distill_nash.log)
+J3_SOFTEN = 20.0
 K_CI_SECONDS = 1.0
 K_EXACT_AKS_QQ = 0.458708
 K_CKPT_TABLES = 1 << 16
@@ -4258,8 +4271,10 @@ def main() -> int:
     # the ported river_gap, turn_gap and distill_nash at the records' widths
     # (plain PyTorch on the card, no kernel: every launch count stays 0),
     # each row against its data/ record where the JAX package reproduces
-    # that record on the CPU (tests/rehearse_solver_records.json), and
-    # every rehearsed row against the JAX CPU value.
+    # that record on the CPU (tests/rehearse_solver_records.json) in the
+    # row's matmul mode, and every rehearsed row against the JAX CPU value
+    # of that mode: f32 as JAX on the CPU, tpu_bf16 as the TPU made the
+    # records (policy_net.policy_logits' bfloat16 inputs).
     from montecarlo_tpu_torch.models import distill as tdi
     from montecarlo_tpu_torch.models import river_solver as trs
     from montecarlo_tpu_torch.models import turn_solver as tts
@@ -4285,11 +4300,13 @@ def main() -> int:
                 return row
         return None
 
-    def j_gate(what, port, rec, tol, jax_cpu=None, reproduced=True):
+    def j_gate(what, port, rec, tol, jax_cpu=None, reproduced=True,
+               mode="f32"):
         """|port - JAX CPU| <= tol where JAX was rehearsed; |port - record|
-        <= tol where the record is reproduced (by JAX on the CPU within
-        1e-4, the record's last digit, or as ``reproduced`` says where no
-        JAX value exists). Logged either way."""
+        <= tol where the record is reproduced (by JAX on the CPU in
+        ``mode`` within 1e-4, the record's last digit, or as
+        ``reproduced`` says where no JAX value exists). Logged either
+        way."""
         row = {"port": port, "record": rec, "tol": tol,
                "to_record": port - rec}
         if jax_cpu is not None:
@@ -4297,15 +4314,16 @@ def main() -> int:
             row.update(jax_cpu=jax_cpu, to_jax=port - jax_cpu)
             check(abs(port - jax_cpu) <= tol + 1e-9,
                   f"path {what}: {port} within {tol} of the JAX CPU value "
-                  f"{jax_cpu}")
+                  f"{jax_cpu} ({mode})")
         row["reproduced"] = reproduced
         if reproduced:
             check(abs(port - rec) <= tol + 1e-9,
                   f"path {what}: {port} within {tol} of the record {rec}")
         else:
             log(f"path {what}: the record {rec} is not reproduced by JAX "
-                f"on the CPU ({jax_cpu}); the port's {port} is not held "
-                f"to it")
+                f"on the CPU in {mode} ({jax_cpu}"
+                + (f", {abs(jax_cpu - rec):.4f} off" if jax_cpu is not None
+                   else "") + f"); the port's {port} is not held to it")
         return row
 
     def j_done(name, t0):
@@ -4320,40 +4338,59 @@ def main() -> int:
         return timed(lambda: solve(game, n))[1] / n
 
     no_solve = ("gap_bb", "br_vs_net_p1_bb", "br_vs_net_p2_bb")
+    vs_nash = ("net_p1_vs_nash_bb", "net_p2_vs_nash_bb")
 
-    def record_rows(part, rec, res, what):
+    def in_mode(jx, mode):
+        """A rehearsal row's values in ``mode``."""
+        return jx if mode == "f32" or jx is None else jx[mode]
+
+    def record_rows(part, rec, res, what, mode="f32"):
         """Gate every board and subject row of a river_gap / turn_gap
-        result ``res`` against the record ``rec`` and the rehearsal. A
-        row that needs the solve (``net_p*_vs_nash_bb``) and has no JAX
-        value (the turn rehearsal solves nothing) is held to the record
-        where the subject's no-solve rows are reproduced."""
+        result ``res`` (subjects extracted in ``mode``) against the
+        record ``rec`` and the rehearsal's values of ``mode``. A row that
+        needs the solve (``net_p*_vs_nash_bb``) and has no JAX value (the
+        turn rehearsal solves nothing) is held to the record where the
+        subject's no-solve rows are reproduced."""
         out = {}
         for bname, row in res["boards"].items():
             rrow = rec["boards"][bname]
             check(row["solver_gap_bb"] <= 1e-4, f"path {what} {bname}: "
                   f"solver gap {row['solver_gap_bb']} <= 0.0001 bb")
-            jx = rehearsed(part, bname)
+            jx = in_mode(rehearsed(part, bname), mode)
             out[bname] = {"nash_ev_p1_bb": j_gate(
                 f"{what} {bname} Nash EV P1", row["nash_ev_p1_bb"],
-                rrow["nash_ev_p1_bb"], 5e-4, jx and jx["nash_ev_p1_bb"]),
+                rrow["nash_ev_p1_bb"], 5e-4, jx and jx["nash_ev_p1_bb"],
+                mode=mode),
                 "solver_gap_bb": row["solver_gap_bb"],
                 "solve_seconds": row["solve_seconds"]}
             for name, srow in row["subjects"].items():
-                jx = rehearsed(part, bname, name)
-                same = all(abs(jx[k] - jx["record"][k]) <= 1e-4 + 1e-9
+                jrow = rehearsed(part, bname, name)
+                jx = in_mode(jrow, mode)
+                same = all(abs(jx[k] - jrow["record"][k]) <= 1e-4 + 1e-9
                            for k in no_solve)
                 out[bname][name] = {k: j_gate(
                     f"{what} {bname} {name} {k}", srow[k],
                     rrow["subjects"][name][k],
-                    2e-4 if k in no_solve else 1e-3, jx.get(k), same)
-                    for k in no_solve + ("net_p1_vs_nash_bb",
-                                         "net_p2_vs_nash_bb")}
+                    2e-4 if k in no_solve else 1e-3, jx.get(k), same, mode)
+                    for k in no_solve + vs_nash}
         return out
+
+    def held(part, keys, boards, modes):
+        """Count the subject values of ``record_rows``' results ``modes``
+        ({mode: result}) held to their record: in each mode and in
+        either, into ``j_counts[part]``."""
+        cells = [{m: r[b][n][k]["reproduced"] for m, r in modes.items()}
+                 for b in boards for n in j_names for k in keys]
+        j_counts[part] = {"of": len(cells), "either": sum(
+            any(c.values()) for c in cells), **{
+            m: sum(c[m] for c in cells) for m in modes}}
 
     j_subjects = [f"{n}=data/policy_6max_{n}.npz"
                   for n in ("es2", "es3", "es4", "es5", "es6", "es7", "es8",
                             "es9", "distill")] + [
         "reinforce=data/policy_6max_200.npz"]
+    j_names = [s.split("=")[0] for s in j_subjects]
+    j_counts = {}
 
     # (j1) river_gap at the record's settings: 6000 iterations, all 1081
     # combos, both boards, the record's subjects but untrained
@@ -4377,6 +4414,20 @@ def main() -> int:
         f"{[r['solve_seconds'] for r in rg['boards'].values()]} s, "
         f"{jres['j1']['subject_seconds']:.2f} s a subject, "
         f"{jres['j1']['cfr_iteration_ms']:.3f} ms a CFR+ iteration")
+    # the same solves and subjects with the subjects' strategies extracted
+    # as the TPU computed the record (matmul="tpu_bf16")
+    t0 = time.perf_counter()
+    rg16 = srg.main(["--iterations", str(rg_rec["iterations"]),
+                     "--subjects", *j_subjects,
+                     "--save", str(j_dir / "river_gap_tpu_bf16.json")],
+                    matmul="tpu_bf16")
+    j_done("j1_tpu_bf16", t0)
+    jres["j1_tpu_bf16"] = record_rows("river", rg_rec, rg16,
+                                      "j1 tpu_bf16", "tpu_bf16")
+    for part, keys in (("river", no_solve), ("river vs Nash", vs_nash)):
+        held(part, keys, rg["boards"], {"f32": jres["j1"],
+                                        "tpu_bf16": jres["j1_tpu_bf16"]})
+    log(f"path j1 tpu_bf16: {j_s['j1_tpu_bf16']:.1f} s")
 
     # (j2) turn_gap at the record's settings: stride 1 (1128 combos x 48
     # rivers), 4000 iterations, both boards, the record's subjects but
@@ -4399,6 +4450,19 @@ def main() -> int:
     log(f"path j2: {j_s['j2']:.1f} s, solves "
         f"{[r['solve_seconds'] for r in tg['boards'].values()]} s, "
         f"{jres['j2']['cfr_iteration_ms']:.3f} ms a CFR+ iteration")
+    t0 = time.perf_counter()
+    tg16 = stg.main(["--iterations", str(tg_rec["iterations"]),
+                     "--combo-stride", str(tg_rec["combo_stride"]),
+                     "--subjects", *j_subjects,
+                     "--save", str(j_dir / "turn_gap_tpu_bf16.json")],
+                    matmul="tpu_bf16")
+    j_done("j2_tpu_bf16", t0)
+    jres["j2_tpu_bf16"] = record_rows("turn", tg_rec, tg16, "j2 tpu_bf16",
+                                      "tpu_bf16")
+    for part, keys in (("turn", no_solve), ("turn vs Nash", vs_nash)):
+        held(part, keys, tg["boards"], {"f32": jres["j2"],
+                                        "tpu_bf16": jres["j2_tpu_bf16"]})
+    log(f"path j2 tpu_bf16: {j_s['j2_tpu_bf16']:.1f} s")
 
     # (j3) the committed distilled artifacts on their records' games: the
     # Nash-distilled net's gap at stride 4, the exact BR edge against es9
@@ -4409,7 +4473,10 @@ def main() -> int:
     s4_rec = record("turn_gap_stride4.json")
     distilled = tpn.load_params(ROOT / "data" / "policy_6max_distill.npz")
     es7 = tpn.load_params(ROOT / "data" / "policy_6max_es7.npz")
+    es7_soft = tpn.softened(es7, J3_SOFTEN)
     jres["j3"] = {}
+    j3_held = {"of": 0, "either": 0, "f32": 0, "tpu_bf16": 0}
+    j3_soft_s = 0.0
     for bname, board4 in stg.BOARDS.items():
         g4, c4, ts4, rs4 = stg.artifact_game(board4, 4, dev)
         jx = rehearsed("stride4", bname, "distill")
@@ -4432,6 +4499,29 @@ def main() -> int:
             f"record's gap_bb_start "
             f"{dis_rec['boards'][bname]['gap_bb_start']}, not reproduced "
             f"by JAX either)")
+        # the record's start: es7 softened, in each matmul mode
+        t1 = time.perf_counter()
+        jd = rehearsed("stride4", bname)
+        soft = {}
+        for mode in ("f32", "tpu_bf16"):
+            gap = round(tts.exploitability_gap(
+                g4, tts.net_turn_river_strategy(es7_soft, ts4, rs4, c4,
+                                                mode)) / srg.BB, 4)
+            soft[mode] = j_gate(
+                f"j3 {bname} softened es7 gap (stride 4, {mode})", gap,
+                dis_rec["boards"][bname]["gap_bb_start"], 2e-4,
+                in_mode(jd, mode)["distill_result"]["gap_bb_start_softened"],
+                mode=mode)
+            j3_held[mode] += soft[mode]["reproduced"]
+        jres["j3"][bname]["softened_start_gap_bb"] = soft
+        j3_held["of"] += 1
+        j3_held["either"] += any(r["reproduced"] for r in soft.values())
+        if not any(r["reproduced"] for r in soft.values()):
+            log(f"path j3 {bname}: the distillation record's gap_bb_start "
+                f"is reproduced by JAX in neither mode ({soft}); the "
+                f"port's softened start is not held to it")
+        sync()
+        j3_soft_s += time.perf_counter() - t1
         g1, c1, ts1, rs1 = (tgame, tcombos, tturn, triver) \
             if bname == "Ks8h5d2c" else stg.artifact_game(board4, 1, dev)
         br1, _ = tts.best_response_values(g1, tts.net_turn_river_strategy(
@@ -4445,6 +4535,14 @@ def main() -> int:
             br_rec["boards"][bname]["exact_br_edge_bb"], 2e-4,
             jx["exact_br_edge_bb"][bname])
     j_done("j3", t0)
+    j_s["j3_softened"] = j3_soft_s
+    j_counts["softened start"] = j3_held
+    jres["record_values_held"] = j_counts
+    log("path j: record values held " + ", ".join(
+        f"{part} {c['either']}/{c['of']} (f32 {c['f32']}, tpu_bf16 "
+        f"{c['tpu_bf16']})" for part, c in j_counts.items())
+        + f"; the tpu_bf16 re-scoring and the softened start took "
+        f"{j_s['j1_tpu_bf16'] + j_s['j2_tpu_bf16'] + j3_soft_s:.1f} s")
 
     # (j4) fresh distillations: Nash from es7 at the record's 1500
     # iterations and J4_NASH_STEPS steps at stride 4, and BR against es9

@@ -11,6 +11,17 @@ with ``__fmul_rn``/``__fadd_rn``, so the kernel and this function give the
 same logits bit for bit. JAX's matmul sums in another order: the two
 agree within float32 rounding, not bit for bit.
 
+``policy_logits(..., matmul="tpu_bf16")`` computes the logits as XLA does
+on the TPU at its default precision, where the JAX package's solver
+records were scored: each product's two inputs (the features, each hidden
+activation, ``w1``, ``w2``, ``w3``) rounded to bfloat16, then the same
+ordered float32 sum. A product of two bfloat16 values is exact in
+float32, so only the order of the sum differs from the TPU's. It is for
+extracting a net's strategy in the solvers (``river_solver``,
+``turn_solver``, ``scripts/river_gap``, ``scripts/turn_gap``) only; the
+default ``"f32"`` is exact float32, as JAX computes on the CPU, and the
+net kernels keep it.
+
 ``net_policy`` plays the net on the table engine (``engine/``) as a
 ``rollout/policy`` policy: ``state_features`` -> ``policy_logits`` -> the
 fold masked where nothing is owed -> a categorical pick (Gumbel-max on the
@@ -99,11 +110,31 @@ def _dense(x, w, b):
     return acc
 
 
-def policy_logits(params: MLPParams, feats) -> torch.Tensor:
-    """[..., NUM_FEATURES] -> [..., NUM_ACTIONS] float32 logits."""
-    h = torch.relu(_dense(feats, params.w1, params.b1))
-    h = torch.relu(_dense(h, params.w2, params.b2))
-    return _dense(h, params.w3, params.b3)
+MATMUL_MODES = ("f32", "tpu_bf16")
+
+
+def _bf16(x):
+    """x rounded to bfloat16 (nearest even), as float32."""
+    return x.to(torch.bfloat16).to(F32)
+
+
+def policy_logits(params: MLPParams, feats, matmul: str = "f32"
+                  ) -> torch.Tensor:
+    """[..., NUM_FEATURES] -> [..., NUM_ACTIONS] float32 logits; with
+    ``matmul="tpu_bf16"`` each product's inputs are rounded to bfloat16
+    first (see above)."""
+    if matmul not in MATMUL_MODES:
+        raise ValueError(f"matmul must be one of {MATMUL_MODES}: {matmul!r}")
+    rnd = _bf16 if matmul == "tpu_bf16" else (lambda x: x)
+    h = torch.relu(_dense(rnd(feats), rnd(params.w1), params.b1))
+    h = torch.relu(_dense(rnd(h), rnd(params.w2), params.b2))
+    return _dense(rnd(h), rnd(params.w3), params.b3)
+
+
+def softened(params: MLPParams, divisor: float) -> MLPParams:
+    """A softened start (the training scripts' ``--soften``): ``w3`` and
+    ``b3`` divided by ``divisor``, so every logit is divided by it."""
+    return params._replace(w3=params.w3 / divisor, b3=params.b3 / divisor)
 
 
 class PolicyNet(nn.Module):

@@ -449,10 +449,11 @@ def _swap_head(state, head_pos: int, combos):
     return big._replace(hole=hole)
 
 
-def _node_probs(params, state, head_pos: int, combos) -> torch.Tensor:
+def _node_probs(params, state, head_pos: int, combos, matmul: str = "f32"
+                ) -> torch.Tensor:
     """[T x C, 4] the net's masked softmax at every (table, combo) of
     ``_swap_head``: the fold logit gets -1e9 where nothing is owed, as the
-    artifact plays."""
+    artifact plays; ``matmul`` as in ``policy_net.policy_logits``."""
     from montecarlo_tpu_torch.engine.step import head_info
     from montecarlo_tpu_torch.engine.street import bets_needed
     from montecarlo_tpu_torch.models.features import state_features
@@ -466,7 +467,7 @@ def _node_probs(params, state, head_pos: int, combos) -> torch.Tensor:
     dev = s.hole.device
     params = MLPParams(*(torch.as_tensor(x).to(dev, F32) for x in params))
     with torch.no_grad():
-        logits = policy_logits(params, state_features(s))
+        logits = policy_logits(params, state_features(s), matmul)
         pos, _, _ = head_info(s)
         logits = fold_masked(logits, bets_needed(s.bets, pos) == 0)
         return torch.softmax(logits, dim=-1)
@@ -483,8 +484,8 @@ def _owed2_map(p):
     return torch.stack([p[..., 0], p[..., 1] + p[..., 2] + p[..., 3]], -1)
 
 
-def net_river_strategy(params, states, hero_combos, villain_combos
-                       ) -> RiverStrategy:
+def net_river_strategy(params, states, hero_combos, villain_combos,
+                       matmul: str = "f32") -> RiverStrategy:
     """Extract an artifact's strategy at each node for each combo, on the
     states' device.
 
@@ -492,12 +493,14 @@ def net_river_strategy(params, states, hero_combos, villain_combos
     {check = call-menu, bet = either raise size}; facing a bet at n3
     {fold, call, raise = either raise size}; at n2/n4 the tree has no
     raise, so raise mass continues the hand as a call. Probabilities come
-    from the same masked softmax the artifact plays with."""
-    p0 = _node_probs(params, states["n0"], 0, hero_combos)
-    p1 = _node_probs(params, states["n1"], 1, villain_combos)
-    p2 = _node_probs(params, states["n2"], 0, hero_combos)
-    p3 = _node_probs(params, states["n3"], 1, villain_combos)
-    p4 = _node_probs(params, states["n4"], 0, hero_combos)
+    from the same masked softmax the artifact plays with, its logits
+    computed as ``policy_net.policy_logits(..., matmul)`` computes them
+    (``"tpu_bf16"``: as the TPU computed the JAX package's records)."""
+    p0 = _node_probs(params, states["n0"], 0, hero_combos, matmul)
+    p1 = _node_probs(params, states["n1"], 1, villain_combos, matmul)
+    p2 = _node_probs(params, states["n2"], 0, hero_combos, matmul)
+    p3 = _node_probs(params, states["n3"], 1, villain_combos, matmul)
+    p4 = _node_probs(params, states["n4"], 0, hero_combos, matmul)
     s3 = torch.stack([p3[:, 0], p3[:, 1], p3[:, 2] + p3[:, 3]], 1)
     return RiverStrategy(s0=_free_map(p0), s1=_free_map(p1),
                          s2=_owed2_map(p2), s3=s3, s4=_owed2_map(p4))

@@ -720,8 +720,8 @@ def _owed_call_map(p):
                         torch.zeros_like(p[..., 0])], -1)
 
 
-def net_turn_river_strategy(params, turn_states, river_states, combos
-                            ) -> TurnRiverStrategy:
+def net_turn_river_strategy(params, turn_states, river_states, combos,
+                            matmul: str = "f32") -> TurnRiverStrategy:
     """Extract an artifact's two-street strategy (no-raise tree), on the
     states' device.
 
@@ -729,12 +729,12 @@ def net_turn_river_strategy(params, turn_states, river_states, combos
     owed {check = call-menu, bet = either raise size}; facing a bet
     {fold, call = call + raise mass}. The masked softmax is the artifact's
     own play distribution. Each river node is one batch of rivers x
-    combos tables."""
+    combos tables. ``matmul`` as in ``river_solver.net_river_strategy``."""
     C = len(combos)
 
     def probs(state, head_pos):
         """[tables, C, 4] at a node."""
-        return _node_probs(params, state, head_pos, combos).reshape(
+        return _node_probs(params, state, head_pos, combos, matmul).reshape(
             state.n_tables, C, -1)
 
     t0 = _free_map(probs(turn_states["n0"], 0)[0])

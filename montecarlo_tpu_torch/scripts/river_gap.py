@@ -15,6 +15,12 @@ Run from the repository root (the card):
 ``INIT`` as a subject's path is ``init_params(torch.Generator()
 .manual_seed(0))``, whose weights differ from the JAX script's
 ``jax.random.key(0)`` draw.
+
+``main(argv, matmul="tpu_bf16")`` extracts the subjects' strategies with
+``policy_net.policy_logits``' emulation of the TPU's bfloat16 matmul
+inputs, under which the JAX package scored ``data/river_gap.json``; the
+default is exact float32. It is a keyword of ``main`` only: the options
+stay the JAX script's.
 """
 
 from __future__ import annotations
@@ -89,9 +95,9 @@ def subject_row(game, nash, strat):
     }
 
 
-def main(argv=None, device=None):
-    """Solve both boards, measure every subject, save and return the JAX
-    script's result."""
+def main(argv=None, device=None, matmul="f32"):
+    """Solve both boards, measure every subject (its strategy extracted
+    with ``matmul``), save and return the JAX script's result."""
     args = parser().parse_args(argv)
     dev = resolve(device)
 
@@ -124,7 +130,8 @@ def main(argv=None, device=None):
 
         for spec in args.subjects:
             name, path = spec.split("=", 1)
-            strat = net_river_strategy(subject_params(path), states, hc, vc)
+            strat = net_river_strategy(subject_params(path), states, hc, vc,
+                                       matmul)
             srow = subject_row(game, nash, strat)
             row["subjects"][name] = srow
             print(json.dumps({"board": bname, "subject": name, **srow}),

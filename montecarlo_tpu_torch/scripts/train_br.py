@@ -30,6 +30,7 @@ from montecarlo_tpu_torch.models.policy_net import (
     load_params,
     net_policy,
     save_params,
+    softened,
 )
 from montecarlo_tpu_torch.models.train import fold_seed, make_update_step
 from montecarlo_tpu_torch.ops.cuda_net import selfplay_net_league
@@ -106,8 +107,7 @@ def main(argv=None, device=None):
     else:
         params = load_params(args.start)
     if args.soften != 1.0:
-        params = params._replace(w3=params.w3 / args.soften,
-                                 b3=params.b3 / args.soften)
+        params = softened(params, args.soften)
 
     opt_init, update = make_update_step(
         cfg, opponent=net_policy(frozen), tables=args.tables, lr=args.lr,

@@ -34,7 +34,11 @@ from montecarlo_tpu_torch.device import resolve
 from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models.bots import panel
 from montecarlo_tpu_torch.models.leash import make_anchor_score
-from montecarlo_tpu_torch.models.policy_net import load_params, save_params
+from montecarlo_tpu_torch.models.policy_net import (
+    load_params,
+    save_params,
+    softened,
+)
 from montecarlo_tpu_torch.models.train_es import (
     kernel_eval_fn,
     kernel_eval_pop_fn,
@@ -198,8 +202,7 @@ def main(argv=None, device=None):
     gens_left = max(0, args.generations - base_done)
     params0 = load_params(start_path)
     if args.soften > 1.0 and start_path != ckpt_path:
-        params0 = params0._replace(w3=params0.w3 / args.soften,
-                                   b3=params0.b3 / args.soften)
+        params0 = softened(params0, args.soften)
         emit({"softened": args.soften})
 
     def checkpoint(g, center, best, best_quality):

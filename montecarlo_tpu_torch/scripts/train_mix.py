@@ -34,6 +34,7 @@ from montecarlo_tpu_torch.models.policy_net import (
     load_params,
     net_policy,
     save_params,
+    softened,
 )
 from montecarlo_tpu_torch.models.train import fold_seed, make_update_step
 from montecarlo_tpu_torch.rollout.policy import random_policy
@@ -106,8 +107,7 @@ def main(argv=None, device=None):
              if args.start == "INIT" else load_params(args.start))
     pool = parse_pool(args.opponents, start)  # 'self' = the original
     if args.soften > 1.0:
-        start = start._replace(w3=start.w3 / args.soften,
-                               b3=start.b3 / args.soften)
+        start = softened(start, args.soften)
         print(json.dumps({"softened": args.soften}), flush=True)
 
     def score(p, seed, n_tables):

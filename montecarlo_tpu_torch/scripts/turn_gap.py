@@ -14,6 +14,8 @@ Run from the repository root (the card):
 
 ``INIT`` is ``init_params(torch.Generator().manual_seed(0))``, whose
 weights differ from the JAX script's ``jax.random.key(0)`` draw.
+``main(argv, matmul="tpu_bf16")`` extracts the subjects' strategies as
+``river_gap.main`` does under that keyword.
 """
 
 from __future__ import annotations
@@ -107,9 +109,10 @@ def subject_row(game, nash, strat):
     }
 
 
-def main(argv=None, device=None):
-    """Solve each board, measure every subject; save (after each row, as
-    the JAX script does) and return the JAX script's result."""
+def main(argv=None, device=None, matmul="f32"):
+    """Solve each board, measure every subject (its strategy extracted
+    with ``matmul``); save (after each row, as the JAX script does) and
+    return the JAX script's result."""
     args = parser().parse_args(argv)
     dev = resolve(device)
 
@@ -157,7 +160,7 @@ def main(argv=None, device=None):
             t1 = synced()
             strat = net_turn_river_strategy(subject_params(path),
                                             turn_states, river_states,
-                                            combos)
+                                            combos, matmul)
             srow = subject_row(game, nash, strat)
             srow["eval_seconds"] = round(synced() - t1, 1)
             row["subjects"][name] = srow
