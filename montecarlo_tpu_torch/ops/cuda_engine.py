@@ -53,6 +53,7 @@ from montecarlo_tpu_torch.ops.evaluator import (
     suit_masks_from_cards,
 )
 from montecarlo_tpu_torch.ops.philox import stream_words, words_as_i32
+from montecarlo_tpu_torch.utils.profiling import span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -132,59 +133,60 @@ def pack_state(cfg, first_cards) -> torch.Tensor:
     ``first_cards`` [n_tables, 2P+5] (holes round-robin, then the board)
     and blinds posted. Returns [n_blocks, F, 8, 128] int32 on the device
     of ``first_cards``."""
-    P, rules = cfg.num_seats, cfg.rules
-    _check_config(P, rules)
-    layout, F = _field_layout(P, rules)
-    fc = torch.as_tensor(first_cards).to(I32)
-    n_tables = fc.shape[0]
-    if n_tables % TABLES_PER_BLOCK:
-        raise ValueError(f"{n_tables} tables: not a multiple of "
-                         f"{TABLES_PER_BLOCK}")
-    sb, bb, ss = cfg.small_blind, cfg.big_blind, cfg.starting_stack
-    if sb <= 0 or bb <= 0:
-        raise ValueError("blinds must be positive")
-    if rules != "reference":  # blinds capped at the stack
-        sb, bb = min(sb, max(ss, 0)), min(bb, max(ss, 0))
-    rows = torch.zeros((F, n_tables), dtype=I32, device=fc.device)
+    with span("pack_state"):
+        P, rules = cfg.num_seats, cfg.rules
+        _check_config(P, rules)
+        layout, F = _field_layout(P, rules)
+        fc = torch.as_tensor(first_cards).to(I32)
+        n_tables = fc.shape[0]
+        if n_tables % TABLES_PER_BLOCK:
+            raise ValueError(f"{n_tables} tables: not a multiple of "
+                             f"{TABLES_PER_BLOCK}")
+        sb, bb, ss = cfg.small_blind, cfg.big_blind, cfg.starting_stack
+        if sb <= 0 or bb <= 0:
+            raise ValueError("blinds must be positive")
+        if rules != "reference":  # blinds capped at the stack
+            sb, bb = min(sb, max(ss, 0)), min(bb, max(ss, 0))
+        rows = torch.zeros((F, n_tables), dtype=I32, device=fc.device)
 
-    def put(name, i, val):
-        off, n = layout[name]
-        assert 0 <= i < n
-        rows[off + i] = val
+        def put(name, i, val):
+            off, n = layout[name]
+            assert 0 <= i < n
+            rows[off + i] = val
 
-    full = (1 << P) - 1
-    put("cursor", 0, 2 % P)
-    put("last_raiser", 0, P)
-    put("in_hand", 0, full)
-    all_in = 0
-    for k in range(P):
-        blind = sb if k == 0 else (bb if k == 1 else 0)
-        put("stacks", k, ss - blind)
-        put("hand_start", k, ss)
-        all_in |= (ss - blind <= 0) << k
-    if rules != "reference":  # all-in blinds sit out, showdown-live
-        put("all_in", 0, all_in)
-    else:
+        full = (1 << P) - 1
+        put("cursor", 0, 2 % P)
+        put("last_raiser", 0, P)
+        put("in_hand", 0, full)
         all_in = 0
-    if rules == "tournament":  # nobody has busted yet
         for k in range(P):
-            put("bust_at", k, -1)
-    put("to_act", 0, full & ~all_in)
-    put("order", 0, full & ~all_in)
-    for k in range(P):
-        put("hole0", k, fc[:, k])
-        put("hole1", k, fc[:, P + k])
-    lo, hi = min(sb, bb), max(sb, bb)
-    put("lvl", 0, lo)
-    put("ln", 0, 2)
-    if lo != hi:
-        put("lvl", 1, hi)
-        put("ln", 1, 1)
-    put("contrib", 0, sb)
-    put("contrib", 1, bb)
-    for i in range(5):
-        put("board", i, fc[:, 2 * P + i])
-    return _to_blocks(rows)
+            blind = sb if k == 0 else (bb if k == 1 else 0)
+            put("stacks", k, ss - blind)
+            put("hand_start", k, ss)
+            all_in |= (ss - blind <= 0) << k
+        if rules != "reference":  # all-in blinds sit out, showdown-live
+            put("all_in", 0, all_in)
+        else:
+            all_in = 0
+        if rules == "tournament":  # nobody has busted yet
+            for k in range(P):
+                put("bust_at", k, -1)
+        put("to_act", 0, full & ~all_in)
+        put("order", 0, full & ~all_in)
+        for k in range(P):
+            put("hole0", k, fc[:, k])
+            put("hole1", k, fc[:, P + k])
+        lo, hi = min(sb, bb), max(sb, bb)
+        put("lvl", 0, lo)
+        put("ln", 0, 2)
+        if lo != hi:
+            put("lvl", 1, hi)
+            put("ln", 1, 1)
+        put("contrib", 0, sb)
+        put("contrib", 1, bb)
+        for i in range(5):
+            put("board", i, fc[:, 2 * P + i])
+        return _to_blocks(rows)
 
 
 def _to_rows(state: torch.Tensor) -> torch.Tensor:
@@ -915,28 +917,29 @@ def run_perpetual_prng(seed: int, state, P: int, n_steps: int, sb: int,
     settlement. Words come from Philox keyed by (``seed``, table), the
     same on the CPU and on the card, or from ``words`` (int64 in
     [0, 2^32), shape ``prng_words_shape``)."""
-    _check_config(P, rules)
-    _check_state(state, P, rules)
-    nb = state.shape[0]
-    shape = prng_words_shape(nb * TABLES_PER_BLOCK, P, n_steps)
-    if words is not None and (tuple(words.shape) != shape
-                              or words.device != state.device):
-        raise ValueError(f"words must be {shape} on {state.device}")
-    if state.device.type == "cpu":
-        if words is None:
-            return _run_prng_plain_philox(seed, state, P, n_steps, sb, bb,
-                                          rules)
-        return _run_prng_plain(state, words, P, n_steps, sb, bb, rules)
-    lib = _build.library(P)
-    out = state.clone()
-    w32 = None if words is None else words_as_i32(words).contiguous()
-    _build.check(lib.mc_engine_prng(
-        out.data_ptr(), int(seed), None if w32 is None else w32.data_ptr(),
-        nb, P, RULES.index(rules), n_steps, _defer_for(n_steps), sb, bb,
-        FOLD_P_BITS, RAISE_P_BITS, _build.stream_ptr(state.device)),
-        "mc_engine_prng")
-    LAUNCHES[f"engine_prng_{rules}"] += 1
-    return out
+    with span(f"launch.engine_prng_{rules}"):
+        _check_config(P, rules)
+        _check_state(state, P, rules)
+        nb = state.shape[0]
+        shape = prng_words_shape(nb * TABLES_PER_BLOCK, P, n_steps)
+        if words is not None and (tuple(words.shape) != shape
+                                  or words.device != state.device):
+            raise ValueError(f"words must be {shape} on {state.device}")
+        if state.device.type == "cpu":
+            if words is None:
+                return _run_prng_plain_philox(seed, state, P, n_steps, sb, bb,
+                                              rules)
+            return _run_prng_plain(state, words, P, n_steps, sb, bb, rules)
+        lib = _build.library(P)
+        out = state.clone()
+        w32 = None if words is None else words_as_i32(words).contiguous()
+        _build.check(lib.mc_engine_prng(
+            out.data_ptr(), int(seed), None if w32 is None else w32.data_ptr(),
+            nb, P, RULES.index(rules), n_steps, _defer_for(n_steps), sb, bb,
+            FOLD_P_BITS, RAISE_P_BITS, _build.stream_ptr(state.device)),
+            "mc_engine_prng")
+        LAUNCHES[f"engine_prng_{rules}"] += 1
+        return out
 
 
 def first_deal(seed: int, n_tables: int, P: int, device=None,
@@ -946,10 +949,13 @@ def first_deal(seed: int, n_tables: int, P: int, device=None,
     1``: table t's are drawn like an in-kernel deal from Philox stream
     (seed, t, 0, 1), which no kernel draws from, so every device deals
     the same cards."""
-    t = torch.arange(first_table, first_table + n_tables, dtype=I64,
-                     device=resolve(device))
-    words = stream_words(seed, t, 0, 1, 0, 2 * P + 5)
-    return torch.stack(_sample_cards(words, []), dim=1)
+    with span("first_deal"):
+        t = torch.arange(first_table, first_table + n_tables, dtype=I64,
+                         device=resolve(device))
+        with span("first_deal.words"):
+            words = stream_words(seed, t, 0, 1, 0, 2 * P + 5)
+        with span("first_deal.cards"):
+            return torch.stack(_sample_cards(words, []), dim=1)
 
 
 def selfplay_perpetual_kernel(seed: int, cfg, n_tables: int, n_steps: int,
@@ -970,8 +976,9 @@ def selfplay_perpetual_kernel(seed: int, cfg, n_tables: int, n_steps: int,
                                    cfg.num_seats, chunk, cfg.small_blind,
                                    cfg.big_blind, rules=cfg.rules)
         done += chunk
-    hands = int(unpack_field(state, cfg, "hand_ct").sum())
-    ovf = int(unpack_field(state, cfg, "overflow").sum())
+    with span("selfplay.read"):
+        hands = int(unpack_field(state, cfg, "hand_ct").sum())
+        ovf = int(unpack_field(state, cfg, "overflow").sum())
     return state, hands, ovf
 
 

@@ -45,6 +45,7 @@ from montecarlo_tpu_torch.ops.evaluator import (
     suit_masks_from_cards,
 )
 from montecarlo_tpu_torch.ops.philox import MASK, stream_words, words_as_i32
+from montecarlo_tpu_torch.utils.profiling import span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -362,27 +363,28 @@ def sweep_counts(seed: int, dead: torch.Tensor, hero_masks: torch.Tensor,
     ``hero_masks``: int32 [H, 4], their suit masks (the kernel ranks
     exactly 7 cards a hand). ``words`` (optional): int64 [7, H,
     n_per_hand]; without them the words are Philox's for ``seed``."""
-    H = dead.shape[0]
-    dev = dead.device
-    if words is not None:
-        _check_words(words, (7, H, n_per_hand), dev)
-    if dev.type == "cuda":
-        lib = _build.library()
-        dead_c = dead.to(I32).contiguous()
-        masks_c = hero_masks.to(I32).contiguous()
-        out = torch.zeros((2, H), dtype=I64, device=dev)
-        w32 = None if words is None else words_as_i32(words).contiguous()
-        _build.check(lib.mc_sweep_counts(
-            int(seed), dead_c.data_ptr(), masks_c.data_ptr(), H,
-            int(n_per_hand), None if w32 is None else w32.data_ptr(),
-            out.data_ptr(), _build.stream_ptr(dev)), "mc_sweep_counts")
-        LAUNCHES["sweep"] += 1
-        return out
-    if dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    if words is not None:
-        return _sweep_counts_plain(words, dead, hero_masks)
-    return _sweep_counts_plain_philox(seed, dead, hero_masks, n_per_hand)
+    with span("launch.sweep"):
+        H = dead.shape[0]
+        dev = dead.device
+        if words is not None:
+            _check_words(words, (7, H, n_per_hand), dev)
+        if dev.type == "cuda":
+            lib = _build.library()
+            dead_c = dead.to(I32).contiguous()
+            masks_c = hero_masks.to(I32).contiguous()
+            out = torch.zeros((2, H), dtype=I64, device=dev)
+            w32 = None if words is None else words_as_i32(words).contiguous()
+            _build.check(lib.mc_sweep_counts(
+                int(seed), dead_c.data_ptr(), masks_c.data_ptr(), H,
+                int(n_per_hand), None if w32 is None else w32.data_ptr(),
+                out.data_ptr(), _build.stream_ptr(dev)), "mc_sweep_counts")
+            LAUNCHES["sweep"] += 1
+            return out
+        if dev.type != "cpu":
+            raise ValueError(f"unsupported device {dev}")
+        if words is not None:
+            return _sweep_counts_plain(words, dead, hero_masks)
+        return _sweep_counts_plain_philox(seed, dead, hero_masks, n_per_hand)
 
 
 def equity_sweep_kernel(seed: int, heroes, n_per_hand: int, device=None):
@@ -390,13 +392,16 @@ def equity_sweep_kernel(seed: int, heroes, n_per_hand: int, device=None):
     ``device`` (the card when None).
 
     Returns (equity float64 numpy [H], rollouts per hand)."""
-    device = resolve(device)
-    heroes = torch.as_tensor(heroes, dtype=I32).reshape(-1, 2)
-    dead = torch.sort(heroes, dim=1).values
-    hm = torch.stack(suit_masks_from_cards(heroes), dim=1)
-    counts = sweep_counts(seed, dead.to(device), hm.to(device), n_per_hand)
-    w, t = counts.cpu().numpy().astype(np.float64)
-    return (w + 0.5 * t) / n_per_hand, n_per_hand
+    with span("sweep.masks"):
+        device = resolve(device)
+        heroes = torch.as_tensor(heroes, dtype=I32).reshape(-1, 2)
+        dead = torch.sort(heroes, dim=1).values
+        hm = torch.stack(suit_masks_from_cards(heroes), dim=1)
+        dead, hm = dead.to(device), hm.to(device)
+    counts = sweep_counts(seed, dead, hm, n_per_hand)
+    with span("sweep.read"):
+        w, t = counts.cpu().numpy().astype(np.float64)
+        return (w + 0.5 * t) / n_per_hand, n_per_hand
 
 
 def multiway_shares(seed: int, dead: torch.Tensor, hand_masks: torch.Tensor,

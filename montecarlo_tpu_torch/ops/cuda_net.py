@@ -56,6 +56,7 @@ from montecarlo_tpu_torch.ops import _build
 from montecarlo_tpu_torch.ops import cuda_engine as ce
 from montecarlo_tpu_torch.ops.cuda_equity import _sample_cards
 from montecarlo_tpu_torch.ops.philox import stream_words, words_as_i32
+from montecarlo_tpu_torch.utils.profiling import span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -112,7 +113,8 @@ def net_weights(params: MLPParams, device=None) -> torch.Tensor:
 def bank_weights(params_banks, device=None) -> torch.Tensor:
     """B ``MLPParams`` -> the banked weights, float32 [B, NUM_WEIGHTS] on
     ``device`` (the card when None); row b is ``net_weights`` of bank b."""
-    return torch.stack([net_weights(p, device) for p in params_banks])
+    with span("weights"):
+        return torch.stack([net_weights(p, device) for p in params_banks])
 
 
 def pop_weights(params_list, device=None, opponent=None) -> torch.Tensor:
@@ -422,38 +424,39 @@ def _launch_eval(form, seed, state, weights, P, n_steps, sb, bb, ss, rules,
     ``_grid`` for the shapes): the plain version for CPU tensors, else the
     kernel. ``decisions``: an int64 [1] tensor on the state's device to
     which the launch adds its count of net decisions."""
-    grid, w3 = _grid(state, weights)
-    C, nb = grid.shape[:2]
-    T = nb * ce.TABLES_PER_BLOCK
-    if not 0 <= net_seats < 1 << P:
-        raise ValueError(f"net_seats={net_seats}: not a mask of {P} seats")
-    stb, bank_map = _banks(seat_to_bank, P, w3.shape[1])
-    shape = net_words_shape(T, P, n_steps)
-    if words is not None and (tuple(words.shape) != shape
-                              or words.device != state.device):
-        raise ValueError(f"words must be {shape} on {state.device}")
-    if decisions is not None and (decisions.dtype != I64
-                                  or tuple(decisions.shape) != (1,)
-                                  or decisions.device != state.device):
-        raise ValueError(f"decisions must be int64 [1] on {state.device}")
-    if state.device.type == "cpu":
-        return _net_eval_plain(
-            state, (lambda it: words[it]) if words is not None else
-            (lambda it: net_words(seed, T, P, n_steps, it, state.device)),
-            weights, P, n_steps, sb, bb, ss, rules, net_seats, reset_stacks,
-            stb, decisions)
-    lib = _build.library(P)
-    out = state.clone(memory_format=torch.contiguous_format)
-    w32 = None if words is None else words_as_i32(words).contiguous()
-    _build.check(lib.mc_net_eval(
-        out.data_ptr(), int(seed), None if w32 is None else w32.data_ptr(),
-        weights.data_ptr(), C, nb, P, RULES.index(rules), n_steps,
-        ce._defer_for(n_steps), sb, bb, ss, net_seats, int(reset_stacks),
-        ce.FOLD_P_BITS, ce.RAISE_P_BITS, w3.shape[1], bank_map,
-        None if decisions is None else decisions.data_ptr(),
-        _build.stream_ptr(state.device)), "mc_net_eval")
-    LAUNCHES[f"net_{form}_{rules}"] += 1
-    return out
+    with span(f"launch.net_{form}_{rules}"):
+        grid, w3 = _grid(state, weights)
+        C, nb = grid.shape[:2]
+        T = nb * ce.TABLES_PER_BLOCK
+        if not 0 <= net_seats < 1 << P:
+            raise ValueError(f"net_seats={net_seats}: not a mask of {P} seats")
+        stb, bank_map = _banks(seat_to_bank, P, w3.shape[1])
+        shape = net_words_shape(T, P, n_steps)
+        if words is not None and (tuple(words.shape) != shape
+                                  or words.device != state.device):
+            raise ValueError(f"words must be {shape} on {state.device}")
+        if decisions is not None and (decisions.dtype != I64
+                                      or tuple(decisions.shape) != (1,)
+                                      or decisions.device != state.device):
+            raise ValueError(f"decisions must be int64 [1] on {state.device}")
+        if state.device.type == "cpu":
+            return _net_eval_plain(
+                state, (lambda it: words[it]) if words is not None else
+                (lambda it: net_words(seed, T, P, n_steps, it, state.device)),
+                weights, P, n_steps, sb, bb, ss, rules, net_seats,
+                reset_stacks, stb, decisions)
+        lib = _build.library(P)
+        out = state.clone(memory_format=torch.contiguous_format)
+        w32 = None if words is None else words_as_i32(words).contiguous()
+        _build.check(lib.mc_net_eval(
+            out.data_ptr(), int(seed), None if w32 is None else w32.data_ptr(),
+            weights.data_ptr(), C, nb, P, RULES.index(rules), n_steps,
+            ce._defer_for(n_steps), sb, bb, ss, net_seats, int(reset_stacks),
+            ce.FOLD_P_BITS, ce.RAISE_P_BITS, w3.shape[1], bank_map,
+            None if decisions is None else decisions.data_ptr(),
+            _build.stream_ptr(state.device)), "mc_net_eval")
+        LAUNCHES[f"net_{form}_{rules}"] += 1
+        return out
 
 
 def run_net_eval(seed: int, state, weights, P: int, n_steps: int, sb: int,
@@ -616,12 +619,15 @@ def pop_meters(state, cfg):
     (``pallas_engine._pop_meters``): (bb_per_hand [C, P], stderr [C, P],
     hands [C]). Only the hand counter and the P seat-delta rows go to the
     host; the arithmetic is ``seat_meters``'."""
-    rows = torch.tensor(_meter_rows(cfg), device=state.device)
-    host = state.index_select(2, rows).cpu().numpy().astype(np.float64)
-    C, _, n_rows = host.shape[:3]
-    # [C, n_blocks, P + 1, 8, 128] -> per candidate [P + 1, tables]
-    host = host.transpose(0, 2, 1, 3, 4).reshape(C, n_rows, -1)
-    out = [_meters(c[0], c[1:], cfg.big_blind) for c in host]
+    with span("meters.read"):
+        rows = torch.tensor(_meter_rows(cfg), device=state.device)
+        host = state.index_select(2, rows).cpu().numpy()
+    with span("meters.stats"):
+        host = host.astype(np.float64)
+        C, _, n_rows = host.shape[:3]
+        # [C, n_blocks, P + 1, 8, 128] -> per candidate [P + 1, tables]
+        host = host.transpose(0, 2, 1, 3, 4).reshape(C, n_rows, -1)
+        out = [_meters(c[0], c[1:], cfg.big_blind) for c in host]
     return (np.array([m for m, _, _ in out]), np.array([e for _, e, _ in out]),
             np.array([h for _, _, h in out], np.int64))
 

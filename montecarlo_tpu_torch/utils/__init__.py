@@ -1,2 +1,3 @@
 """Host utilities: table-state checkpoints (``checkpoint.py``) and
-profiler traces and the equity CI meter (``profiling.py``)."""
+profiler traces, the span recorder and the equity CI meter
+(``profiling.py``)."""
