@@ -69,7 +69,11 @@ Phases (any failure raises and exits non-zero; no phase is caught):
    with CUDA events, beside the tables still live); B3's flop call, and
    B3 preflop on 2^26 rollouts; then K1 (preflop, flop and turn: each of
    its forms), K2, K4 and B3 (preflop and flop) on injected words (their
-   ``words`` option), and K1's turn form in Philox mode;
+   ``words`` option), and K1's turn form in Philox mode; F1, the first
+   state (``cuda_engine.first_state``), against ``pack_state(first_deal(
+   ...))`` on the card under each rule set at 2^20 tables and under the
+   standard and tournament rules at the league's 2^16 (from table 0 and
+   5 x 1024), one launch a call;
 4. timing: each main-path kernel call again on the card (CUDA events; K1's
    and B3's flop calls too), the card's SM clock, power draw and
    temperature sampled by ``nvidia-smi`` every 100 ms over each call,
@@ -604,6 +608,14 @@ def bound(n_bytes, int_ops, f32_ops=0):
          "operations": max(int_ops / INT_OPS_PER_S, f32_ops / F32_OPS_PER_S)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
+
+
+def pop_first_states(counts):
+    """Takes F1's launches (``first_state_<rules>``) out of ``counts``:
+    every path that builds a first state on the card launches it. Returns
+    {rules: launches}."""
+    return {k[len("first_state_"):]: counts.pop(k) for k in list(counts)
+            if k.startswith("first_state_")}
 
 
 def path_k(dev, smi):
@@ -1277,7 +1289,9 @@ def path_l(dev, smi, phase1):
                      "K3": counts.pop("engine_det_reference", 0),
                      "K4": counts.pop("engine_prng_reference", 0),
                      "K5b": counts.pop("net_det_banked_standard", 0)}
-    check(not counts, f"path l launches only K1-K5 ({counts})")
+    f1 = pop_first_states(counts)
+    log(f"path l: F1 launches {f1}")
+    check(not counts, f"path l launches only K1-K5 and F1 ({counts})")
     check(all(path_launches.values()),
           f"path l launched K1, K2, K3, K4 and K5 ({path_launches})")
     lres["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1592,7 +1606,9 @@ def path_n(dev, smi, phase1, split_builds):
                    "K4": n1.pop("engine_prng_reference", 0),
                    "K6": n1.pop("net_eval_standard", 0),
                    "B8": n1.pop("net_pop_standard", 0)}
-    log(f"path n1: bench line {json.dumps(line)}; launches {n1_launches}")
+    f1 = pop_first_states(n1)
+    log(f"path n1: bench line {json.dumps(line)}; launches {n1_launches}, "
+        f"F1 {f1}")
     keys = tbench.reference_keys(ROOT / "bench.py")
     check(set(line) == keys, f"path n1: the bench line has exactly "
           f"bench.py's keys (missing {keys - set(line)}, extra "
@@ -1601,9 +1617,10 @@ def path_n(dev, smi, phase1, split_builds):
           "path n1: no key of the bench line is null")
     check(line["betting_backend"] == tbench.K4,
           "path n1: the betting axis ran K4")
-    check(all(v > 0 for v in n1_launches.values()) and not n1,
-          f"path n1: K1, K2, K4, K6 and B8 launched, nothing else "
-          f"({n1_launches}, {n1})")
+    check(all(v > 0 for v in n1_launches.values()) and not n1
+          and set(f1) == {"reference", "standard"},
+          f"path n1: K1, K2, K4, K6 and B8 launched, their first states "
+          f"from F1, nothing else ({n1_launches}, {f1}, {n1})")
     nres["n1"] = line
     done("n1", t0)
 
@@ -1706,15 +1723,17 @@ def path_n(dev, smi, phase1, split_builds):
     reset()
     state4 = ess.build_state(cfg, dev)
     res4 = {v: ess.measure(cfg, state4, v) for v in csp.VARIANTS}
-    state6 = ce.pack_state(std, ce.first_deal(0, ens.N_TABLES, P, dev))
+    state6 = ce.first_state(0, std, ens.N_TABLES, dev)
     res6 = {v: ens.measure(std, state6, w_net, v) for v in cns.VARIANTS}
     n2 = counts()
+    f1 = pop_first_states(n2)
     launches = {f"split_{v}": n2.pop(f"split_{v}", 0) for v in csp.VARIANTS}
     launches.update({f"net_split_{v}": n2.pop(f"net_split_{v}", 0)
                      for v in cns.VARIANTS})
-    check(all(x > 0 for x in launches.values()) and not n2,
-          f"path n2: every split variant launched, nothing else "
-          f"({launches}, {n2})")
+    check(all(x > 0 for x in launches.values()) and not n2
+          and f1 == {"reference": 1, "standard": 1},
+          f"path n2: every split variant launched, F1 once for each first "
+          f"state, nothing else ({launches}, {f1}, {n2})")
     for name, probe, res, mod in (("K4 split", "split", res4, csp),
                                   ("K6 split", "net_split", res6, cns)):
         for v, r in res.items():
@@ -1950,8 +1969,10 @@ def path_o(dev, smi, split_builds, exact_equity):
     check(list(o2) == eng.keys() and all(v > 0 for v in o2.values()),
           "path o2: every key of exp_net_grid timed")
     check(set(o2_launches) == {f"net_eval_{r}" for r in eng.RULES}
-          | {f"engine_prng_{r}" for r in eng.RULES},
-          f"path o2: K6 and K4 launched, nothing else ({o2_launches})")
+          | {f"engine_prng_{r}" for r in eng.RULES}
+          | {f"first_state_{r}" for r in eng.RULES},
+          f"path o2: K6, K4 and F1 (the first states) launched, nothing "
+          f"else ({o2_launches})")
     ores["o2"] = o2
     done("o2", t0)
 
@@ -2722,6 +2743,27 @@ def main() -> int:
           sp_std, p)
     del p
 
+    # F1 against its plain version on the same seed and tables: the random
+    # cell's size under every rule set, the league's under the standard and
+    # tournament rules; one launch a call, no other kernel
+    for c, T, t_0 in ((cfg, T_FULL, 0), (std, T_FULL, 0), (tour, T_FULL, 0),
+                      (std, T_LEAGUE, 0), (tour, T_LEAGUE, 0),
+                      (std, T_LEAGUE, 5 * 1024)):
+        reset_counts()
+        k = ce.first_state(SEED, c, T, dev, t_0)
+        n = {key: v for mod in (cq, ce, cn, cc, cs, philox)
+             for key, v in mod.LAUNCHES.items() if v}
+        check(n == {f"first_state_{c.rules}": 1},
+              f"F1 {c.rules}, {T} tables: one launch and no other ({n})")
+        if c is std and T == T_FULL:
+            launches["F1"] = n[f"first_state_{c.rules}"]
+        agree("F1", f"{c.rules} rules, {T} tables from table {t_0}", k,
+              ce.pack_state(c, ce.first_deal(SEED, T, P, dev, t_0)))
+        del k
+    p, plain_ms["F1"] = timed(lambda: ce.pack_state(
+        std, ce.first_deal(SEED, T_FULL, P, dev)))
+    del p
+
     p, plain_ms["K5"] = timed(lambda: cn._run_net_det_plain(
         st_net_det, stash_net, w_bot, P, NET_DET_STEPS, SB, BB, "standard"))
     agree("K5", f"{T_NET} tables x {NET_DET_STEPS} steps", k5_out, p)
@@ -2955,6 +2997,7 @@ def main() -> int:
             rules="tournament"),
         "K4t": lambda: ce.run_perpetual_prng(
             SEED, st_tour0, P, TOUR_LAUNCH, SB, BB, rules="tournament"),
+        "F1": lambda: ce.first_state(SEED, std, T_FULL, dev),
     }
     times = {}
     for key, job in timings.items():
@@ -2975,6 +3018,11 @@ def main() -> int:
     for name, rep in sorted(ptxas.items()):
         m = re.search(r"mc_engine_(det|prng)_kernelILi6ELi(\d)E(Lb(\d)E)?",
                       name)
+        f = re.search(r"mc_first_state_kernelILi6ELi(\d)E", name)
+        if f:
+            log(f"ptxas F1 {ce.RULES[int(f.group(1))]}: {rep['registers']} "
+                f"registers, {rep['stack']} B stack, {rep['spill_stores']} "
+                f"B spill stores, {rep['spill_loads']} B spill loads")
         if not m:
             continue
         key = ("K3" if m.group(1) == "det" else "K4") + rule_key[m.group(2)]
@@ -3193,6 +3241,12 @@ def main() -> int:
                    k4t_hands * OPS["step"]
                    + T_FULL * blocks_t * OPS["philox_block"]
                    + k4t_hands * P * OPS["hand_key"], 0)
+    # F1: the state written once; per table the Philox blocks of its 2P+5
+    # words and one deal (P = 6: 17 cards)
+    work["F1"] = (T_FULL, "tables",
+                  T_FULL * ce._field_layout(P, "standard")[1] * 4,
+                  T_FULL * (-(-(2 * P + 5) // 4) * OPS["philox_block"]
+                            + OPS["deal"]), 0)
     # the plain versions' work where it is not the kernel call's: B8's on
     # four candidates, B3's preflop on N_MW_PLAIN rollouts
     plain_work = {k: len(PLAIN_CANDIDATES) * T_TRAIN * TRAIN_SLOTS
@@ -3923,7 +3977,8 @@ def main() -> int:
                                 **philox.LAUNCHES}.items()
               if k not in ("engine_prng_reference", "engine_prng_tournament",
                            "net_det_standard", "net_det_banked_standard",
-                           "net_eval_standard")}
+                           "net_eval_standard")
+              and not k.startswith("first_state_")}
     check(not any(others.values()), f"path h launches no other kernel "
           f"({ {k: v for k, v in others.items() if v} })")
     sync()
@@ -4256,7 +4311,8 @@ def main() -> int:
                                 **cc.LAUNCHES, **cs.LAUNCHES,
                                 **philox.LAUNCHES}.items()
               if k not in ("net_eval_standard", "net_league_standard",
-                           "net_pop_standard", "net_league_pop_standard")}
+                           "net_pop_standard", "net_league_pop_standard")
+              and not k.startswith("first_state_")}
     check(not any(others.values()), f"path i launches no other kernel "
           f"({ {k: v for k, v in others.items() if v} })")
     sync()
@@ -4687,6 +4743,8 @@ def main() -> int:
          src + "engine.cu", engine + "716"),
         ("B3", "B3 equity_multiway (N = 3, preflop)", src + "multiway.cu",
          "montecarlo_tpu/ops/pallas_equity.py:268"),
+        ("F1", "F1 first_state standard", src + "engine.cu",
+         "montecarlo_tpu_torch/ops/cuda_engine.py first_deal + pack_state"),
     ]
     carry_script = "scripts/exp_carry_model.py:"
     meta += [(f"carry_{form}_R141", f"B-1 {name} (R = 141, {where})",

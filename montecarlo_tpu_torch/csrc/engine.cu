@@ -6,7 +6,9 @@
 // stash. K4 `mc_engine_prng_kernel` replaces `_make_kernel(mode="prng")`
 // via run_perpetual_prng: the random policy, `defer` betting slots per
 // settle pass and an in-kernel deal, on Philox words or (a second
-// instantiation, INJECT) injected words. Both are instantiated per rule set
+// instantiation, INJECT) injected words. `mc_first_state_kernel` writes a
+// request's first state (first_state: the first deal and pack_state of
+// the plain version, in one launch). All are instantiated per rule set
 // (reference, standard, tournament) for the one seat count MC_SEATS of the
 // library being built, as the TPU kernels are compiled per static
 // configuration.
@@ -35,6 +37,9 @@
 #include <cuda_runtime.h>
 
 #include "engine.cuh"
+
+// Threads a block of the first-state kernel (one table each).
+#define MC_FIRST_STATE_THREADS 256
 
 // actions: [n_blocks, n_steps, 8, 128]; cards: [n_blocks, hmax, 2P+5, 8,
 // 128]. Hand h > 0 of a table is dealt from stash row min(h, hmax - 1).
@@ -93,6 +98,21 @@ __global__ void __launch_bounds__(MC_ENGINE_THREADS,
   mc_store(s, rows, MC_TABLES_PER_BLOCK);
 }
 
+// A request's first state (ops/cuda_engine.first_state): table t of the
+// launch is table first_table + t of the request's streams. One thread a
+// table, which writes its F rows once (mc_first_state_rows);
+// neighbouring threads hold neighbouring lanes of a block, so each row
+// store coalesces. Bound by the stores: the state crosses HBM once.
+template <int P, int R>
+__global__ void __launch_bounds__(MC_FIRST_STATE_THREADS)
+    mc_first_state_kernel(int* state, uint32_t seed, long long first_table,
+                          int sb, int bb, int ss) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  mc_first_state_rows<P, R>(mc_table_rows<P, R>(state, t),
+                            MC_TABLES_PER_BLOCK, seed,
+                            (uint32_t)(first_table + t), sb, bb, ss);
+}
+
 template <int P, int R>
 static int mc_launch_det(int* state, const int* actions, const int* cards,
                          int n_tables, int n_steps, int hmax, int sb, int bb,
@@ -135,6 +155,24 @@ extern "C" int mc_engine_det(int* state, const int* actions,
   case R * 100 + N:                                                       \
     return mc_launch_det<N, R>(state, actions, cards, n_tables, n_steps,  \
                                hmax, sb, bb, st);
+  MC_ENGINE_DISPATCH(MC_CASE)
+#undef MC_CASE
+}
+
+// Writes every row of `state` [n_blocks, F, 8, 128]. Table indices
+// first_table .. first_table + n_blocks * 1024 - 1 must lie in [0, 2^32).
+extern "C" int mc_first_state(int* state, unsigned int seed,
+                              long long first_table, int n_blocks, int P,
+                              int rules, int sb, int bb, int ss,
+                              void* stream) {
+  if (n_blocks == 0) return 0;
+  const int grid = n_blocks * (MC_TABLES_PER_BLOCK / MC_FIRST_STATE_THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+#define MC_CASE(N, R)                                                       \
+  case R * 100 + N:                                                         \
+    mc_first_state_kernel<N, R><<<grid, MC_FIRST_STATE_THREADS, 0, st>>>(  \
+        state, seed, first_table, sb, bb, ss);                              \
+    return (int)cudaGetLastError();
   MC_ENGINE_DISPATCH(MC_CASE)
 #undef MC_CASE
 }

@@ -786,6 +786,96 @@ MC_HD void mc_run_prng(MCTable<P, R, Rows>& s, Src& src, int n_steps,
   }
 }
 
+// The first hand's scalar rules (ops/cuda_engine._first_hand, which
+// pack_state follows): under standard and tournament rules the blinds are
+// capped at the stack and a seat whose blind takes its whole stack is
+// all-in; the street opens at levels lo = min(sb, bb) (2 contributors)
+// and, when the blinds differ, hi = max(sb, bb) (1).
+struct MCFirstHand {
+  int sb, bb, all_in, lo, hi;
+};
+
+template <int P, int R>
+MC_HD MCFirstHand mc_first_hand(int sb, int bb, int ss) {
+  MCFirstHand h;
+  if (R != MC_REFERENCE) {
+    sb = mc_min(sb, mc_max(ss, 0));
+    bb = mc_min(bb, mc_max(ss, 0));
+  }
+  h.sb = sb;
+  h.bb = bb;
+  h.all_in = 0;
+  if (R != MC_REFERENCE) {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      if (mc_sub(ss, p == 0 ? sb : (p == 1 ? bb : 0)) <= 0)
+        h.all_in |= 1 << p;
+  }
+  h.lo = mc_min(sb, bb);
+  h.hi = mc_max(sb, bb);
+  return h;
+}
+
+// Table `table`'s F packed rows of a request's first state, row f at
+// rows[f * stride], each written once: pack_state(cfg, first_deal(...))
+// of that table. The first deal is 2P+5 cards drawn with no dead cards
+// from Philox stream (seed, table, 0, 1), which no kernel draws from:
+// holes round-robin (hole0 of seat k the k-th card, hole1 the (P+k)-th),
+// then the board. Blinds posted (mc_first_hand), the cursor after the big
+// blind, every other row 0 but bust_at (-1: nobody has busted).
+template <int P, int R>
+MC_HD void mc_first_state_rows(int* rows, long long stride, uint32_t seed,
+                               uint32_t table, int sb, int bb, int ss) {
+  using Lay = MCLayout<P, R>;
+  using C = MCCold<P, R>;
+  constexpr int NC = 2 * P + 5, full = (1 << P) - 1;
+  constexpr int HOLE0 = C::field(C::HOLE0), BOARD = C::field(C::BOARD),
+                HAND_START = C::field(C::HAND_START);
+  const MCFirstHand h = mc_first_hand<P, R>(sb, bb, ss);
+  int cards[NC];
+  MCPhiloxWords src(seed, table, 0u, 1u);
+  mc_sample_cards<NC>(src, nullptr, 0, cards);
+  // f is a constant once unrolled, so every test below folds
+#pragma unroll
+  for (int f = 0; f < mc_fields<P, R>(); ++f) {
+    int v = 0;
+    if (f == Lay::CURSOR)
+      v = 2 % P;
+    else if (f == Lay::LAST_RAISER)
+      v = P;
+    else if (f == Lay::IN_HAND)
+      v = full;
+    else if (f == Lay::TO_ACT || f == Lay::ORDER)
+      v = full & ~h.all_in;
+    else if (f >= Lay::STACKS && f < Lay::STACKS + P)
+      v = mc_sub(ss, f == Lay::STACKS ? h.sb
+                     : f == Lay::STACKS + 1 ? h.bb : 0);
+    else if (f == Lay::CONTRIB)
+      v = h.sb;
+    else if (f == Lay::CONTRIB + 1)
+      v = h.bb;
+    else if (f >= HOLE0 && f < HOLE0 + 2 * P)  // hole0, then hole1
+      v = cards[f - HOLE0];
+    else if (f >= HAND_START && f < HAND_START + P)
+      v = ss;
+    else if (f >= BOARD && f < BOARD + 5)
+      v = cards[2 * P + f - BOARD];
+    else if (f == Lay::LVL)
+      v = h.lo;
+    else if (f == Lay::LVL + 1)
+      v = h.lo != h.hi ? h.hi : 0;
+    else if (f == Lay::LN)
+      v = 2;
+    else if (f == Lay::LN + 1)
+      v = h.lo != h.hi ? 1 : 0;
+    else if (R != MC_REFERENCE && f == Lay::TAIL)
+      v = h.all_in;
+    else if (R == MC_TOURNAMENT && f > Lay::TAIL)
+      v = -1;
+    rows[f * stride] = v;
+  }
+}
+
 #ifdef __CUDACC__
 // Launch configuration of the kernels that keep their cold rows in shared
 // memory (K3, K4, the stage probe): MC_ENGINE_THREADS tables a block (chosen

@@ -73,6 +73,7 @@ MIN_SEATS, MAX_SEATS = 2, 10
 
 P_ = ctypes.c_void_p
 I_ = ctypes.c_int
+U_ = ctypes.c_uint
 LL_ = ctypes.c_longlong
 ULL_ = ctypes.c_ulonglong
 
@@ -89,6 +90,7 @@ SIGNATURES = {
 SEAT_SIGNATURES = {
     "mc_engine_det": [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_, P_],
     "mc_engine_prng": [P_, I_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, P_],
+    "mc_first_state": [P_, U_, LL_, I_, I_, I_, I_, I_, I_, P_],
     "mc_net_det": [P_, P_, P_, I_, I_, I_, I_, I_, I_, I_, I_, ULL_, P_],
     "mc_net_eval": [P_, I_, P_, P_, I_, I_, I_, I_, I_, I_, I_, I_, I_, I_,
                     I_, I_, I_, I_, ULL_, P_, P_],

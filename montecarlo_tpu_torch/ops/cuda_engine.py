@@ -1,4 +1,4 @@
-"""Whole-step betting engine on the card: kernels K3 and K4.
+"""Whole-step betting engine on the card: K3, K4 and the first state.
 
 The counterpart of ``montecarlo_tpu/ops/pallas_engine.py:1-983``. The
 state is the JAX engine's packed per-table array, unchanged:
@@ -14,6 +14,10 @@ state in and out as it is.
   Philox words (or injected words). ``prng_words`` computes the kernel's
   Philox words in plain PyTorch, so for a given seed the CPU wrapper and
   the kernel return the same state.
+- A request's first state (``mc_first_state_kernel``, ``first_state``):
+  the first deal and its packing in one launch; its plain version is
+  ``pack_state(cfg, first_deal(...))``, which scripts and tests also call
+  on cards of their own.
 
 Reference, standard and tournament rules, selected statically as in the
 JAX engine (a template parameter of the kernels). Seat counts 2..10 are
@@ -52,7 +56,7 @@ from montecarlo_tpu_torch.ops.evaluator import (
     eval_masks_cmp_impl,
     suit_masks_from_cards,
 )
-from montecarlo_tpu_torch.ops.philox import stream_words, words_as_i32
+from montecarlo_tpu_torch.ops.philox import MASK, stream_words, words_as_i32
 from montecarlo_tpu_torch.utils.profiling import span
 
 I32 = torch.int32
@@ -78,8 +82,9 @@ MAX_RAISES_PER_STREET = 2
 MAX_SEATS = 10
 
 RULES = ("reference", "standard", "tournament")
-LAUNCHES = {f"engine_{mode}_{rules}": 0
-            for mode in ("det", "prng") for rules in RULES}
+LAUNCHES = {**{f"engine_{mode}_{rules}": 0
+               for mode in ("det", "prng") for rules in RULES},
+            **{f"first_state_{rules}": 0 for rules in RULES}}
 
 
 def reset_launches() -> None:
@@ -128,25 +133,55 @@ def _check_config(P: int, rules: str) -> None:
 # Host-side pack / unpack
 # ---------------------------------------------------------------------------
 
+def _check_first_hand(cfg) -> None:
+    """The first hand's checks: seats, rules, blinds positive."""
+    _check_config(cfg.num_seats, cfg.rules)
+    if cfg.small_blind <= 0 or cfg.big_blind <= 0:
+        raise ValueError("blinds must be positive")
+
+
+def _first_hand(cfg):
+    """The first hand's scalar rules, checked (``_check_first_hand``):
+    ``(sb, bb, stacks, all_in, lvl, ln)``. Under standard and tournament
+    rules the blinds are capped at the stack and ``all_in`` has the seats
+    whose blind takes the whole stack (0 under reference rules); ``stacks``
+    [P] are the stacks after the blinds; the street opens at ``lvl``
+    min(sb, bb) with 2 contributors and, when the blinds differ, max(sb,
+    bb) with 1 (``ln``). ``pack_state`` packs them; the card's first state
+    computes the same rules in the kernel (``csrc/engine.cuh``
+    ``mc_first_hand``)."""
+    _check_first_hand(cfg)
+    P, rules = cfg.num_seats, cfg.rules
+    sb, bb, ss = cfg.small_blind, cfg.big_blind, cfg.starting_stack
+    if rules != "reference":  # blinds capped at the stack
+        sb, bb = min(sb, max(ss, 0)), min(bb, max(ss, 0))
+    stacks = [ss - blind for blind in [sb, bb] + [0] * (P - 2)]
+    all_in = 0
+    if rules != "reference":  # all-in blinds sit out, showdown-live
+        all_in = sum(int(st <= 0) << k for k, st in enumerate(stacks))
+    lo, hi = min(sb, bb), max(sb, bb)
+    lvl, ln = ([lo], [2]) if lo == hi else ([lo, hi], [2, 1])
+    return sb, bb, stacks, all_in, lvl, ln
+
+
+def _check_tables(n_tables: int) -> None:
+    if n_tables % TABLES_PER_BLOCK:
+        raise ValueError(f"{n_tables} tables: not a multiple of "
+                         f"{TABLES_PER_BLOCK}")
+
+
 def pack_state(cfg, first_cards) -> torch.Tensor:
     """Initial packed state for ``n_tables`` tables, first hand dealt from
     ``first_cards`` [n_tables, 2P+5] (holes round-robin, then the board)
-    and blinds posted. Returns [n_blocks, F, 8, 128] int32 on the device
-    of ``first_cards``."""
+    and blinds posted (``_first_hand``). Returns [n_blocks, F, 8, 128]
+    int32 on the device of ``first_cards``."""
     with span("pack_state"):
         P, rules = cfg.num_seats, cfg.rules
-        _check_config(P, rules)
+        sb, bb, stacks, all_in, lvl, ln = _first_hand(cfg)
         layout, F = _field_layout(P, rules)
         fc = torch.as_tensor(first_cards).to(I32)
         n_tables = fc.shape[0]
-        if n_tables % TABLES_PER_BLOCK:
-            raise ValueError(f"{n_tables} tables: not a multiple of "
-                             f"{TABLES_PER_BLOCK}")
-        sb, bb, ss = cfg.small_blind, cfg.big_blind, cfg.starting_stack
-        if sb <= 0 or bb <= 0:
-            raise ValueError("blinds must be positive")
-        if rules != "reference":  # blinds capped at the stack
-            sb, bb = min(sb, max(ss, 0)), min(bb, max(ss, 0))
+        _check_tables(n_tables)
         rows = torch.zeros((F, n_tables), dtype=I32, device=fc.device)
 
         def put(name, i, val):
@@ -158,16 +193,11 @@ def pack_state(cfg, first_cards) -> torch.Tensor:
         put("cursor", 0, 2 % P)
         put("last_raiser", 0, P)
         put("in_hand", 0, full)
-        all_in = 0
         for k in range(P):
-            blind = sb if k == 0 else (bb if k == 1 else 0)
-            put("stacks", k, ss - blind)
-            put("hand_start", k, ss)
-            all_in |= (ss - blind <= 0) << k
-        if rules != "reference":  # all-in blinds sit out, showdown-live
+            put("stacks", k, stacks[k])
+            put("hand_start", k, cfg.starting_stack)
+        if rules != "reference":
             put("all_in", 0, all_in)
-        else:
-            all_in = 0
         if rules == "tournament":  # nobody has busted yet
             for k in range(P):
                 put("bust_at", k, -1)
@@ -176,12 +206,9 @@ def pack_state(cfg, first_cards) -> torch.Tensor:
         for k in range(P):
             put("hole0", k, fc[:, k])
             put("hole1", k, fc[:, P + k])
-        lo, hi = min(sb, bb), max(sb, bb)
-        put("lvl", 0, lo)
-        put("ln", 0, 2)
-        if lo != hi:
-            put("lvl", 1, hi)
-            put("ln", 1, 1)
+        for i, (level, n) in enumerate(zip(lvl, ln)):
+            put("lvl", i, level)
+            put("ln", i, n)
         put("contrib", 0, sb)
         put("contrib", 1, bb)
         for i in range(5):
@@ -958,17 +985,47 @@ def first_deal(seed: int, n_tables: int, P: int, device=None,
             return torch.stack(_sample_cards(words, []), dim=1)
 
 
+def first_state(seed: int, cfg, n_tables: int, device=None,
+                first_table: int = 0) -> torch.Tensor:
+    """A request's first packed state on ``device`` (the card when None):
+    ``pack_state(cfg, first_deal(seed, n_tables, P, device,
+    first_table))``. On the CPU it is that call; on the card one launch of
+    ``mc_first_state_kernel`` (``csrc/engine.cu``) writes the same rows,
+    bit for bit, under the span ``first_deal``. Table indices
+    ``first_table .. first_table + n_tables - 1`` must lie in [0, 2^32),
+    where ``first_deal``'s streams are."""
+    dev = resolve(device)
+    if first_table < 0 or first_table + n_tables > 1 << 32:
+        raise ValueError(f"tables {first_table} .. {first_table + n_tables}"
+                         f" - 1: outside [0, 2^32)")
+    if dev.type != "cuda":
+        return pack_state(cfg, first_deal(seed, n_tables, cfg.num_seats,
+                                          dev, first_table))
+    with span("first_deal"):
+        P, rules = cfg.num_seats, cfg.rules
+        _check_first_hand(cfg)
+        _check_tables(n_tables)
+        nb = n_tables // TABLES_PER_BLOCK
+        state = torch.empty((nb, _field_layout(P, rules)[1], *TILE),
+                            dtype=I32, device=dev)
+        _build.check(_build.library(P).mc_first_state(
+            state.data_ptr(), int(seed) & MASK, first_table, nb, P,
+            RULES.index(rules), cfg.small_blind, cfg.big_blind,
+            cfg.starting_stack, _build.stream_ptr(dev)), "mc_first_state")
+        LAUNCHES[f"first_state_{rules}"] += 1
+        return state
+
+
 def selfplay_perpetual_kernel(seed: int, cfg, n_tables: int, n_steps: int,
                               steps_per_launch: int = 512, device=None):
     """Random-policy perpetual self-play on ``device`` (the card when
     None), under any rule set: the first hand dealt from a seeded
-    generator, every later deal and policy draw in the kernel.
+    generator (``first_state``), every later deal and policy draw in the
+    kernel.
 
     Returns ``(final_packed_state, hands_completed, overflowed_tables)``.
     """
-    _check_config(cfg.num_seats, cfg.rules)
-    state = pack_state(cfg, first_deal(seed, n_tables, cfg.num_seats,
-                                       device))
+    state = first_state(seed, cfg, n_tables, device)
     done = 0
     while done < n_steps:
         chunk = min(steps_per_launch, n_steps - done)
@@ -1000,7 +1057,7 @@ def tournaments_to_completion(seed: int, cfg, n_tables: int,
     relaunched until every table has frozen (one player holds every chip):
     total placements, no unfinished tail.
 
-    The first deal comes from ``first_deal`` (Philox, so a seed does not
+    The first deal comes from ``first_state`` (Philox, so a seed does not
     reproduce a JAX run); launch seeds are (seed + steps done * 7919) &
     0x7FFFFFFF. Frozen tables are no-ops inside the kernel. Between
     launches the frozen count (``order == 0``, which only a launch boundary
@@ -1010,8 +1067,7 @@ def tournaments_to_completion(seed: int, cfg, n_tables: int,
     live tables."""
     if cfg.rules != "tournament":
         raise ValueError(f"rules={cfg.rules!r}: expected 'tournament'")
-    _check_config(cfg.num_seats, cfg.rules)
-    state = pack_state(cfg, first_deal(seed, n_tables, cfg.num_seats, device))
+    state = first_state(seed, cfg, n_tables, device)
     return run_to_completion(seed, state, cfg, steps_per_launch, max_steps)
 
 

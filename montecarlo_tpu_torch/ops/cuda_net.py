@@ -567,10 +567,9 @@ def net_occupancy(kernel: str, P: int, rules: str, n_banks: int = 1):
 # ---------------------------------------------------------------------------
 
 def initial_packed_state(seed: int, cfg, n_tables: int, device=None):
-    """First-hand packed state from ``ce.first_deal`` (Philox, the same on
+    """First-hand packed state from ``ce.first_state`` (Philox, the same on
     every device) on ``device`` (the card when None)."""
-    return ce.pack_state(cfg, ce.first_deal(seed, n_tables, cfg.num_seats,
-                                            device))
+    return ce.first_state(seed, cfg, n_tables, device)
 
 
 def deal_stash(seed: int, n_tables: int, P: int, hmax: int, device=None):

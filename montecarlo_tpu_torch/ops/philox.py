@@ -13,7 +13,7 @@ i // 4. Words are int64 in [0, 2^32), as everywhere in the plain versions.
 
 The sub-streams taken, with stream_lo (and stream_hi) their index:
 - 0: K1's rollouts (the rollout) and K4/K6's tables (the table);
-- 1: ``cuda_engine.first_deal`` (the table);
+- 1: ``cuda_engine.first_deal`` and the card's ``first_state`` (the table);
 - 2: ``cuda_net.deal_stash`` (the table, stream_hi the hand);
 - h + 1 for hand h < 65535: K2's rollouts of hand h (the rollout);
 - 65536: B3's rollouts (``cuda_equity.MULTIWAY_SUB``);

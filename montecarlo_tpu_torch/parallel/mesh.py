@@ -291,20 +291,19 @@ def _hand_count(mesh: Mesh, state, cfg: TableConfig) -> int:
 def sharded_selfplay_kernel(mesh: Mesh, seed: int, cfg: TableConfig,
                             blocks_per_device: int = 64,
                             n_steps: int = 256):
-    """The engine kernel K4 on the mesh: rank r deals its blocks' first
-    hands as rows r T .. (r + 1) T - 1 of ``cuda_engine.first_deal(seed,
-    W T, P)``, packs them, and runs ONE launch of ``n_steps`` slots with
+    """The engine kernel K4 on the mesh: rank r's first state is tables
+    r T .. (r + 1) T - 1 of ``cuda_engine.first_state(seed, cfg, W T)``
+    (``first_table`` r T), and it runs ONE launch of ``n_steps`` slots with
     seed (``seed`` + 7919 r) & 0x7FFFFFFF; the completed-hand counter is
     ``all_reduce``d. On one rank it is ``selfplay_perpetual_kernel``'s
     single launch. Returns (the rank's final packed state, total
     hands)."""
     T = blocks_per_device * ce.TABLES_PER_BLOCK
     P = cfg.num_seats
-    first = ce.first_deal(seed, T, P, mesh.device, mesh.rank * T)
+    first = ce.first_state(seed, cfg, T, mesh.device, mesh.rank * T)
     out = ce.run_perpetual_prng(
-        (seed + K4_RANK_STRIDE * mesh.rank) & 0x7FFFFFFF,
-        ce.pack_state(cfg, first), P, n_steps, cfg.small_blind,
-        cfg.big_blind, rules=cfg.rules)
+        (seed + K4_RANK_STRIDE * mesh.rank) & 0x7FFFFFFF, first, P,
+        n_steps, cfg.small_blind, cfg.big_blind, rules=cfg.rules)
     return out, _hand_count(mesh, out, cfg)
 
 

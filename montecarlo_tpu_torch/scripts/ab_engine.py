@@ -199,12 +199,11 @@ def inputs(dev, libs):
               (("reference", cfg), ("standard", std),
                ("tournament", tour_short))}
     del deal
-    fd = ce.first_deal(SEED, T_FULL, P, dev)
-    sp_in = {"reference": ce.pack_state(cfg, fd),
-             "standard": ce.pack_state(std, fd)}
+    sp_in = {rules: ce.first_state(SEED, c, T_FULL, dev) for rules, c in
+             (("reference", cfg), ("standard", std))}
     # the completion run's launch states (this tree's kernels; every
     # launch's state is the same on both, which the A/B checks)
-    tour_states, state, done = [], ce.pack_state(tour, fd), 0
+    tour_states, state, done = [], ce.first_state(SEED, tour, T_FULL, dev), 0
     while True:
         tour_states.append(((SEED + done * 7919) & 0x7FFFFFFF, state))
         with using(libs):
@@ -213,7 +212,7 @@ def inputs(dev, libs):
         done += TOUR_LAUNCH
         if int((ce.unpack_field(state, tour, "order") == 0).sum()) == T_FULL:
             break
-    del state, fd
+    del state
     es3 = tpn.load_params("data/policy_6max_es3.npz")
     p200 = tpn.load_params("data/policy_6max_200.npz")
     panel = bots.panel()

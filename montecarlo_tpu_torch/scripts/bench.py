@@ -51,8 +51,7 @@ from montecarlo_tpu_torch.device import resolve
 from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.models.policy_net import load_params
 from montecarlo_tpu_torch.ops.cuda_engine import (
-    first_deal,
-    pack_state,
+    first_state,
     run_perpetual_prng,
     unpack_field,
 )
@@ -131,7 +130,7 @@ def _run_selfplay_kernel(n_tables=1 << 20, n_steps=512, device=None):
     dev = resolve(device)
     cfg = TableConfig(num_seats=6)
     P = cfg.num_seats
-    state0 = pack_state(cfg, first_deal(0, n_tables, P, dev))
+    state0 = first_state(0, cfg, n_tables, dev)
 
     def once(seed):
         t0 = time.perf_counter()

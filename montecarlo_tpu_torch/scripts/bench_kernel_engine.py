@@ -3,12 +3,12 @@
 
 Throughput: K4 (``ops/cuda_engine.run_perpetual_prng``: random-policy
 perpetual play, 6 seats) over ``--steps`` slots of ``--tables`` tables
-from one first state, built outside the timed region (``first_deal`` +
-``pack_state``: Philox, where the JAX script deals threefry
-permutations); one warm-up, then the best of 3 on the host clock, the
-hand count's read to the host being the sync; the overflow latch is
-asserted 0 after every run. ``--smoke``: ``selfplay_perpetual_kernel`` at
-1024 tables x 64 slots, its first call (the kernels' build included).
+from one first state, built outside the timed region (``first_state``:
+Philox, where the JAX script deals threefry permutations); one warm-up,
+then the best of 3 on the host clock, the hand count's read to the host
+being the sync; the overflow latch is asserted 0 after every run.
+``--smoke``: ``selfplay_perpetual_kernel`` at 1024 tables x 64 slots, its
+first call (the kernels' build included).
 
     python -m montecarlo_tpu_torch.scripts.bench_kernel_engine
         [--tables N] [--steps S] [--smoke] [--rules reference|standard]
@@ -29,8 +29,7 @@ import torch
 from montecarlo_tpu_torch.device import resolve
 from montecarlo_tpu_torch.engine.state import TableConfig
 from montecarlo_tpu_torch.ops.cuda_engine import (
-    first_deal,
-    pack_state,
+    first_state,
     run_perpetual_prng,
     selfplay_perpetual_kernel,
     unpack_field,
@@ -68,7 +67,7 @@ def main(argv=None, device=None) -> dict:
 
     # The first state, built once: steady-state throughput is the kernel.
     P = cfg.num_seats
-    state0 = pack_state(cfg, first_deal(0, args.tables, P, dev))
+    state0 = first_state(0, cfg, args.tables, dev)
 
     def once(seed):
         t0 = time.perf_counter()

@@ -5,14 +5,13 @@ K6 (``data/policy_6max_200.npz`` at seat 0, the random policy elsewhere,
 standard rules, 6 seats) with one piece of the net decision stubbed at a
 time (``ops/cuda_net_split.py``: ``stub_gumbel``, ``stub_feat_eval``,
 ``stub_features``, ``stub_net``; ``full`` is K6 itself), at the JAX
-script's 2^16 tables x 256 slots from one first state (``first_deal`` +
-``pack_state``: Philox, where the JAX script deals threefry
-permutations). Each variant is its own nvcc build (all started at once);
-each is timed after one warm-up, best of 3 (CUDA events), every run from
-the same seed. Prints one JSON line a variant: ns per table-step, the
-hands completed and hands/s, the net decisions, nvcc's seconds and
-ptxas's registers, stack and spills. Variants change what the kernel
-computes: measurement only.
+script's 2^16 tables x 256 slots from one first state (``first_state``:
+Philox, where the JAX script deals threefry permutations). Each variant
+is its own nvcc build (all started at once); each is timed after one
+warm-up, best of 3 (CUDA events), every run from the same seed. Prints
+one JSON line a variant: ns per table-step, the hands completed and
+hands/s, the net decisions, nvcc's seconds and ptxas's registers, stack
+and spills. Variants change what the kernel computes: measurement only.
 
     python -m montecarlo_tpu_torch.scripts.exp_net_split [variant ...]
         [--tables N] [--steps S] [--device cpu]
@@ -93,8 +92,7 @@ def main(argv=None, device=None) -> dict:
     cfg = TableConfig(num_seats=6, rules="standard", bets_impl="levels")
     if dev.type == "cuda":
         _build.build_probes("net_split", variants, cfg.num_seats)
-    state0 = ce.pack_state(cfg, ce.first_deal(0, args.tables, cfg.num_seats,
-                                              dev))
+    state0 = ce.first_state(0, cfg, args.tables, dev)
     weights = cn.net_weights(load_params(ARTIFACT), dev)
     return {tag: measure(cfg, state0, weights, tag, args.steps)
             for tag in variants}

@@ -5,7 +5,7 @@ K4 (random-policy perpetual play, reference rules, 6 seats) with one piece
 of its step stubbed at a time (``ops/cuda_split.py``: ``stub_settle``,
 ``stub_eval``, ``stub_deal``, ``stub_policy``, ``stub_street``; ``full``
 is K4 itself), at the JAX script's 2^20 tables x 512 slots from one first
-state (``first_deal`` + ``pack_state``: Philox, where the JAX script deals
+state (``first_state``: Philox, where the JAX script deals
 threefry permutations). Each variant is its own nvcc build (all started at
 once); each is timed after one warm-up, best of 3 (CUDA events), every run
 from the same seed (the JAX script salts its seeds with ``hash(tag)``,
@@ -41,10 +41,9 @@ VARIANTS = csp.VARIANTS
 
 
 def build_state(cfg, device=None, n_tables: int = N_TABLES):
-    """The first state: every table's first hand from ``first_deal(0)``,
+    """The first state: every table's first hand from ``first_state(0)``,
     blinds posted."""
-    return ce.pack_state(cfg, ce.first_deal(0, n_tables, cfg.num_seats,
-                                            device))
+    return ce.first_state(0, cfg, n_tables, device)
 
 
 def measure(cfg, state0, tag, n_steps: int = N_STEPS, runs: int = RUNS):

@@ -693,6 +693,35 @@ static void engine(const char* mode, const int* in, Out& out) {
   out.insert(out.end(), res.begin(), res.end());
 }
 
+// The first-state kernel's tables, one at a time, at their offsets in a
+// packed state [n_blocks, F, 8, 128]: in = P, rules, seed, first_table
+// (hi, lo), n_tables, sb, bb, ss.
+template <int P, int R>
+static void first_state(const int* in, Out& out) {
+  uint32_t seed = in[2];
+  long long first = ((long long)in[3] << 32) | (uint32_t)in[4];
+  int n = in[5];
+  std::vector<int> state((size_t)n * mc_fields<P, R>(), 0x5A5A5A5A);
+  for (int t = 0; t < n; ++t)
+    mc_first_state_rows<P, R>(mc_table_rows<P, R>(state.data(), t),
+                              MC_TABLES_PER_BLOCK, seed,
+                              (uint32_t)(first + t), in[6], in[7], in[8]);
+  out.insert(out.end(), state.begin(), state.end());
+}
+
+static int first_state_any(const int* in, Out& out) {
+  switch (in[1] * 100 + in[0]) {
+#define MC_FS(N)                                                    \
+  case N: first_state<N, MC_REFERENCE>(in, out); return 0;          \
+  case 100 + N: first_state<N, MC_STANDARD>(in, out); return 0;     \
+  case 200 + N: first_state<N, MC_TOURNAMENT>(in, out); return 0;
+    MC_FS(2) MC_FS(3) MC_FS(4) MC_FS(5) MC_FS(6) MC_FS(7) MC_FS(8)
+    MC_FS(9) MC_FS(10)
+#undef MC_FS
+    default: return 2;
+  }
+}
+
 int main(int argc, char** argv) {
   if (argc != 4) return 2;
   std::vector<int> in;
@@ -752,6 +781,8 @@ int main(int argc, char** argv) {
       case 6: head<6>(in.data(), in.size(), out); break;
       default: return 2;
     }
+  } else if (!strcmp(argv[1], "first_state")) {
+    if (first_state_any(in.data(), out)) return 2;
   } else if (!strcmp(argv[1], "det_settle_min")) {
     out.push_back(MC_DET_SETTLE_MIN);
   } else if (!strcmp(argv[1], "key")) {
@@ -1253,6 +1284,37 @@ def test_engine_prng_word_offsets_device_code_equals_plain(harness, rules, P,
     got = _k4_harness(harness, "k4", state, cfg, 35, n_steps)
     _check_rows(got, ce.run_perpetual_prng(35, state, P, n_steps, 5, 10,
                                            rules=rules), cfg)
+
+
+# (starting stack, small blind, big blind, first table): blinds all-in
+# (5 and 10 chips at 5/10: the big blind capped, all_in; 3 chips: both
+# capped, to equal blinds), equal blinds (one street level), blinds in
+# the other order, and table indices up to 2^32 - 1.
+FIRST_STATES = [(100, 5, 10, 0), (5, 5, 10, 5 * 1024), (10, 5, 10, 0),
+                (3, 5, 10, 1024), (10, 10, 10, 1 << 31),
+                (200, 10, 5, (1 << 32) - 1024)]
+
+
+@pytest.mark.parametrize("rules", ce.RULES)
+@pytest.mark.parametrize("P", range(2, 11))
+def test_first_state_device_code_equals_pack_state(harness, P, rules):
+    """The first-state kernel's tables (``mc_first_state_rows``, one
+    thread's table at its offset in the packed state) equal
+    ``pack_state(cfg, first_deal(...))`` bit for bit, every row written."""
+    T = ce.TABLES_PER_BLOCK
+    for ss, sb, bb, first in FIRST_STATES:
+        cfg = TableConfig(num_seats=P, rules=rules, starting_stack=ss,
+                          small_blind=sb, big_blind=bb)
+        seed = 0x9E3779B9 + P
+        got = harness("first_state", [P, ce.RULES.index(rules), seed,
+                                      first >> 32, first & 0xFFFFFFFF, T,
+                                      sb, bb, ss])
+        want = ce.pack_state(cfg, ce.first_deal(seed, T, P, "cpu", first))
+        np.testing.assert_array_equal(
+            got.astype(np.int32).reshape(want.shape), want.numpy())
+        if rules != "reference":
+            all_in = ce.unpack_field(want, cfg, "all_in")
+            assert bool((all_in != 0).all()) == (ss <= bb)
 
 
 @pytest.mark.parametrize("P", [2, 3, 4, 5, 6])

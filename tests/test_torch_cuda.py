@@ -92,6 +92,46 @@ def test_selfplay_kernel_philox_equals_cpu(cuda, P, n_steps):
     assert torch.equal(k[0].cpu(), p[0]) and k[1:] == p[1:]
 
 
+@pytest.mark.parametrize("rules", ce.RULES)
+@pytest.mark.parametrize("P", [2, 6, 10])
+def test_first_state_kernel_equals_cpu(cuda, P, rules):
+    """One launch of the first-state kernel writes ``pack_state(cfg,
+    first_deal(...))`` on the CPU bit for bit: 2^16 and 3 x 1024 tables,
+    from table 0 and 5 x 1024, at 100 chips and at 5 (blinds all-in), a
+    seed above 2^31."""
+    seed = (1 << 31) + 12345 + P
+    for T, first, ss in [(1 << 16, 0, 100), (1 << 16, 5 * 1024, 5),
+                         (3 * 1024, 0, 5), (3 * 1024, 5 * 1024, 100)]:
+        cfg = TableConfig(num_seats=P, rules=rules, starting_stack=ss)
+        before = dict(ce.LAUNCHES)
+        k = ce.first_state(seed, cfg, T, cuda, first)
+        assert {n: v - before[n] for n, v in ce.LAUNCHES.items() if v
+                != before[n]} == {f"first_state_{rules}": 1}
+        want = ce.pack_state(cfg, ce.first_deal(seed, T, P, "cpu", first))
+        assert k.dtype == torch.int32 and torch.equal(k.cpu(), want)
+
+
+def test_first_state_callers_card_equal_cpu(cuda):
+    """``initial_packed_state`` and self-play from their first state: each
+    call launches the first-state kernel once and returns what the CPU
+    returns (``tournaments_to_completion``:
+    ``test_tournaments_to_completion_kernel_equals_cpu``, which counts
+    its launch here)."""
+    std = TableConfig(num_seats=6, rules="standard")
+    tour = TableConfig(num_seats=6, rules="tournament", starting_stack=12)
+    T = 2 * ce.TABLES_PER_BLOCK
+    ce.reset_launches()
+    assert torch.equal(cn.initial_packed_state(21, std, T, cuda).cpu(),
+                       cn.initial_packed_state(21, std, T, "cpu"))
+    k = ce.selfplay_perpetual_kernel(22, std, T, 32, 16, cuda)
+    p = ce.selfplay_perpetual_kernel(22, std, T, 32, 16, "cpu")
+    assert torch.equal(k[0].cpu(), p[0]) and k[1:] == p[1:]
+    ce.tournaments_to_completion(23, tour, T, 512, device=cuda)
+    assert {n: v for n, v in ce.LAUNCHES.items() if n.startswith(
+        "first_state_") and v} == {"first_state_standard": 2,
+                                   "first_state_tournament": 1}
+
+
 def test_sweep_kernel_equals_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     heroes = torch.tensor([list(c) for _, c in teq.canonical_hands()[:20]],

@@ -257,3 +257,22 @@ def test_selfplay_cpu_runs_every_rule_set():
     with pytest.raises(ValueError, match="net kernels"):
         cn.selfplay_net_eval_kernel(0, tour, tpn.load_params(
             "data/policy_6max_es3.npz"), 1, T, 16, device="cpu")
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(n_tables=1000), "not a multiple"),
+    (dict(small_blind=0), "blinds must be positive"),
+    (dict(num_seats=11), "num_seats"),
+    (dict(rules="cash"), "rules"),
+    (dict(first_table=-1024), "outside"),
+    (dict(first_table=(1 << 32) - 1023), "outside")])
+def test_first_state_checks_its_inputs(bad, match):
+    """``first_state`` refuses what ``pack_state`` refuses, and tables
+    outside the 2^32 streams of ``first_deal``."""
+    args = dict(num_seats=6, rules="standard", small_blind=5,
+                n_tables=ce.TABLES_PER_BLOCK, first_table=0)
+    args.update(bad)
+    cfg = TableConfig(num_seats=args["num_seats"], rules=args["rules"],
+                      small_blind=args["small_blind"])
+    with pytest.raises(ValueError, match=match):
+        ce.first_state(1, cfg, args["n_tables"], "cpu", args["first_table"])

@@ -256,3 +256,20 @@ def test_wrapper_spans_nest_and_leave_outputs_bit_equal(call):
         if parent >= 0:
             assert got[parent][1] <= start <= end <= got[parent][2]
     assert _same(off, on)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_first_state_spans(device):
+    """The card's first state is one launch under one ``first_deal`` span a
+    call, with no words, cards or ``pack_state`` inside; the CPU's is
+    ``first_deal`` (its words and cards) and then ``pack_state``."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    ce.first_state(3, STD6, T, device)  # the card builds its library
+    with _profiled():
+        for _ in range(2):
+            ce.first_state(3, STD6, T, device)
+    spans = profiling.spans()
+    got = [(n, None if p < 0 else spans[p][0]) for n, _, _, p in spans]
+    assert got == 2 * (FIRST if device == "cpu" else [("first_deal", None)])
